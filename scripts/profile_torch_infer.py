@@ -23,7 +23,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from torch_tts_tpu.text import symbols
+from torch_tts_tpu_torch.text import symbols
 from torch_tts_tpu_torch.core.config import VITS2Config
 from torch_tts_tpu_torch.models.vits2 import build_synthesizer
 

@@ -109,7 +109,7 @@ def test_seeded_init_is_deterministic():
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
 
     cfg = dataclasses.replace(config.VITS2Config(), model=config.VITS2ModelConfig(**TINY))
-    a, b = (build_synthesizer(cfg, 20, seed=3).state_dict() for _ in range(2))
-    c = build_synthesizer(cfg, 20, seed=4).state_dict()
+    a, b = (build_synthesizer(cfg, 20, seed=3, device="cpu").state_dict() for _ in range(2))
+    c = build_synthesizer(cfg, 20, seed=4, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not all(torch.equal(a[k], c[k]) for k in a)

@@ -1,13 +1,20 @@
 """Package rules of the PyTorch port (torch_tts_tpu_torch).
 
 - Importing every module of the package leaves jax out of sys.modules
-  (checked in a fresh interpreter).
+  (checked in a fresh interpreter), and no module of the package, nor
+  chip_smoke.py, imports the JAX package `torch_tts_tpu` (an AST scan).
+- Entry points default to the card: `build_synthesizer` and `build_mpd`
+  take device="cuda" unless told otherwise.
 - Kernel wrappers take their plain version only for CPU tensors: another
-  device raises, and a missing nvcc raises instead of falling back.
+  device raises, and a missing nvcc raises instead of falling back;
+  `mrf_fused`, which has no backward, raises under autograd instead of
+  dropping the gradient.
 - The CLI synthesizes a WAV from a reference-format state dict on the CPU.
 """
 
+import ast
 import dataclasses
+import inspect
 import json
 import os
 import pathlib
@@ -37,6 +44,45 @@ def test_package_never_imports_jax():
     assert len(modules) >= 15
 
 
+def _imported_modules(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_never_imports_the_jax_package():
+    files = sorted((ROOT / "torch_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
+           if m.split(".")[0] in ("torch_tts_tpu", "jax", "jaxlib", "flax", "optax")]
+    assert not bad, bad
+    assert len(files) >= 25
+
+
+def test_entry_points_default_to_the_card():
+    from torch_tts_tpu_torch.models.vits2 import build_synthesizer
+    from torch_tts_tpu_torch.train.vits2_train import build_mpd
+
+    for fn in (build_synthesizer, build_mpd):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_mrf_fused_raises_instead_of_dropping_a_gradient():
+    from torch_tts_tpu_torch.kernels.mrf_fused import check_no_grad, dilated_offsets
+
+    w, b = torch.zeros(96, 32), torch.zeros(32)
+    blocks = ((((dilated_offsets(3, 1), w, b), (dilated_offsets(3, 1), w, b)),),)
+    check_no_grad(torch.zeros(1, 8, 32), blocks)
+    with pytest.raises(RuntimeError, match="no backward"):
+        check_no_grad(torch.zeros(1, 8, 32, requires_grad=True), blocks)
+    w.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        check_no_grad(torch.zeros(1, 8, 32), blocks)
+    with torch.no_grad():
+        check_no_grad(torch.zeros(1, 8, 32, requires_grad=True), blocks)
+
+
 def test_wrappers_raise_on_non_cpu_non_cuda_device():
     from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused
     from torch_tts_tpu_torch.kernels.wn_stack import wn_group
@@ -63,14 +109,14 @@ def test_build_dir_is_keyed_by_sources():
 
     d = build.library_dir()
     assert d.parent == ROOT / "build" / "torch_kernels" and len(d.name) == 16
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["mrf_fused.cu", "wn_stack.cu"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["mas.cu", "mrf_fused.cu", "wn_stack.cu"]
 
 
 def test_cli_writes_wav_on_cpu(tmp_path):
-    from torch_tts_tpu.text import symbols
     from torch_tts_tpu_torch.cli import vits2_infer
     from torch_tts_tpu_torch.core.config import VITS2Config, VITS2ModelConfig
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
+    from torch_tts_tpu_torch.text import symbols
 
     model_cfg = VITS2ModelConfig(
         inter_channels=8, hidden_channels=8, filter_channels=16, n_layers=2,
@@ -78,7 +124,7 @@ def test_cli_writes_wav_on_cpu(tmp_path):
         upsample_rates=(4, 2), upsample_initial_channel=16, upsample_kernel_sizes=(8, 4),
         posterior_wn_layers=2, fuse_mrf=True)
     cfg = VITS2Config(model=model_cfg)
-    model = build_synthesizer(cfg, len(symbols), seed=0)
+    model = build_synthesizer(cfg, len(symbols), seed=0, device="cpu")
     ckpt, cfg_path, wav = tmp_path / "G.pth", tmp_path / "c.json", tmp_path / "o.wav"
     torch.save({"model": model.state_dict()}, ckpt)
     cfg_path.write_text(json.dumps({"model": dataclasses.asdict(model_cfg),

@@ -8,7 +8,13 @@ ops/wavenet.py) against the JAX package.
   modules as the layerwise path (final layer's residual half zero-padded),
   equals the JAX WN(fused=True) and the port's own layerwise WN, also over
   several chained groups.
-- A CPU tensor takes the plain version and launches nothing (the kernel on
+- Gradients: the plain group's backward (autograd through
+  `wn_group_plain`, the plain version beside the backward kernel) equals
+  the Pallas backward kernel in interpret mode over several tiles and
+  `jax.vjp(wn_group_ref)`, with and without conditioning; a 16-layer
+  `wn_stack` (four chained groups) gives JAX's gradients (rtol 1e-4,
+  atol 1e-5).
+- A CPU tensor takes the plain version and launches nothing (the kernels on
   a card: tests/test_torch_cuda_kernels.py).
 """
 
@@ -19,9 +25,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_tts_tpu.kernels.wn_stack import _wn_group_pallas, wn_group_ref
+from torch_tts_tpu.kernels.wn_stack import (_wn_group_pallas, _wn_group_pallas_bwd,
+                                            wn_group_ref)
+from torch_tts_tpu.kernels.wn_stack import wn_stack as jax_wn_stack
 from torch_tts_tpu.ops.wavenet import WN as JaxWN
-from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_plain
+from torch_tts_tpu_torch.kernels.wn_stack import (wn_group, wn_group_backward,
+                                                  wn_group_backward_plain, wn_group_plain,
+                                                  wn_stack)
 from torch_tts_tpu_torch.models.vits2.convert import state_dict_from_jax_params
 from torch_tts_tpu_torch.ops.wavenet import WN
 
@@ -98,6 +108,66 @@ def test_fused_default_reads_env(monkeypatch):
     monkeypatch.setenv("TTS_FUSED_WN", "1")
     wn(x, m)
     assert calls == [1]
+
+
+GRAD_NAMES = ("d_x", "d_gl", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs")
+
+
+@pytest.mark.parametrize("T,tile,with_gl", [(57, 16, True), (30, 128, False)])
+def test_plain_group_gradients_match_pallas_bwd_and_vjp(T, tile, with_gl):
+    rng = np.random.default_rng(10 + T)
+    args = _group_inputs(rng, T=T, with_gl=with_gl)
+    d_xo, d_sk = (rng.standard_normal(args[0].shape).astype(np.float32) for _ in range(2))
+    got = wn_group_backward(*map(_t, args), _t(d_xo), _t(d_sk))
+    x, mask, gl, w_in, b_in, w_rs, b_rs = map(_j, args)
+    pallas = _wn_group_pallas_bwd(x, mask, gl, w_in, b_in, w_rs, b_rs, _j(d_xo), _j(d_sk),
+                                  tile=tile, interpret=True)
+    if with_gl:
+        _, vjp = jax.vjp(lambda x_, g_, a, b, c, d: wn_group_ref(x_, mask, g_, a, b, c, d),
+                         x, gl, w_in, b_in, w_rs, b_rs)
+        ref = vjp((_j(d_xo), _j(d_sk)))
+    else:
+        _, vjp = jax.vjp(lambda x_, a, b, c, d: wn_group_ref(x_, mask, None, a, b, c, d),
+                         x, w_in, b_in, w_rs, b_rs)
+        ref = vjp((_j(d_xo), _j(d_sk)))
+        ref = (ref[0], None) + tuple(ref[1:])
+    for name, g, p, r in zip(GRAD_NAMES, got, pallas, ref):
+        if not with_gl and name == "d_gl":
+            assert g is None and r is None
+            continue
+        np.testing.assert_allclose(g.numpy(), np.asarray(p), rtol=RTOL, atol=ATOL, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=RTOL, atol=ATOL, err_msg=name)
+
+
+def test_sixteen_layer_stack_gradients_match_jax():
+    """Four chained groups, as enc_q's WN: gradients of x, gl and every
+    weight through `wn_stack` equal JAX's through its custom_vjp chain."""
+    rng = np.random.default_rng(4)
+    B, T, H, L = 2, 33, 8, 16
+    x, mask, gl, w_in, b_in, w_rs, b_rs = _group_inputs(rng, B=B, T=T, H=H, L=L)
+    w_in, w_rs = w_in * 0.5, w_rs * 0.5
+    cot = rng.standard_normal((B, T, H)).astype(np.float32)
+    ins = [x, gl, w_in, b_in, w_rs, b_rs]
+
+    def jloss(x_, g_, a, b, c, d):
+        return jnp.sum(jax_wn_stack(x_, jnp.asarray(mask), g_, a, b, c, d) * cot)
+
+    want = jax.jit(jax.grad(jloss, argnums=tuple(range(6))))(*map(jnp.asarray, ins))
+    tins = [torch.from_numpy(a).requires_grad_() for a in ins]
+    out = wn_stack(tins[0], torch.from_numpy(mask), *tins[1:])
+    (out * torch.from_numpy(cot)).sum().backward()
+    for t, w in zip(tins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+def test_backward_plain_is_autograd_of_plain_group():
+    args = tuple(map(_t, _group_inputs(np.random.default_rng(6), B=1, T=12)))
+    d_xo, d_sk = torch.randn(1, 12, 8), torch.randn(1, 12, 8)
+    before = wn_group_backward.launches
+    got = wn_group_backward(*args, d_xo, d_sk)
+    assert wn_group_backward.launches == before
+    for a, b in zip(got, wn_group_backward_plain(*args, d_xo, d_sk)):
+        assert torch.equal(a, b)
 
 
 def test_cpu_tensor_takes_plain_version():

@@ -3,7 +3,7 @@
 
 `-m` takes a reference-format state dict (`.pth`, bare or {"model": ...}),
 such as `tts-convert-checkpoint --to-torch` writes from a JAX run dir.
-Text goes through `torch_tts_tpu.text` (cleaners from the config, blanks
+Text goes through `torch_tts_tpu_torch.text` (cleaners from the config, blanks
 interspersed when `add_blank`).
 
 Usage:
@@ -20,7 +20,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from torch_tts_tpu.text import intersperse, symbols, text_to_sequence
+from torch_tts_tpu_torch.text import intersperse, symbols, text_to_sequence
 from torch_tts_tpu_torch.core.config import VITS2Config, load_vits2_config
 from torch_tts_tpu_torch.models.vits2.model import SynthesizerTrn
 
@@ -31,7 +31,7 @@ def load_model(cfg: VITS2Config, checkpoint: str, device) -> SynthesizerTrn:
     blob = torch.load(checkpoint, map_location="cpu", weights_only=True)
     sd = blob["model"] if "model" in blob and isinstance(blob["model"], dict) else blob
     sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
-    model = SynthesizerTrn(len(symbols), cfg.posterior_channels, cfg.model)
+    model = SynthesizerTrn(len(symbols), cfg.posterior_channels, cfg.model, cfg.segment_frames)
     model.load_state_dict(sd, strict=True)
     return model.to(device).eval()
 

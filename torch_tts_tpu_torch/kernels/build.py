@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-`csrc/*.cu` compile with nvcc into one shared library with a plain C
-interface for sm_90a (Hopper), loaded with ctypes. The library is built at
-first use into `build/torch_kernels/<hash of sources and flags>/` under the
-repository root (listed in .gitignore), so a changed source rebuilds and an
-unchanged one loads at once. nvcc is found through `CUDA_HOME`, else
-`torch.utils.cpp_extension.CUDA_HOME`; without it the build raises.
+`csrc/*.cu` compile with nvcc, one process per source, all started
+together, into objects for sm_90a (Hopper) that one more nvcc links into a
+shared library with a plain C interface, loaded with ctypes. The library is
+built at first use into `build/torch_kernels/<hash of sources and flags>/`
+under the repository root (listed in .gitignore), so a changed source
+rebuilds and an unchanged one loads at once. nvcc is found through
+`CUDA_HOME`, else `torch.utils.cpp_extension.CUDA_HOME`; without it the
+build raises.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libtts_torch_kernels.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -30,8 +32,14 @@ _SIGNATURES = {
     # x, out, scratch0, scratch1, B, T, C, n_launch, meta (host int32),
     # w_ptrs, b_ptrs (host int64), stream
     "tts_mrf_fused_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # x, mask, gl, w_in, b_in, w_rs, b_rs, x_out, skip_out, B, T, H, L, k, tile, stream
-    "tts_wn_group_forward": (_P,) * 9 + (_I,) * 6 + (_P,),
+    # x, mask, gl, w_in, b_in, w_rs, b_rs, x_out, skip_out, save_x, save_xin,
+    # B, T, H, L, k, tile, stream
+    "tts_wn_group_forward": (_P,) * 11 + (_I,) * 6 + (_P,),
+    # mask, w_in, w_rs, save_x, save_xin, d_xo, d_sk, d_x, d_gl, d_w_in, d_b_in,
+    # d_w_rs, d_b_rs, work, B, T, H, L, k, stream
+    "tts_wn_group_backward": (_P,) * 14 + (_I,) * 5 + (_P,),
+    # neg_cent, t_ys, t_xs, path, bits, B, T_y, T_x, stream
+    "tts_mas_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
 }
 
 
@@ -65,13 +73,33 @@ def load_library() -> ctypes.CDLL:
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-        sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-                              capture_output=True, text=True)
-        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        nvcc, tag = nvcc_path(), os.getpid()
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out_dir / f"{src.stem}.{tag}.o"
+            objs.append(str(obj))
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, proc in procs:
+            out = proc.communicate()[0]
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out[-4000:]}")
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
+        (out_dir / "nvcc.log").write_text("".join(log))
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in _SIGNATURES.items():

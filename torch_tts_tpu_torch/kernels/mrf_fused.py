@@ -19,7 +19,10 @@ memory with the least recompute, and plans which window rows each conv
 computes (see the header of the .cu file).
 
 Dispatch: a CPU tensor takes `mrf_plain`; a CUDA tensor launches the kernel
-or raises. `mrf_fused.launches` counts kernel launches.
+or raises. `mrf_fused.launches` counts kernel launches. The kernel has no
+backward, as the TPU kernel has no VJP: under autograd, with any input that
+requires a gradient, a CUDA tensor raises instead of dropping it (the
+training decoder runs its plain convolutions, `fuse_mrf=False`).
 """
 
 from __future__ import annotations
@@ -185,12 +188,22 @@ def _check_cuda_args(x: torch.Tensor, blocks):
                                          f"{shape} on {x.device}")
 
 
+def check_no_grad(x: torch.Tensor, blocks):
+    """Raise when autograd would need the kernel's missing backward."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *(t for block in blocks for it in block
+                                           for _, w, b in it for t in (w, b)))):
+        raise RuntimeError("mrf_fused: the CUDA kernel has no backward; run the decoder's "
+                           "plain convolutions (fuse_mrf=False) when training")
+
+
 def mrf_fused(x: torch.Tensor, blocks) -> torch.Tensor:
     """Fused resblock bank: x [B, T, C] -> [B, T, C]."""
     if x.device.type == "cpu":
         return mrf_plain(x, blocks)
     if x.device.type != "cuda":
         raise ValueError(f"mrf_fused: unsupported device {x.device}")
+    check_no_grad(x, blocks)
     _check_cuda_args(x, blocks)
     B, T, C = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count

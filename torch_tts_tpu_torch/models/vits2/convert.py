@@ -11,6 +11,9 @@ numpy arrays) loads into this package's `SynthesizerTrn` with
   [out, in]; weight norm (g, v) -> weight_g [n, 1, 1], weight_v;
   LayerNorm scale/bias -> gamma/beta; embedding -> weight;
   ElementwiseAffine m/logs [C] -> [C, 1]; `resblock_i_j` -> `resblocks.{i*nk+j}`.
+
+`mpd_state_dict_from_jax_params` does the same for the multi-period
+discriminator (the JAX `export_mpd_torch_state_dict`).
 """
 
 from __future__ import annotations
@@ -54,10 +57,10 @@ def _torch_name(path: List[str], n_kernels: int) -> str:
     return ".".join(parts)
 
 
-def _placeholders(hidden: int) -> Dict[str, np.ndarray]:
-    """The never-used post_transformer of each of the 4 pre_conv flows."""
+def _placeholders(hidden: int, n_flows: int) -> Dict[str, np.ndarray]:
+    """The never-used post_transformer of each pre_conv flow."""
     out = {}
-    for fi in range(4):
+    for fi in range(n_flows):
         p = f"flow.flows.{2 * fi}.post_transformer"
         for li in range(2):
             for nm in ("conv_q", "conv_k", "conv_v", "conv_o"):
@@ -113,5 +116,33 @@ def state_dict_from_jax_params(params: Dict[str, Any], cfg=None) -> Dict[str, to
 
     walk(params, [])
     if cfg is not None and cfg.use_transformer_flows and cfg.transformer_flow_type == "pre_conv":
-        out.update(_placeholders(cfg.hidden_channels))
+        out.update(_placeholders(cfg.hidden_channels, cfg.flow_n_flows))
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def mpd_state_dict_from_jax_params(params: Dict[str, Any],
+                                   periods=(2, 3, 5, 7, 11)) -> Dict[str, torch.Tensor]:
+    """Flax MultiPeriodDiscriminator params -> the reference's torch names
+    and layouts (those of the JAX `export_mpd_torch_state_dict`), for
+    `MultiPeriodDiscriminator.load_state_dict(..., strict=True)`:
+    1-D v [k, in/g, out] -> weight_v [out, in/g, k], 2-D v [kh, kw, in, out]
+    -> [out, in, kh, kw]; g [out] -> weight_g [out, 1, 1(, 1)]."""
+    out: Dict[str, np.ndarray] = {}
+
+    def emit(tkey: str, tree, is2d: bool):
+        v = np.asarray(tree["v"])
+        out[f"{tkey}.weight_v"] = v.transpose(3, 2, 0, 1) if is2d else v.transpose(2, 1, 0)
+        out[f"{tkey}.weight_g"] = np.asarray(tree["g"]).reshape((-1, 1, 1, 1) if is2d
+                                                                else (-1, 1, 1))
+        out[f"{tkey}.bias"] = np.asarray(tree["bias"])
+
+    s = params["disc_s"]
+    for j in range(6):
+        emit(f"discriminators.0.convs.{j}", s[f"conv_{j}"], is2d=False)
+    emit("discriminators.0.conv_post", s["conv_post"], is2d=False)
+    for i, p in enumerate(periods, start=1):
+        d = params[f"disc_p{p}"]
+        for j in range(5):
+            emit(f"discriminators.{i}.convs.{j}", d[f"conv_{j}"], is2d=True)
+        emit(f"discriminators.{i}.conv_post", d["conv_post"], is2d=True)
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

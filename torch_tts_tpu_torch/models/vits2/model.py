@@ -1,4 +1,4 @@
-"""VITS2 synthesizer, single-speaker inference (port of
+"""VITS2 synthesizer, single-speaker (port of
 `torch_tts_tpu/models/vits2/model.py`), [B, C, T] layout inside.
 
 Parameter names are the kgoba reference's torch names, as
@@ -9,12 +9,15 @@ the reference declares in every `pre_conv` flow but never calls.
 
 `infer` keeps the JAX return contract (channels-last audio, attn, y_mask,
 aux, y_lengths) and the bucketed `max_frames` output with exact-length
-semantics. Every random draw comes from an explicit `torch.Generator`, or
-is passed in as a tensor.
+semantics; `forward` is the training forward and returns the JAX
+`__call__`'s 8-tuple, channels-last. Every random draw comes from an
+explicit `torch.Generator` (dropout masks included), or is passed in as a
+tensor.
 
 Ported so far: HiFi-GAN ResBlock1 decoder, `pre_conv` transformer flows,
-SDP and deterministic duration predictors. Multi-speaker models, the other
-flow types, MB-iSTFT and the training forward are not ported yet.
+SDP (both directions) and deterministic duration predictors, MAS
+(`kernels/mas.py`). Multi-speaker models, the other flow types and
+MB-iSTFT are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,14 +26,17 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torch_tts_tpu_torch.core.config import VITS2Config, VITS2ModelConfig
-from torch_tts_tpu_torch.core.masks import generate_path, sequence_mask
+from torch_tts_tpu_torch.core.masks import generate_path, rand_slice_segments, sequence_mask
+from torch_tts_tpu_torch.kernels.mas import maximum_path
 from torch_tts_tpu_torch.ops.convs import DDSConv
 from torch_tts_tpu_torch.ops.flows import ConvFlow, ElementwiseAffine, Flip, Log
 from torch_tts_tpu_torch.ops.hifigan import Generator
-from torch_tts_tpu_torch.ops.layers import Conv1d, Embed, LayerNorm, init_params_
+from torch_tts_tpu_torch.ops.layers import (Conv1d, Dropout, Embed, LayerNorm, init_params_,
+                                            set_dropout_generator)
 from torch_tts_tpu_torch.ops.transformer import Encoder
 from torch_tts_tpu_torch.ops.wavenet import WN
 
@@ -43,12 +49,14 @@ def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> 
 
 class TextEncoder(nn.Module):
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int,
-                 filter_channels: int, n_heads: int, n_layers: int, kernel_size: int):
+                 filter_channels: int, n_heads: int, n_layers: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.out_channels = out_channels
         self.emb = Embed(n_vocab, hidden_channels, init_std=hidden_channels ** -0.5)
-        self.encoder = Encoder(hidden_channels, filter_channels, n_heads, n_layers, kernel_size)
+        self.encoder = Encoder(hidden_channels, filter_channels, n_heads, n_layers, kernel_size,
+                               p_dropout=p_dropout)
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
 
     def forward(self, x: torch.Tensor, x_lengths: torch.Tensor):
@@ -88,7 +96,9 @@ class ResidualCouplingTransformersLayer(nn.Module):
                  dilation_rate: int, n_layers: int):
         super().__init__()
         self.half = channels // 2
-        self.pre_transformer = Encoder(self.half, self.half, 2, 2, 3, window_size=None)
+        # p_dropout 0.1 is the reference's own, whatever the config says
+        self.pre_transformer = Encoder(self.half, self.half, 2, 2, 3, window_size=None,
+                                       p_dropout=0.1)
         # declared by the reference but never called; holds its checkpoint keys
         self.post_transformer = Encoder(hidden_channels, hidden_channels, 2, 2, 3,
                                         window_size=None)
@@ -133,11 +143,11 @@ class FlowBlock(nn.Module):
 
 
 class StochasticDurationPredictor(nn.Module):
-    """Spline-flow duration sampler. Only the reverse (sampling) direction is
-    ported; the posterior flows exist for their checkpoint keys."""
+    """Spline-flow duration model: the NLL of given durations (training) or
+    sampled log-durations (reverse)."""
 
     def __init__(self, in_channels: int, filter_channels: int, kernel_size: int,
-                 n_flows: int = 4):
+                 n_flows: int = 4, p_dropout: float = 0.0):
         super().__init__()
         fc = in_channels  # the reference overrides filter_channels
         self.log_flow = Log()
@@ -146,21 +156,23 @@ class StochasticDurationPredictor(nn.Module):
             self.flows.extend([ConvFlow(2, fc, kernel_size, n_layers=3), Flip()])
         self.post_pre = Conv1d(1, fc, 1)
         self.post_proj = Conv1d(fc, fc, 1)
-        self.post_convs = DDSConv(fc, kernel_size, n_layers=3)
+        self.post_convs = DDSConv(fc, kernel_size, n_layers=3, p_dropout=p_dropout)
         self.post_flows = nn.ModuleList([ElementwiseAffine(2)])
         for _ in range(4):
             self.post_flows.extend([ConvFlow(2, fc, kernel_size, n_layers=3), Flip()])
         self.pre = Conv1d(in_channels, fc, 1)
         self.proj = Conv1d(fc, fc, 1)
-        self.convs = DDSConv(fc, kernel_size, n_layers=3)
+        self.convs = DDSConv(fc, kernel_size, n_layers=3, p_dropout=p_dropout)
 
-    def forward(self, x, x_mask, reverse: bool = True, noise_scale: float = 1.0,
+    def forward(self, x, x_mask, w=None, reverse: bool = False, noise_scale: float = 1.0,
                 noise=None, generator=None):
-        """Reverse: hx [B, H, T] -> logw [B, 1, T]; noise [B, 2, T] or drawn
-        from `generator`."""
+        """hx [B, H, T] (no gradient flows back into it). Forward: durations
+        w [B, 1, T] -> NLL [B]; noise is e_q [B, 2, T]. Reverse: -> logw
+        [B, 1, T]; noise [B, 2, T]. Noise not given is drawn from
+        `generator`."""
+        x = self.proj(self.convs(self.pre(x.detach()), x_mask)) * x_mask
         if not reverse:
-            raise NotImplementedError("the SDP training direction is not ported")
-        x = self.proj(self.convs(self.pre(x), x_mask)) * x_mask
+            return self._nll(x, x_mask, w, noise, generator)
         flows = list(reversed(self.flows))
         flows = flows[:-2] + [flows[-1]]  # drop the vestigial extra flow
         if noise is None:
@@ -170,10 +182,38 @@ class StochasticDurationPredictor(nn.Module):
             z = flow(z, x_mask, g=x, reverse=True)
         return z[:, 0:1]
 
+    def _nll(self, x, x_mask, w, e_q, generator):
+        """Variational dequantisation of w through the posterior flows, then
+        the NLL of (log(w - u), z1) under the main flows (JAX model.py:453-489)."""
+        h_w = self.post_proj(self.post_convs(self.post_pre(w), x_mask)) * x_mask
+        if e_q is None:
+            e_q = _normal((w.shape[0], 2, w.shape[2]), x, generator)
+        e_q = e_q * x_mask
+        z_q, logdet_tot_q = e_q, 0.0
+        for flow in self.post_flows:
+            z_q, logdet_q = flow(z_q, x_mask, g=x + h_w)
+            logdet_tot_q = logdet_tot_q + logdet_q
+        z_u, z1 = z_q[:, 0:1], z_q[:, 1:2]
+        u = torch.sigmoid(z_u) * x_mask
+        z0 = (w - u) * x_mask
+        logdet_tot_q = logdet_tot_q + torch.sum(
+            (F.logsigmoid(z_u) + F.logsigmoid(-z_u)) * x_mask, dim=(1, 2))
+        logq = torch.sum(-0.5 * (math.log(2 * math.pi) + e_q ** 2) * x_mask,
+                         dim=(1, 2)) - logdet_tot_q
+        z0, logdet_tot = self.log_flow(z0, x_mask)
+        z = torch.cat([z0, z1], dim=1)
+        for flow in self.flows:
+            z, logdet = flow(z, x_mask, g=x)
+            logdet_tot = logdet_tot + logdet
+        nll = torch.sum(0.5 * (math.log(2 * math.pi) + z ** 2) * x_mask, dim=(1, 2)) - logdet_tot
+        return nll + logq
+
 
 class DurationPredictor(nn.Module):
-    def __init__(self, in_channels: int, filter_channels: int, kernel_size: int):
+    def __init__(self, in_channels: int, filter_channels: int, kernel_size: int,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.drop = Dropout(p_dropout)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size, padding=kernel_size // 2)
         self.norm_1 = LayerNorm(filter_channels)
         self.conv_2 = Conv1d(filter_channels, filter_channels, kernel_size,
@@ -182,24 +222,29 @@ class DurationPredictor(nn.Module):
         self.proj = Conv1d(filter_channels, 1, 1)
 
     def forward(self, x, x_mask):
-        x = self.norm_1(torch.relu(self.conv_1(x * x_mask)))
-        x = self.norm_2(torch.relu(self.conv_2(x * x_mask)))
+        """hx [B, H, T] (no gradient flows back into it) -> logw [B, 1, T]."""
+        x = x.detach()
+        x = self.drop(self.norm_1(torch.relu(self.conv_1(x * x_mask))))
+        x = self.drop(self.norm_2(torch.relu(self.conv_2(x * x_mask))))
         return self.proj(x * x_mask) * x_mask
 
 
 class SynthesizerTrn(nn.Module):
     _PATCH_WINDOW = 128  # frames; >= 2x the decoder's receptive-field half-width
 
-    def __init__(self, n_vocab: int, spec_channels: int, cfg: VITS2ModelConfig):
+    def __init__(self, n_vocab: int, spec_channels: int, cfg: VITS2ModelConfig,
+                 segment_frames: int = 32):
         super().__init__()
         c = cfg
+        self.segment_frames = segment_frames
         if c.n_speakers > 1 or c.gin_channels > 0:
             raise NotImplementedError("multi-speaker models are not ported yet")
         if c.decoder_type != "hifigan":
             raise NotImplementedError(f"decoder_type {c.decoder_type} is not ported yet")
         self.cfg = cfg
         self.enc_p = TextEncoder(n_vocab, c.inter_channels, c.hidden_channels,
-                                 c.filter_channels, c.n_heads, c.n_layers, c.kernel_size)
+                                 c.filter_channels, c.n_heads, c.n_layers, c.kernel_size,
+                                 p_dropout=c.p_dropout)
         self.dec = Generator(c.inter_channels, c.resblock, c.resblock_kernel_sizes,
                              c.resblock_dilation_sizes, c.upsample_rates,
                              c.upsample_initial_channel, c.upsample_kernel_sizes,
@@ -211,9 +256,72 @@ class SynthesizerTrn(nn.Module):
                               use_transformer_flows=c.use_transformer_flows,
                               transformer_flow_type=c.transformer_flow_type)
         if c.use_sdp:
-            self.dp = StochasticDurationPredictor(c.hidden_channels, 192, 3, 4)
+            self.dp = StochasticDurationPredictor(c.hidden_channels, 192, 3, 4,
+                                                  p_dropout=c.dp_dropout)
         else:
-            self.dp = DurationPredictor(c.hidden_channels, 256, 3)
+            self.dp = DurationPredictor(c.hidden_channels, 256, 3, p_dropout=c.dp_dropout)
+
+    def forward(self, x, x_lengths, y, y_lengths, mas_noise_scale=None,
+                generator: Optional[torch.Generator] = None,
+                eps: Optional[torch.Tensor] = None, mas_noise: Optional[torch.Tensor] = None,
+                sdp_noise_q: Optional[torch.Tensor] = None,
+                sdp_noise: Optional[torch.Tensor] = None,
+                ids_slice: Optional[torch.Tensor] = None):
+        """Training forward (JAX `__call__`). ids [B, T_x]; y [B, T_y,
+        spec_channels] (channels-last, as the JAX batch). Returns
+        (o [B, segment_frames*hop, 1], l_length [B], attn [B, T_y, T_x],
+        ids_slice [B], x_mask [B, T_x, 1], y_mask [B, T_y, 1],
+        (z, z_p, m_p_e, logs_p_e, m_q, logs_q) each [B, T_y, D],
+        (hx [B, T_x, H], logw, logw_ [B, T_x, 1])).
+
+        Random draws, each injectable (port layout) or drawn from
+        `generator` on the model's device: posterior eps [B, D, T_y], MAS
+        noise [B, T_y, T_x] (scaled by std(neg_cent) * mas_noise_scale;
+        none when mas_noise_scale is None), SDP e_q [B, 2, T_x], SDP reverse
+        noise [B, 2, T_x], segment starts ids_slice [B]. In training mode the
+        dropout masks come from `generator` too."""
+        set_dropout_generator(self, generator)
+        hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
+        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, noise=eps,
+                                            generator=generator)
+        z_p = self.flow(z, y_mask)
+
+        with torch.no_grad():  # MAS sees no gradient (JAX model.py:633-653)
+            s_p_sq_r = torch.exp(-2 * logs_p)  # [B, D, T_x]
+            neg_cent1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p, dim=1)  # [B, T_x]
+            zt = z_p.transpose(1, 2)  # [B, T_y, D]
+            neg_cent2 = torch.matmul(-0.5 * zt ** 2, s_p_sq_r)
+            neg_cent3 = torch.matmul(zt, m_p * s_p_sq_r)
+            neg_cent4 = torch.sum(-0.5 * m_p ** 2 * s_p_sq_r, dim=1)  # [B, T_x]
+            neg_cent = neg_cent2 + neg_cent3 + neg_cent1[:, None, :] + neg_cent4[:, None, :]
+            if mas_noise_scale is not None:
+                if mas_noise is None:
+                    mas_noise = _normal(neg_cent.shape, neg_cent, generator)
+                # population std over the whole tensor, as jnp.std
+                neg_cent = neg_cent + torch.std(neg_cent, correction=0) * mas_noise * mas_noise_scale
+            attn_mask = y_mask.transpose(1, 2) * x_mask  # [B, T_y, T_x]
+            attn = maximum_path(neg_cent, attn_mask)
+
+        w = attn.sum(dim=1, keepdim=True)  # [B, 1, T_x]
+        logw_ = torch.log(w + 1e-6) * x_mask
+        if self.cfg.use_sdp:
+            l_length = self.dp(hx, x_mask, w=w, noise=sdp_noise_q, generator=generator)
+            l_length = l_length / torch.sum(x_mask)
+            logw = self.dp(hx, x_mask, reverse=True, noise_scale=1.0, noise=sdp_noise,
+                           generator=generator)
+        else:
+            logw = self.dp(hx, x_mask)
+            l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / torch.sum(x_mask)
+
+        at = attn.transpose(1, 2)  # [B, T_x, T_y]
+        m_p_e, logs_p_e = torch.matmul(m_p, at), torch.matmul(logs_p, at)  # [B, D, T_y]
+        z_slice, ids_slice = rand_slice_segments(z, y_lengths, self.segment_frames,
+                                                 generator=generator, ids=ids_slice, dim=2)
+        o = self.dec(z_slice)
+        cl = lambda t: t.transpose(1, 2)  # noqa: E731 - [B, C, T] -> [B, T, C]
+        return (cl(o), l_length, attn, ids_slice, cl(x_mask), cl(y_mask),
+                tuple(map(cl, (z, z_p, m_p_e, logs_p_e, m_q, logs_q))),
+                (cl(hx), cl(logw), cl(logw_)))
 
     @torch.inference_mode()
     def infer(self, x, x_lengths, noise_scale: float = 1.0, length_scale: float = 1.0,
@@ -275,10 +383,11 @@ class SynthesizerTrn(nn.Module):
 
 
 def build_synthesizer(cfg: VITS2Config, n_vocab: int, seed: int = 0,
-                      device="cpu") -> SynthesizerTrn:
+                      device="cuda") -> SynthesizerTrn:
     """SynthesizerTrn for `cfg`, initialised from torch.Generator(seed) in
     module order (torch-default bounds, zero-init projections as the
-    reference), moved to `device`, in eval mode."""
-    model = SynthesizerTrn(n_vocab, cfg.posterior_channels, cfg.model)
+    reference), moved to `device` (the card unless the caller says
+    otherwise), in eval mode."""
+    model = SynthesizerTrn(n_vocab, cfg.posterior_channels, cfg.model, cfg.segment_frames)
     init_params_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

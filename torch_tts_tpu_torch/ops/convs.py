@@ -1,5 +1,6 @@
 """Dilated depth-separable conv stack (port of `DDSConv`,
-`torch_tts_tpu/ops/convs.py`), [B, C, T] layout, inference only."""
+`torch_tts_tpu/ops/convs.py`), [B, C, T] layout, with the JAX dropout after
+each layer's second GELU in training mode."""
 
 from __future__ import annotations
 
@@ -9,15 +10,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.layers import Conv1d, LayerNorm
+from torch_tts_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm
 
 
 class DDSConv(nn.Module):
     """Per layer: depthwise dilated conv -> LN -> GELU -> 1x1 -> LN -> GELU,
     added residually; dilation kernel_size**i."""
 
-    def __init__(self, channels: int, kernel_size: int, n_layers: int):
+    def __init__(self, channels: int, kernel_size: int, n_layers: int, p_dropout: float = 0.0):
         super().__init__()
+        self.drop = Dropout(p_dropout)
         self.convs_sep = nn.ModuleList()
         self.convs_1x1 = nn.ModuleList()
         self.norms_1 = nn.ModuleList()
@@ -37,6 +39,6 @@ class DDSConv(nn.Module):
             x = x + g
         for sep, pw, n1, n2 in zip(self.convs_sep, self.convs_1x1, self.norms_1, self.norms_2):
             y = F.gelu(n1(sep(x * x_mask)))
-            y = F.gelu(n2(pw(y)))
+            y = self.drop(F.gelu(n2(pw(y))))
             x = x + y
         return x * x_mask

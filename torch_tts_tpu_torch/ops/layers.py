@@ -7,13 +7,14 @@ for weight-normed convs (torch.nn.utils.weight_norm with dim=0), and
 
 Every layer that owns parameters has `reset_parameters_(generator)`; the
 model-level `init_params_` calls them in module order, so one seeded
-`torch.Generator` fixes all initial weights.
+`torch.Generator` fixes all initial weights. `Dropout` draws its masks
+from an explicit generator too (`set_dropout_generator`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -50,9 +51,11 @@ class Conv1d(nn.Module):
         bias: bool = True,
         weight_norm: bool = False,
         zero_init: bool = False,
+        stride: int = 1,
     ):
         super().__init__()
         self.kernel_size = kernel_size
+        self.stride = stride
         self.padding = (padding, padding) if isinstance(padding, int) else tuple(padding)
         self.dilation = dilation
         self.groups = groups
@@ -93,10 +96,67 @@ class Conv1d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = self.padding
         if lo == hi:
-            return F.conv1d(x, self.effective_weight(), self.bias, padding=lo,
-                            dilation=self.dilation, groups=self.groups)
+            return F.conv1d(x, self.effective_weight(), self.bias, stride=self.stride,
+                            padding=lo, dilation=self.dilation, groups=self.groups)
         return F.conv1d(F.pad(x, (lo, hi)), self.effective_weight(), self.bias,
-                        dilation=self.dilation, groups=self.groups)
+                        stride=self.stride, dilation=self.dilation, groups=self.groups)
+
+
+class Conv2d(nn.Module):
+    """Weight-normed 2-D conv over [B, C, H, W] (the period
+    discriminators' [k, 1] kernels): weight_g [out, 1, 1, 1], weight_v
+    [out, in, kh, kw], norm over all dims but 0."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0)):
+        super().__init__()
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.fan_in = in_channels * kernel_size[0] * kernel_size[1]
+        self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1, 1))
+        self.weight_v = nn.Parameter(torch.zeros(out_channels, in_channels, *kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters_(self, generator: torch.Generator):
+        bound = 1.0 / math.sqrt(self.fan_in)
+        _uniform_(self.weight_v, bound, generator)
+        with torch.no_grad():
+            self.weight_g.copy_(_norm_keep0(self.weight_v))
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = _weight_normed(self.weight_g, self.weight_v)
+        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+
+
+class Dropout(nn.Module):
+    """Dropout whose masks come from `self.generator` (an explicit
+    torch.Generator on the input's device), as the JAX `Dropout` draws from
+    its 'dropout' stream: in training mode with p > 0, keep each element
+    with probability 1 - p and scale it by 1 / (1 - p); otherwise the
+    identity. Training with p > 0 and no generator raises."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError("Dropout in training mode needs a generator (set_dropout_generator)")
+        keep = 1.0 - self.p
+        mask = torch.rand(x.shape, generator=self.generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> nn.Module:
+    """Point every Dropout under `module` at `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+    return module
 
 
 class ConvTranspose1d(nn.Module):

@@ -4,8 +4,10 @@ Port of `MultiHeadAttention`, `FFN` and `Encoder` from
 `torch_tts_tpu/ops/transformer.py`: windowed relative-position attention
 (window 4 in the text encoder; `window_size=None` in the flows'
 pre_transformer) with the pad/reshape skew between relative and absolute
-positions, a conv FFN, and post-LN residual blocks. Inference only:
-dropout is not applied.
+positions, a conv FFN, and post-LN residual blocks. Dropout, in training
+mode, at the JAX sites: attention probabilities, the FFN's hidden
+activation, and each residual branch (masks from the modules' explicit
+generator, `ops/layers.py:set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.layers import Conv1d, LayerNorm
+from torch_tts_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm
 
 
 def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
@@ -38,9 +40,10 @@ def _abs_to_rel(x: torch.Tensor) -> torch.Tensor:
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0):
         super().__init__()
         assert channels % n_heads == 0
+        self.drop = Dropout(p_dropout)
         self.n_heads = n_heads
         self.k_channels = channels // n_heads
         self.window_size = window_size
@@ -86,7 +89,7 @@ class MultiHeadAttention(nn.Module):
             rel_k = self._relative_embeddings(self.emb_rel_k, t_s)
             scores = scores + _rel_to_abs(torch.matmul(q, rel_k.transpose(-2, -1)[None]))
         scores = scores.masked_fill(attn_mask == 0, -1e4)
-        p_attn = torch.softmax(scores, dim=-1)
+        p_attn = self.drop(torch.softmax(scores, dim=-1))
         out = torch.matmul(p_attn, v)
         if self.window_size is not None:
             rel_v = self._relative_embeddings(self.emb_rel_v, t_s)
@@ -99,14 +102,15 @@ class FFN(nn.Module):
     """Two 'same'-padded convs with ReLU, masked before each conv."""
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int,
-                 kernel_size: int):
+                 kernel_size: int, p_dropout: float = 0.0):
         super().__init__()
+        self.drop = Dropout(p_dropout)
         self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.conv_1(F.pad(x * x_mask, self.pad)))
+        y = self.drop(torch.relu(self.conv_1(F.pad(x * x_mask, self.pad))))
         y = self.conv_2(F.pad(y * x_mask, self.pad))
         return y * x_mask
 
@@ -115,18 +119,21 @@ class Encoder(nn.Module):
     """Self-attention encoder stack of post-LN residual blocks."""
 
     def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
-                 n_layers: int, kernel_size: int = 1, window_size: Optional[int] = 4):
+                 n_layers: int, kernel_size: int = 1, window_size: Optional[int] = 4,
+                 p_dropout: float = 0.0):
         super().__init__()
+        self.drop = Dropout(p_dropout)
         self.attn_layers = nn.ModuleList()
         self.norm_layers_1 = nn.ModuleList()
         self.ffn_layers = nn.ModuleList()
         self.norm_layers_2 = nn.ModuleList()
         for _ in range(n_layers):
             self.attn_layers.append(MultiHeadAttention(
-                hidden_channels, hidden_channels, n_heads, window_size=window_size))
+                hidden_channels, hidden_channels, n_heads, window_size=window_size,
+                p_dropout=p_dropout))
             self.norm_layers_1.append(LayerNorm(hidden_channels))
             self.ffn_layers.append(FFN(hidden_channels, hidden_channels, filter_channels,
-                                       kernel_size))
+                                       kernel_size, p_dropout=p_dropout))
             self.norm_layers_2.append(LayerNorm(hidden_channels))
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
@@ -135,6 +142,6 @@ class Encoder(nn.Module):
         x = x * x_mask
         for attn, norm1, ffn, norm2 in zip(self.attn_layers, self.norm_layers_1,
                                            self.ffn_layers, self.norm_layers_2):
-            x = norm1(x + attn(x, x, attn_mask))
-            x = norm2(x + ffn(x, x_mask))
+            x = norm1(x + self.drop(attn(x, x, attn_mask)))
+            x = norm2(x + self.drop(ffn(x, x_mask)))
         return x * x_mask
