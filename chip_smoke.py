@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of VITS2 (inference and one training step)
-on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (VITS2 inference and training step, Tacotron-2
+inference) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -16,7 +16,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
    abs/rel error against the stated tolerance and each version's median
    time over CUDA events after warm-up. MAS must equal its plain version
    exactly (random lengths, and tied inputs); the WN group backward is held
-   against autograd through the plain group.
+   against autograd through the plain group. The Taco2Prod step: the fused
+   entry point at B=1 and B=8 with dim_rnn 320 and 1024, the streamed one
+   at 1024 with fp32 and bf16 LSTM matrices (the plain step given the same
+   bf16-rounded matrices in fp32), PreNet masks on, and a 50-step rollout
+   in which both take the plain path's previous frame.
 4. Inference: full-width LJSpeech SynthesizerTrn from the config defaults
    with seeded random weights, `fuse_mrf=True` and `TTS_FUSED_WN=1`. Launch
    counters are zeroed, then three English sentences go through the CLI's
@@ -25,7 +29,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    finite with 0 < y_lengths <= max_frames and silence past each length,
    and both kernels must have launched. The same inputs and noise then run
    through the plain path (no launches), and the audio must agree.
-5. Training: full-width `VITS2Config()` (`fuse_mrf=False`, as the JAX
+5. Tacotron: full-width `TacotronConfig()` (LJSpeech) with seeded random
+   weights. Counters zeroed, then the three sentences through the
+   Tacotron CLI's `main()` (state dict in a temp .pth, --max-steps 400,
+   Griffin-Lim 32 iterations) and one ragged B=8 batch through `infer`:
+   finite mel and audio, 1 <= stop_lengths <= max_steps, attention rows
+   summing to 1, and one `taco_step_streamed` launch per step of every
+   decode. The batch again through the plain path (the cell module, no
+   launches): gated per step with the kernel path's frames as every
+   step's input; free-running, the largest difference and whether the stop
+   lengths agree are printed. Then decode times at B=1 and B=8, plain and
+   kernel in turns, and a profiled decode on each path (device busy time).
+6. Training: full-width `VITS2Config()` (`fuse_mrf=False`, as the JAX
    step), seeded G and MPD, `TTS_FUSED_WN=1`, the JAX train bench's batch
    shape (B=8, T_x=192, T_y=1000, 80 mel bins, wav x0.1). Counters zeroed,
    three `ddp` steps: finite losses, moved parameters, and MAS, WN forward
@@ -34,7 +49,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (layerwise WN, MAS's plain version) with the same noise: the loss terms
    must agree; the largest gradient difference is printed. Then step times,
    plain and kernel in turns.
-6. Prints the kernels' JSON line, then the device line last.
+7. Prints the kernels' JSON line, then the device line last.
 """
 
 from __future__ import annotations
@@ -71,6 +86,13 @@ WN_SHAPE = dict(H=192, L=4, k=5, T=MAX_FRAMES)
 # the train step: the JAX package's train bench batch (scripts/bench_train.py)
 TRAIN_B, TRAIN_TX, TRAIN_TY = 8, 192, 1000
 TRAIN_STEPS = 3
+# Tacotron: the LJSpeech decode length of the JAX CLI, memory length of the
+# kernel phase (characters of a long LJSpeech sentence), the rollout, and
+# the tolerance of the whole-decode comparison with the kernel path's frames
+# as every step's input (fp32 state carried over 400 steps in two summation
+# orders)
+TACO_STEPS, TACO_L, TACO_ROLLOUT = 400, 160, 50
+TACO_TF_ATOL = 1e-3
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
@@ -274,6 +296,160 @@ def kernel_phase(device, card: str):
     return res
 
 
+def taco_inputs(g, device, B, L, H, ragged=True):
+    """Seeded inputs and weights of one Taco2Prod step at the LJSpeech widths
+    (D_mel 80, P 256, Dc 512, r 1) with dim_rnn (H, H), torch-default init
+    scales; PreNet keep masks; the last item's memory half masked."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+
+    D_mel, P, Dc, r = 80, 256, 512, 1
+
+    def u(*shape, fan):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * fan ** -0.5).to(device)
+
+    def randn(*shape, scale):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    wts = ts.TacoStepWeights(
+        prenet_w1=u(D_mel, P, fan=D_mel), prenet_b1=u(P, fan=D_mel), prenet_w2=u(P, P, fan=P),
+        prenet_b2=u(P, fan=P), att_w_ih=u(P + Dc, 4 * H, fan=H), att_w_hh=u(H, 4 * H, fan=H),
+        att_b=u(4 * H, fan=H), query_w=u(H, Dc, fan=H), dec_w_ih=u(H + Dc, 4 * H, fan=H),
+        dec_w_hh=u(H, 4 * H, fan=H), dec_b=u(4 * H, fan=H), mel_w=u(H + Dc, r * D_mel, fan=H + Dc),
+        mel_b=u(r * D_mel, fan=H + Dc), stop_w=u(H + Dc, r, fan=H + Dc), stop_b=u(r, fan=H + Dc))
+    w = torch.softmax(torch.randn(B, L, generator=g) * 3, dim=1).to(device)
+    state = ts.TacoStepState(w, randn(B, Dc, scale=0.3), *(randn(B, H, scale=0.3) for _ in range(4)))
+    mmask = torch.ones(B, L, device=device)
+    if ragged:
+        mmask[-1, L // 2:] = 0
+    masks = tuple((torch.rand(B, P, generator=g) < 0.5).to(device) for _ in range(2))
+    return randn(B, D_mel, scale=0.5), state, randn(B, L, Dc, scale=0.5), mmask, wts, masks
+
+
+def taco_step_bound(wts, B, L, big_bytes_per_weight=4):
+    """(bound ms, "bytes"/"operations") of one step: every weight read once
+    (the four LSTM matrices at the given width), memory, state, mask and
+    outputs once; 2 B flops per weight, 4 B L Dc for the energies and the
+    context."""
+    big = sum(getattr(wts, f).numel() for f in ("att_w_ih", "att_w_hh", "dec_w_ih", "dec_w_hh"))
+    small = sum(w.numel() for w in wts) - big
+    Dc, H1, H2 = wts.query_w.shape[1], wts.att_w_hh.shape[0], wts.dec_w_hh.shape[0]
+    P, D_mel, n_out = wts.prenet_w2.shape[0], wts.prenet_w1.shape[0], wts.mel_b.numel() + wts.stop_b.numel()
+    io = 2 * (B * L + B * Dc + 2 * B * H1 + 2 * B * H2) + B * L + B * D_mel + 2 * B * P + B * n_out
+    nbytes = big * big_bytes_per_weight + 4.0 * (small + B * L * Dc + io)
+    return bound(2.0 * B * (big + small) + 4.0 * B * L * Dc, nbytes)
+
+
+def batched_ms(fn, n: int = 50, batches: int = 3) -> float:
+    """Device time per call in ms of fn() launched n times back to back
+    between two CUDA events (median of `batches`); for a launch whose host
+    cost is below its device time, so the queue never runs dry."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def step_errors(got, want):
+    """(max abs error, within KERNEL_ATOL + KERNEL_RTOL |want|) over y, s and
+    the new state of one step."""
+    import torch
+
+    err, ok = 0.0, True
+    for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        d = (a - b).abs()
+        err = max(err, float(d.max()))
+        ok = ok and bool(torch.all(d <= KERNEL_ATOL + KERNEL_RTOL * b.abs())) and bool(torch.isfinite(a).all())
+    return err, ok
+
+
+def taco_kernel_phase(device, card: str):
+    """The Taco2Prod step's two entry points against the plain step."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+
+    g = torch.Generator().manual_seed(3)
+    res = {}
+    log(f"  taco_step: L={TACO_L}, D_mel 80, P 256, Dc 512, r 1, PreNet masks on")
+    fused_launches = 0
+    errs = {"taco_step_fused": [], "taco_step_streamed": []}
+    cases = [("fused", H, B, torch.float32) for H in (320, 1024) for B in (1, 8)]
+    cases += [("streamed", 1024, B, dt) for dt in (torch.float32, torch.bfloat16) for B in (1, 8)]
+    for entry, H, B, dt in cases:
+        y_in, state, memory, mmask, wts, masks = taco_inputs(g, device, B, TACO_L, H)
+        if entry == "fused":
+            kern = lambda: ts.taco_step_fused(y_in, state, memory, mmask, wts, prenet_masks=masks)  # noqa: E731
+            plain = lambda: ts.taco_step_fused_via_plain(y_in, state, memory, mmask, wts,  # noqa: E731
+                                                         prenet_masks=masks)
+        else:
+            packed = ts.pack_streamed(wts, dt)
+            kern = lambda: ts.taco_step_streamed(y_in, state, memory, mmask, packed,  # noqa: E731
+                                                 prenet_masks=masks)
+            plain = lambda: ts.taco_step_streamed_via_plain(y_in, state, memory, mmask, packed,  # noqa: E731
+                                                            prenet_masks=masks)
+        name = f"taco_step_{entry}"
+        with torch.no_grad():
+            before = ts.taco_step_fused.launches
+            err, ok = step_errors(kern(), plain())
+            fused_launches += ts.taco_step_fused.launches - before
+            # the kernel's device time: launches prepared once, back to back;
+            # the plain step's: its kernels' device time (it is host-bound)
+            launch, _ = ts.prepare_cuda(y_in, state, memory, mmask, masks,
+                                        *ts.launch_args(wts if entry == "fused" else packed), 0.1)
+            t_k = batched_ms(launch)
+            t_p = profile_busy_ms(lambda: [plain() for _ in range(10)]) / 10
+            call_k, call_p = cuda_ms(kern, warmup=3, reps=20), cuda_ms(plain, warmup=3, reps=20)
+        b_ms, b_by = taco_step_bound(wts, B, TACO_L, 2 if dt == torch.bfloat16 else 4)
+        tag = f"{name} B={B} dim_rnn {H} {str(dt).split('.')[-1]}"
+        log(f"  {tag}: max_abs_err={err:.3e} tolerance |d| <= {KERNEL_ATOL:g} + {KERNEL_RTOL:g}*|ref| "
+            f"-> {'ok' if ok else 'FAIL'}; device time: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); per call with the host: kernel {call_k:.4f} ms, plain "
+            f"{call_p:.4f} ms [{card}]")
+        if not ok:
+            raise RuntimeError(f"{tag}: kernel disagrees with its plain version")
+        errs[name].append(err)
+        # the kernels line: the fused entry at its TPU design size, the
+        # streamed one at the CLI's shape (B=1, fp32)
+        if (entry, H, B) == ("fused", 320, 1) or (entry, B, dt) == ("streamed", 1, torch.float32):
+            res[name] = dict(ms=t_k, plain_ms=t_p, bound=(b_ms, b_by))
+
+    # rollout: both sides take the plain path's previous frame
+    B = 8
+    y_in, state, memory, mmask, wts, _ = taco_inputs(g, device, B, TACO_L, 1024)
+    packed = ts.pack_streamed(wts)
+    sk = sp = state
+    worst, ok = 0.0, True
+    with torch.no_grad():
+        for t in range(TACO_ROLLOUT):
+            masks = tuple((torch.rand(B, 256, generator=g) < 0.5).to(device) for _ in range(2))
+            got = ts.taco_step_streamed(y_in, sk, memory, mmask, packed, prenet_masks=masks)
+            want = ts.taco_step_streamed_via_plain(y_in, sp, memory, mmask, packed, prenet_masks=masks)
+            err, step_ok = step_errors(got, want)
+            worst, ok = max(worst, err), ok and step_ok
+            sk, sp, y_in = got[2], want[2], want[0]
+    log(f"  taco_step_streamed {TACO_ROLLOUT}-step rollout B={B}, the plain frame as input: "
+        f"max_abs_err={worst:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("taco_step_streamed: the rollout drifted from the plain steps")
+    errs["taco_step_streamed"].append(worst)
+    for name in res:
+        res[name]["max_abs_err"] = max(errs[name])
+    res["taco_step_fused"]["launches"] = fused_launches
+    return res
+
+
 def slice_phase(device, card: str, tmp: str):
     import torch
 
@@ -385,6 +561,121 @@ def slice_phase(device, card: str, tmp: str):
     model.dec.fuse_mrf = True
     os.environ["TTS_FUSED_WN"] = "1"
     return launches
+
+
+def profile_busy_ms(fn) -> float:
+    """Device busy time of one fn() call in ms (torch.profiler, the sum of
+    device self time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == cuda) / 1e3
+
+
+def tacotron_phase(device, card: str, tmp: str):
+    import torch
+
+    from torch_tts_tpu_torch.cli import tacotron_infer
+    from torch_tts_tpu_torch.core.config import TacotronConfig
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+    from torch_tts_tpu_torch.models.tacotron import build_tacotron
+
+    cfg = TacotronConfig()
+    t0 = time.perf_counter()
+    model = build_tacotron(cfg, seed=0, device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"tacotron phase: Tacotron-2 (Taco2Prod, dim_rnn {cfg.model.dim_rnn}) {n_params} params, "
+        f"seeded init {time.perf_counter() - t0:.1f} s")
+    ckpt, cfg_path = os.path.join(tmp, "tacotron.pth"), os.path.join(tmp, "tacotron.json")
+    torch.save({"model": model.state_dict()}, ckpt)
+    with open(cfg_path, "w") as f:
+        json.dump({k: dataclasses.asdict(getattr(cfg, k)) for k in ("audio", "text", "model")}, f)
+    S, B = TACO_STEPS, 8
+    enc = tacotron_infer.text_encoder(cfg)
+    texts = [SENTENCES[2][: 150 - 13 * i] for i in range(B)]
+    ids = [enc.encode(t) for t in texts]
+    x = torch.zeros(B, max(map(len, ids)), dtype=torch.int64)
+    for i, row in enumerate(ids):
+        x[i, : len(row)] = torch.tensor(row)
+    x, lengths = x.to(device), torch.tensor([len(r) for r in ids], device=device)
+
+    def run(path, b=B, seed=5, step_inputs=None):
+        model.decoder.use_kernel = path == "kernel"
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return model.infer(x[:b], lengths[:b], max_steps=S, generator=gen, step_inputs=step_inputs)
+
+    def check(y_post, aux, what):
+        if not bool(torch.isfinite(y_post).all()):
+            raise RuntimeError(f"{what}: non-finite mel")
+        stop = aux["stop_lengths"]
+        if not bool(((stop >= 1) & (stop <= S)).all()):
+            raise RuntimeError(f"{what}: stop_lengths {stop.tolist()} outside [1, {S}]")
+        dev = float((aux["w"].sum(-1) - 1).abs().max())
+        if dev > 1e-4:
+            raise RuntimeError(f"{what}: attention rows sum to 1 +- {dev:.2e}")
+        return dev
+
+    # --- main path: the CLI and a batch, every step through the kernel
+    ts.taco_step_streamed.launches = 0
+    for i, text in enumerate(SENTENCES):
+        wav_path = os.path.join(tmp, f"tacotron_{i}.wav")
+        wav, mel = tacotron_infer.main([text, cfg_path, "-m", ckpt, "-o", wav_path, "--max-steps", str(S),
+                                        "--griffin-lim-iters", "32", "--seed", str(i),
+                                        "--device", str(device)])
+        if wav.size == 0 or not bool(torch.isfinite(torch.from_numpy(wav)).all() & torch.isfinite(mel).all()):
+            raise RuntimeError(f"tacotron request {i}: empty or non-finite audio or mel")
+        if os.path.getsize(wav_path) != 44 + 2 * wav.size:
+            raise RuntimeError(f"tacotron request {i}: WAV size does not match the audio")
+    y_k, yp_k, s_k, aux_k = run("kernel")
+    torch.cuda.synchronize()
+    dev = check(yp_k, aux_k, "batch")
+    launches = ts.taco_step_streamed.launches
+    log(f"  B={B} batch, text lengths {lengths.tolist()}: stop_lengths {aux_k['stop_lengths'].tolist()}, "
+        f"attention rows sum to 1 +- {dev:.2e}; taco_step_streamed launches {launches} "
+        f"(expected {S} x {len(SENTENCES) + 1})")
+    if launches != S * (len(SENTENCES) + 1):
+        raise RuntimeError("the decoder did not run every step through taco_step_streamed")
+
+    # --- the plain path (the cell module), same inputs and masks
+    r, D = cfg.model.r, cfg.audio.num_mels
+    frames = torch.cat([torch.zeros(B, 1, D, device=device),
+                        y_k.reshape(B, S, r, D)[:, :-1, -1]], 1)
+    y_tf, yp_tf, s_tf, aux_tf = run("plain", step_inputs=frames)
+    y_p, yp_p, s_p, aux_p = run("plain")
+    torch.cuda.synchronize()
+    check(yp_p, aux_p, "plain batch")
+    if ts.taco_step_streamed.launches != launches:
+        raise RuntimeError("the plain path launched the kernel")
+    per_step = (y_tf - y_k).abs().reshape(B, S, -1).amax(dim=(0, 2))
+    tf = max(float(per_step.max()), float((s_tf - s_k).abs().max()), float((aux_tf["w"] - aux_k["w"]).abs().max()))
+    log(f"  plain path with the kernel path's frames as inputs: max |d| over y, s, w {tf:.3e} "
+        f"(step 1 {float(per_step[0]):.3e}, step {S} {float(per_step[-1]):.3e}; bound {TACO_TF_ATOL:g})")
+    if not tf <= TACO_TF_ATOL:
+        raise RuntimeError("kernel path and plain path disagree step by step")
+    same_stop = torch.equal(aux_p["stop_lengths"], aux_k["stop_lengths"])
+    log(f"  free-running: max |mel_kernel - mel_plain| {float((yp_p - yp_k).abs().max()):.3e}, "
+        f"stop lengths {'agree' if same_stop else 'differ'} (plain {aux_p['stop_lengths'].tolist()}; not gated)")
+
+    # --- decode times, plain and kernel in turns; device busy per decode
+    for b in (1, 8):
+        times = {}
+        for path in ("plain", "kernel", "kernel", "plain"):
+            times.setdefault(path, []).append(wall_ms(lambda: run(path, b), warmup=1, reps=3))
+        for path, tt in times.items():
+            ms = statistics.median(tt)
+            busy = profile_busy_ms(lambda: run(path, b))
+            log(f"  tacotron decode B={b} {S} steps {path}: {ms:.1f} ms/call (turns "
+                f"{', '.join(f'{t:.1f}' for t in tt)}), {ms / S * 1e3:.1f} us/step; device busy "
+                f"{busy:.1f} ms/call, idle share {max(0.0, 1 - busy / ms):.2f} [{card}]")
+    model.decoder.use_kernel = True
+    del model
+    torch.cuda.empty_cache()
+    return {"taco_step_streamed": launches}
 
 
 def check_mas_path(attn, x_lengths, y_lengths):
@@ -570,9 +861,13 @@ def main():
                 log("  ptxas: " + line.strip())
 
     stats = kernel_phase(device, card)
+    stats.update(taco_kernel_phase(device, card))
     with tempfile.TemporaryDirectory() as tmp:
         launches = slice_phase(device, card, tmp)
+        launches.update(tacotron_phase(device, card, tmp))
     launches.update(train_phase(device, card))  # wn_group: its count on the train path
+    # the fused step is on no model path: its count is the kernel phase's
+    launches["taco_step_fused"] = stats["taco_step_fused"]["launches"]
 
     sources = {"mrf_fused": ("torch_tts_tpu_torch/csrc/mrf_fused.cu",
                              "torch_tts_tpu/kernels/mrf_fused.py:150"),
@@ -581,7 +876,11 @@ def main():
                "wn_group_backward": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
                                      "torch_tts_tpu/kernels/wn_stack.py:330"),
                "maximum_path": ("torch_tts_tpu_torch/csrc/mas.cu",
-                                "torch_tts_tpu/kernels/mas_pallas.py:77")}
+                                "torch_tts_tpu/kernels/mas_pallas.py:77"),
+               "taco_step_fused": ("torch_tts_tpu_torch/csrc/taco_step.cu",
+                                   "torch_tts_tpu/kernels/taco_step.py:171"),
+               "taco_step_streamed": ("torch_tts_tpu_torch/csrc/taco_step.cu",
+                                      "torch_tts_tpu/kernels/taco_step.py:301")}
     # no single PyTorch call computes any of these functions: library_ms null
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],

@@ -8,12 +8,15 @@ without CUDA. On the card, from the repository root:
 TF32 is off, so both sides compute in fp32; they differ only in summation
 order (rtol 1e-4, atol 1e-4). MAS must equal its plain version exactly. WN
 gradients: per tensor, max |kernel - plain| <= 1e-4 * max |plain| + 1e-5
-(sums over up to B*T frames in another order).
+(sums over up to B*T frames in another order). The Taco2Prod step with
+bf16 LSTM matrices is held against the plain step given the same
+bf16-rounded matrices in fp32, so its tolerance stays the fp32 one.
 """
 
 import pytest
 import torch
 
+from torch_tts_tpu_torch.kernels import taco_step as ts
 from torch_tts_tpu_torch.kernels.mas import MAX_NEG, maximum_path, maximum_path_plain
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused, mrf_plain
 from torch_tts_tpu_torch.kernels.wn_stack import (
@@ -178,3 +181,64 @@ def test_mas_kernel_equals_plain(cuda_device, B, T_y, T_x, ties):
     assert torch.equal(path, want)
     assert torch.equal(path.sum(dim=2), (torch.arange(T_y, device=nc.device)[None, :]
                                         < t_ys[:, None]).float())
+
+
+def _taco_inputs(g, device, B, L, H, ragged):
+    D_mel, P, Dc, r = 80, 256, 512, 1
+    u = lambda *shape, fan: (torch.rand(shape, generator=g) * 2 - 1).mul(fan ** -0.5).to(device)  # noqa: E731
+    wts = ts.TacoStepWeights(
+        prenet_w1=u(D_mel, P, fan=D_mel), prenet_b1=u(P, fan=D_mel), prenet_w2=u(P, P, fan=P),
+        prenet_b2=u(P, fan=P), att_w_ih=u(P + Dc, 4 * H, fan=H), att_w_hh=u(H, 4 * H, fan=H),
+        att_b=u(4 * H, fan=H), query_w=u(H, Dc, fan=H), dec_w_ih=u(H + Dc, 4 * H, fan=H),
+        dec_w_hh=u(H, 4 * H, fan=H), dec_b=u(4 * H, fan=H), mel_w=u(H + Dc, r * D_mel, fan=H + Dc),
+        mel_b=u(r * D_mel, fan=H + Dc), stop_w=u(H + Dc, r, fan=H + Dc), stop_b=u(r, fan=H + Dc))
+    w = torch.softmax(torch.randn(B, L, generator=g) * 3, dim=1).to(device)
+    state = ts.TacoStepState(w, _randn(g, device, B, Dc, scale=0.3), *(
+        _randn(g, device, B, H, scale=0.3) for _ in range(4)))
+    mmask = torch.ones(B, L, device=device)
+    if ragged:
+        mmask[-1, L // 2:] = 0
+    masks = tuple((torch.rand(B, P, generator=g) < 0.5).to(device) for _ in range(2))
+    return _randn(g, device, B, D_mel, scale=0.5), state, _randn(g, device, B, L, Dc, scale=0.5), mmask, wts, masks
+
+
+def _assert_step_close(got, want):
+    for a, b in zip(got[:2] + tuple(got[2]), want[:2] + tuple(want[2])):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,entry,ragged", [
+    (1, 57, 320, "fused", False), (8, 160, 320, "fused", True), (3, 9, 1024, "fused", False),
+    (1, 160, 1024, "fp32", False), (8, 200, 1024, "fp32", True), (5, 33, 1024, "bf16", True),
+    (8, 160, 1024, "bf16", False),
+])
+def test_taco_step_kernel_matches_plain(cuda_device, B, L, H, entry, ragged):
+    g = torch.Generator().manual_seed(B * L + H)
+    y_in, state, memory, mmask, wts, masks = _taco_inputs(g, cuda_device, B, L, H, ragged)
+    if entry == "fused":
+        before = ts.taco_step_fused.launches
+        got = ts.taco_step_fused(y_in, state, memory, mmask, wts, prenet_masks=masks)
+        assert ts.taco_step_fused.launches == before + 1
+        want = ts.taco_step_fused_via_plain(y_in, state, memory, mmask, wts, prenet_masks=masks)
+    else:
+        packed = ts.pack_streamed(wts, torch.bfloat16 if entry == "bf16" else torch.float32)
+        before = ts.taco_step_streamed.launches
+        got = ts.taco_step_streamed(y_in, state, memory, mmask, packed, prenet_masks=masks)
+        assert ts.taco_step_streamed.launches == before + 1
+        want = ts.taco_step_streamed_via_plain(y_in, state, memory, mmask, packed, prenet_masks=masks)
+    _assert_step_close(got, want)
+    # without masks: the TPU contract
+    _assert_step_close(ts.taco_step_fused(y_in, state, memory, mmask, wts),
+                       ts.taco_step_plain(y_in, state, memory, mmask, wts))
+
+
+@pytest.mark.cuda
+def test_taco_step_rejects_unsupported_input(cuda_device):
+    g = torch.Generator().manual_seed(0)
+    y_in, state, memory, mmask, wts, _ = _taco_inputs(g, cuda_device, 9, 20, 64, False)
+    with pytest.raises(ValueError, match="B=9"):
+        ts.taco_step_fused(y_in, state, memory, mmask, wts)
+    y_in, state, memory, mmask, wts, _ = _taco_inputs(g, cuda_device, 2, 20, 36, False)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        ts.taco_step_fused(y_in, state, memory, mmask, wts)

@@ -3,8 +3,9 @@
 - Importing every module of the package leaves jax out of sys.modules
   (checked in a fresh interpreter), and no module of the package, nor
   chip_smoke.py, imports the JAX package `torch_tts_tpu` (an AST scan).
-- Entry points default to the card: `build_synthesizer` and `build_mpd`
-  take device="cuda" unless told otherwise.
+- Entry points default to the card: `build_synthesizer`, `build_mpd`,
+  `build_tacotron`, `AudioFrontend` and the CLIs take device="cuda" unless
+  told otherwise.
 - Kernel wrappers take their plain version only for CPU tensors: another
   device raises, and a missing nvcc raises instead of falling back;
   `mrf_fused`, which has no backward, raises under autograd instead of
@@ -61,11 +62,17 @@ def test_port_never_imports_the_jax_package():
 
 
 def test_entry_points_default_to_the_card():
+    from torch_tts_tpu_torch.audio.frontend import AudioFrontend
+    from torch_tts_tpu_torch.cli import tacotron_infer, vits2_infer
+    from torch_tts_tpu_torch.models.tacotron import build_tacotron
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
     from torch_tts_tpu_torch.train.vits2_train import build_mpd
 
-    for fn in (build_synthesizer, build_mpd):
+    for fn in (build_synthesizer, build_mpd, build_tacotron, AudioFrontend):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for cli in (vits2_infer, tacotron_infer):
+        assert "default='cuda'" in inspect.getsource(cli.main) or \
+            'default="cuda"' in inspect.getsource(cli.main)
 
 
 def test_mrf_fused_raises_instead_of_dropping_a_gradient():
@@ -109,7 +116,8 @@ def test_build_dir_is_keyed_by_sources():
 
     d = build.library_dir()
     assert d.parent == ROOT / "build" / "torch_kernels" and len(d.name) == 16
-    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == ["mas.cu", "mrf_fused.cu", "wn_stack.cu"]
+    assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
+        "mas.cu", "mrf_fused.cu", "taco_step.cu", "wn_stack.cu"]
 
 
 def test_cli_writes_wav_on_cpu(tmp_path):

@@ -1,13 +1,16 @@
-"""VITS2 configuration dataclasses and loader.
+"""VITS2 and Tacotron configuration dataclasses and loaders.
 
-Same fields and defaults as `torch_tts_tpu/core/config.py` (the VITS2 part),
-so one YAML/JSON file configures both packages. Kept as a separate module
+Same fields and defaults as `torch_tts_tpu/core/config.py` (its VITS2 and
+Tacotron parts), so one YAML/JSON file configures both packages. Kept as a separate module
 because importing `torch_tts_tpu.core` pulls in jax.
 
 The defaults equal the `model:` section of `configs/vits2-ljspeech.yaml`
 apart from `pack_narrow_convs`, a TPU lane-packing switch that this package
-accepts and ignores. PyYAML is imported only inside the loader, so building
-a config from the defaults needs nothing beyond the standard library.
+accepts and ignores. The Tacotron defaults equal
+`configs/tacotron-ljspeech.yaml` apart from `character_map`. PyYAML is
+imported only inside the loaders, for a `.yaml` file, so building a config
+from the defaults or loading a `.json` one needs nothing beyond the
+standard library.
 """
 
 from __future__ import annotations
@@ -158,18 +161,21 @@ class VITS2Config:
         return self.model.segment_size // self.audio.hop_length
 
 
-def load_vits2_config(path: str) -> VITS2Config:
-    """Load a YAML or JSON VITS2 config, in this repo's layout or the
-    reference's ({train, data, model} or {data: {config}, model: {config}})."""
+def _read(path: str) -> dict:
+    """A `.json` file through json, anything else through PyYAML."""
     with open(path) as f:
         text = f.read()
     if path.endswith(".json"):
-        raw = json.loads(text)
-    else:
-        import yaml
+        return json.loads(text)
+    import yaml
 
-        raw = yaml.safe_load(text)
+    return yaml.safe_load(text)
 
+
+def load_vits2_config(path: str) -> VITS2Config:
+    """Load a YAML or JSON VITS2 config, in this repo's layout or the
+    reference's ({train, data, model} or {data: {config}, model: {config}})."""
+    raw = _read(path)
     cfg = VITS2Config()
     if isinstance(raw.get("model"), dict):
         model_d = raw["model"].get("config", raw["model"])
@@ -185,4 +191,93 @@ def load_vits2_config(path: str) -> VITS2Config:
         cfg = dataclasses.replace(cfg, audio=_apply(cfg.audio, data_d))
     if isinstance(raw.get("train"), dict):
         cfg = dataclasses.replace(cfg, train=_apply(cfg.train, raw["train"]))
+    return cfg
+
+
+# ---------------------------------------------------------------------------
+# Tacotron (the reference's configs/config-ljspeech.yaml and data/audio.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TacotronAudioConfig:
+    sample_rate: int = 22050
+    hop_length: int = 256
+    win_length: int = 1024
+    num_mels: int = 80
+    fmin: float = 50.0
+    fmax: float = 7600.0
+
+
+@dataclass(frozen=True)
+class TacotronTextConfig:
+    alphabet: str = "#abcdefghijklmnopqrstuvwxyz -:;,.!?()\"'"
+    character_map: Tuple[Tuple[str, str], ...] = ()
+    bos_symbols: str = ""
+    eos_symbols: str = "#"
+
+    def __post_init__(self):
+        if isinstance(self.character_map, list):
+            object.__setattr__(self, "character_map", tuple(tuple(x) for x in self.character_map))
+
+
+@dataclass(frozen=True)
+class TacotronModelConfig:
+    encoder_type: str = "tacotron2"
+    dim_emb: int = 512
+    dim_out: int = 512
+    decoder_type: str = "tacotron2prod"
+    r: int = 1
+    dim_pre: int = 256
+    dim_att: int = 1024
+    dim_rnn: Tuple[int, int] = (1024, 1024)
+    postnet_type: Optional[str] = "tacotron2"
+    postnet_dim_hidden: int = 512
+    postnet_num_layers: int = 3
+    style_dim_vae: Optional[int] = None  # set -> VAE reference encoder
+
+    def __post_init__(self):
+        if isinstance(self.dim_rnn, list):
+            object.__setattr__(self, "dim_rnn", tuple(self.dim_rnn))
+
+
+@dataclass(frozen=True)
+class TacotronConfig:
+    audio: TacotronAudioConfig = field(default_factory=TacotronAudioConfig)
+    text: TacotronTextConfig = field(default_factory=TacotronTextConfig)
+    model: TacotronModelConfig = field(default_factory=TacotronModelConfig)
+
+
+def load_tacotron_config(path: str) -> TacotronConfig:
+    """Load a YAML or JSON Tacotron config: this repo's layout (the
+    dataclasses' own fields under audio/text/model) or the reference's
+    (model: {encoder, decoder, postnet, style_encoder})."""
+    raw = _read(path)
+    cfg = TacotronConfig()
+    if "audio" in raw:
+        cfg = dataclasses.replace(cfg, audio=_apply(cfg.audio, raw["audio"]))
+    if "text" in raw:
+        cfg = dataclasses.replace(cfg, text=_apply(cfg.text, raw["text"]))
+    if "model" in raw:
+        m = raw["model"]
+        upd: dict = {k: v for k, v in m.items() if not isinstance(v, dict)}
+        if "encoder" in m:
+            upd.update(encoder_type=m["encoder"].get("type", "tacotron2"),
+                       dim_emb=m["encoder"].get("dim_emb", 512),
+                       dim_out=m["encoder"].get("dim_out", 512))
+        if "decoder" in m:
+            d = m["decoder"]
+            upd.update(decoder_type=d.get("type", "tacotron2prod"), r=d.get("r", 1),
+                       dim_pre=d.get("dim_pre", 256), dim_att=d.get("dim_att", 1024),
+                       dim_rnn=tuple(d.get("dim_rnn", (1024, 1024))))
+        if isinstance(m.get("postnet"), dict):
+            p = m["postnet"]
+            upd.update(postnet_type=p.get("type", "tacotron2"),
+                       postnet_dim_hidden=p.get("dim_hidden", 512),
+                       postnet_num_layers=p.get("num_layers", 3))
+        elif "postnet" in m or "postnet_type" not in m:
+            upd.update(postnet_type=None)
+        if m.get("style_encoder"):
+            upd.update(style_dim_vae=m["style_encoder"].get("dim_vae", 16))
+        cfg = dataclasses.replace(cfg, model=_apply(cfg.model, upd))
     return cfg

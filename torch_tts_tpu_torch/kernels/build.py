@@ -40,6 +40,9 @@ _SIGNATURES = {
     "tts_wn_group_backward": (_P,) * 14 + (_I,) * 5 + (_P,),
     # neg_cent, t_ys, t_xs, path, bits, B, T_y, T_x, stream
     "tts_mas_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # ptrs (host int64, 35 device pointers), scalars (host float32 p_zoneout,
+    # keep), B, L, D_mel, P, Dc, H1, H2, r, weights_bf16, stream
+    "tts_taco_step_forward": (_P, _P) + (_I,) * 9 + (_P,),
 }
 
 
