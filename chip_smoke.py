@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (VITS2 inference and training step, Tacotron-2
-inference) on one NVIDIA GPU.
+inference, the bulk mel frontend, the LLTM cell) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -20,7 +20,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    entry point at B=1 and B=8 with dim_rnn 320 and 1024, the streamed one
    at 1024 with fp32 and bf16 LSTM matrices (the plain step given the same
    bf16-rounded matrices in fp32), PreNet masks on, and a 50-step rollout
-   in which both take the plain path's previous frame.
+   in which both take the plain path's previous frame. The STFT+mel
+   kernel at the train step's y_hat shape (8 x 8192 samples) and the bulk
+   shape (8 x 10 s at 22.05 kHz), n_fft 1024, hop 256, 80 mels, within
+   MEL_ATOL of its plain version, beside the torch.stft mel
+   (`audio/mel.py`, the library); its kernels-line times are device busy
+   per call (torch.profiler), since the torch.stft mel's time between CUDA
+   events is its host's. The LLTM cell forward at the PyTorch extension
+   tutorial's size (B=16, I=32, H=128).
 4. Inference: full-width LJSpeech SynthesizerTrn from the config defaults
    with seeded random weights, `fuse_mrf=True` and `TTS_FUSED_WN=1`. Launch
    counters are zeroed, then three English sentences go through the CLI's
@@ -49,7 +56,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (layerwise WN, MAS's plain version) with the same noise: the loss terms
    must agree; the largest gradient difference is printed. Then step times,
    plain and kernel in turns.
-7. Prints the kernels' JSON line, then the device line last.
+7. Mel frontend: the JAX benchmark's "mel frontend throughput" config
+   (8 clips x 10 s at 22.05 kHz, noise of std 0.3 from numpy seed 0)
+   through `mel_spectrogram_auto` on the card. Counter zeroed; every call
+   must launch the kernel once; log-mel [8, 861, 80], finite, within
+   MEL_ATOL of the plain version and within the JAX kernel test's tolerance
+   of the torch.stft mel; audio seconds per second of both paths, in turns.
+8. LLTM: the extension tutorial's loop at B=16, I=32, H=128, forward then
+   (new_h.sum() + new_c.sum()).backward(), through `lltm` (the kernel and
+   the analytic backward) and `lltm_ref` (autograd): outputs within
+   LLTM_ATOL, the five gradients within GRAD_REL; one launch per kernel
+   step; times of both, in turns.
+9. Prints the kernels' JSON line, then the device line last.
 """
 
 from __future__ import annotations
@@ -93,6 +111,18 @@ TRAIN_STEPS = 3
 # orders)
 TACO_STEPS, TACO_L, TACO_ROLLOUT = 400, 160, 50
 TACO_TF_ATOL = 1e-3
+# the mel frontend: n_fft = win 1024, hop 256, 80 mels at 22.05 kHz; the
+# train step's y_hat shape and the JAX benchmark's 8 clips of 10 s. Log-mel
+# tolerances: kernel vs its plain version (the log turns a small mel value's
+# relative error into an absolute one), and vs the torch.stft mel (the JAX
+# package's test of its kernel against its rfft mel)
+MEL_ARGS = (1024, 80, 22050, 256, 1024)
+MEL_SHAPES = ((8, 8192), (8, 220500))
+MEL_ATOL = 1e-3
+MEL_STFT_RTOL, MEL_STFT_ATOL = 2e-3, 2e-4
+# the LLTM cell at the PyTorch extension tutorial's size; outputs kernel vs plain
+LLTM_B, LLTM_I, LLTM_H = 16, 32, 128
+LLTM_ATOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 
@@ -141,16 +171,16 @@ def wall_ms(fn, warmup: int = 1, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def compare(name: str, out, ref) -> float:
+def compare(name: str, out, ref, atol: float = KERNEL_ATOL, rtol: float = KERNEL_RTOL) -> float:
     """Print and check max abs/rel error of out against ref."""
     import torch
 
     err = (out - ref).abs()
     max_abs = float(err.max())
     max_rel = float((err / (ref.abs() + KERNEL_ATOL)).max())
-    ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * ref.abs()))
+    ok = bool(torch.all(err <= atol + rtol * ref.abs()))
     log(f"  {name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-        f"tolerance |d| <= {KERNEL_ATOL:g} + {KERNEL_RTOL:g}*|ref| -> {'ok' if ok else 'FAIL'}")
+        f"tolerance |d| <= {atol:g} + {rtol:g}*|ref| -> {'ok' if ok else 'FAIL'}")
     if not ok or not torch.isfinite(out).all():
         raise RuntimeError(f"{name}: kernel disagrees with its plain version")
     return max_abs
@@ -448,6 +478,194 @@ def taco_kernel_phase(device, card: str):
         res[name]["max_abs_err"] = max(errs[name])
     res["taco_step_fused"]["launches"] = fused_launches
     return res
+
+
+def mel_bound(B: int, L: int, T: int, n_fft: int, n_mels: int):
+    """(bound ms, by) of the log-mel function at its least work: per frame
+    the window, a real FFT (split radix, 2 n log2 n - 4 n + 6 operations,
+    Sorensen et al. 1987), 3 operations a bin for the squared magnitude and
+    the mel product over F = n_fft / 2 + 1 bins; the waveform, window and
+    mel basis read once, the log-mel written once."""
+    F = n_fft // 2 + 1
+    fft = 2 * n_fft * math.log2(n_fft) - 4 * n_fft + 6
+    nbytes = 4.0 * (B * L + n_fft + F * n_mels + B * T * n_mels)
+    return bound(B * T * (n_fft + fft + 3 * F + 2 * F * n_mels), nbytes)
+
+
+def mel_dft_floor_ms(B: int, T: int, n_fft: int, n_mels: int) -> float:
+    """fp32 peak time of the kernel's own formulation: the DFT as two
+    products ([N, n_fft] @ [n_fft, F]) and the mel product."""
+    F = n_fft // 2 + 1
+    return bound(2.0 * B * T * F * (2 * n_fft + n_mels), 0.0)[0]
+
+
+def lltm_inputs(g, device, B, I, H):
+    """x, h, c ~ N(0, 1); weights and bias ~ U(-1/sqrt(H), 1/sqrt(H)), the
+    tutorial's initialisation."""
+    import torch
+
+    stdv = H ** -0.5
+
+    def u(*shape):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * stdv).to(device)
+
+    return (torch.randn(B, I, generator=g).to(device), u(3 * H, H + I), u(3 * H),
+            torch.randn(B, H, generator=g).to(device), torch.randn(B, H, generator=g).to(device))
+
+
+def frontend_kernel_phase(device, card: str):
+    """The STFT+mel kernel at the train step's and the bulk shape, and the
+    LLTM cell's forward kernel, against their plain versions."""
+    import torch
+
+    from torch_tts_tpu_torch.audio import mel as melmod
+    from torch_tts_tpu_torch.kernels import gated_cell as gc
+    from torch_tts_tpu_torch.kernels import stft
+
+    g = torch.Generator().manual_seed(4)
+    res, errs = {}, []
+    n_fft, n_mels, _, hop, _ = MEL_ARGS
+    for B, L in MEL_SHAPES:
+        y = (torch.randn(B, L, generator=g) * 0.3).to(device)
+        out = stft.mel_spectrogram_fused(y, *MEL_ARGS)
+        ref = stft.mel_spectrogram_plain(y, *MEL_ARGS)
+        err = (out - ref).abs().flatten()
+        q = torch.quantile(err[:: max(1, err.numel() // 2 ** 20)], torch.tensor(
+            [0.5, 0.99, 0.999], device=device)).tolist()
+        log(f"  mel_spectrogram_fused {B}x{L}: |err| median {q[0]:.2e}, p99 {q[1]:.2e}, "
+            f"p99.9 {q[2]:.2e}")
+        errs.append(compare(f"mel_spectrogram_fused {B}x{L}", out, ref, atol=MEL_ATOL, rtol=0.0))
+        paths = (lambda: stft.mel_spectrogram_fused(y, *MEL_ARGS),
+                 lambda: stft.mel_spectrogram_plain(y, *MEL_ARGS),
+                 lambda: melmod.mel_spectrogram(y, *MEL_ARGS))
+        t_k, t_p, t_l = (cuda_ms(fn) for fn in paths)
+        # device busy per call (the torch.stft mel is a dozen launches, so its
+        # time between CUDA events can be the host's)
+        busy = [profile_busy_ms(lambda: [fn() for _ in range(10)]) / 10 for fn in paths]
+        T = out.shape[1]
+        b_ms, b_by = mel_bound(B, L, T, n_fft, n_mels)
+        log(f"  mel_spectrogram_fused {B}x{L} ({B * T} frames): CUDA events: kernel {t_k:.4f} "
+            f"ms, plain {t_p:.4f} ms, torch.stft mel {t_l:.4f} ms; device busy per call: kernel "
+            f"{busy[0]:.4f} ms, plain {busy[1]:.4f} ms, torch.stft mel {busy[2]:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}); the DFT as products at the fp32 peak "
+            f"{mel_dft_floor_ms(B, T, n_fft, n_mels):.4f} ms [{card}]")
+        # the kernels line: the bulk shape's (the last) device busy times
+        res["mel_spectrogram_fused"] = dict(ms=busy[0], plain_ms=busy[1], library_ms=busy[2],
+                                            bound=(b_ms, b_by))
+    res["mel_spectrogram_fused"]["max_abs_err"] = max(errs)
+
+    B, I, H = LLTM_B, LLTM_I, LLTM_H
+    args = lltm_inputs(g, device, B, I, H)
+    with torch.no_grad():
+        got = gc._lltm_forward_cuda(*args)
+        max_abs = max(compare(f"lltm B={B} I={I} H={H} {n}", a, b) for n, a, b in zip(
+            ("new_h", "new_cell", "gates"), got, gc.lltm_forward_plain(*args)))
+        # launch-bound: the kernels' device time from the profiler, and the
+        # time per call with the host between CUDA events
+        t_k = profile_busy_ms(lambda: [gc._lltm_forward_cuda(*args) for _ in range(20)]) / 20
+        t_p = profile_busy_ms(lambda: [gc.lltm_ref(*args) for _ in range(20)]) / 20
+        call_k = cuda_ms(lambda: gc.lltm(*args), warmup=3, reps=20)
+        call_p = cuda_ms(lambda: gc.lltm_ref(*args), warmup=3, reps=20)
+    K = H + I
+    b_ms, b_by = bound(2.0 * B * K * 3 * H,
+                       4.0 * (B * I + 3 * H * K + 3 * H + 2 * B * H + 2 * B * H + B * 3 * H))
+    log(f"  lltm B={B} I={I} H={H}: device time kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}); per call with the host: kernel {call_k:.4f} ms, plain "
+        f"{call_p:.4f} ms [{card}]")
+    res["lltm"] = dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p, bound=(b_ms, b_by))
+    return res
+
+
+def mel_frontend_phase(device, card: str):
+    """The JAX benchmark's mel frontend config through mel_spectrogram_auto."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.audio import mel as melmod
+    from torch_tts_tpu_torch.kernels import stft
+
+    clips, secs, sr = 8, 10, MEL_ARGS[2]
+    rng = np.random.default_rng(0)
+    y = torch.from_numpy((rng.standard_normal((clips, sr * secs)) * 0.3).astype(np.float32))
+    y = y.to(device)
+    calls = 0
+
+    def kernel_path():
+        nonlocal calls
+        calls += 1
+        return stft.mel_spectrogram_auto(y, *MEL_ARGS)
+
+    stft.mel_spectrogram_fused.launches = 0
+    out = kernel_path()
+    torch.cuda.synchronize()
+    if stft.mel_spectrogram_fused.launches != 1:
+        raise RuntimeError("mel frontend: mel_spectrogram_auto did not launch the kernel")
+    n_fft, n_mels, _, hop, _ = MEL_ARGS
+    shape = (clips, 1 + (sr * secs + 2 * ((n_fft - hop) // 2) - n_fft) // hop, n_mels)
+    if tuple(out.shape) != shape or not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"mel frontend: log-mel {tuple(out.shape)}, want finite {shape}")
+    err_plain = compare("mel frontend, kernel vs plain", out,
+                        stft.mel_spectrogram_plain(y, *MEL_ARGS), atol=MEL_ATOL, rtol=0.0)
+    compare("mel frontend, kernel vs torch.stft mel", out, melmod.mel_spectrogram(y, *MEL_ARGS),
+            atol=MEL_STFT_ATOL, rtol=MEL_STFT_RTOL)
+    times = {}
+    for path in ("torch.stft", "kernel", "kernel", "torch.stft"):
+        fn = kernel_path if path == "kernel" else lambda: melmod.mel_spectrogram(y, *MEL_ARGS)
+        times.setdefault(path, []).append(wall_ms(fn))
+    launches = stft.mel_spectrogram_fused.launches
+    if launches != calls:
+        raise RuntimeError(f"mel frontend: {launches} launches in {calls} calls")
+    for path, ts in times.items():
+        ms = statistics.median(ts)
+        log(f"  mel frontend {clips} x {secs} s {path}: {ms:.3f} ms/call, "
+            f"{clips * secs / (ms / 1e3):.1f} audio s/s [{card}]")
+    log(f"  mel_spectrogram_fused launches {launches} in {calls} calls; max |kernel - plain| "
+        f"{err_plain:.3e}")
+    return {"mel_spectrogram_fused": launches}
+
+
+def lltm_phase(device, card: str):
+    """The extension tutorial's LLTM loop on both paths."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import gated_cell as gc
+
+    B, I, H = LLTM_B, LLTM_I, LLTM_H
+    args = lltm_inputs(torch.Generator().manual_seed(6), device, B, I, H)
+    kernel_steps = 0
+
+    def step(path):
+        nonlocal kernel_steps
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        kernel_steps += path == "kernel"
+        new_h, new_c = (gc.lltm if path == "kernel" else gc.lltm_ref)(*leaves)
+        (new_h.sum() + new_c.sum()).backward()
+        return new_h, new_c, [a.grad for a in leaves]
+
+    gc.lltm.launches = 0
+    kh, kc, kgrads = step("kernel")
+    torch.cuda.synchronize()
+    if gc.lltm.launches != 1:
+        raise RuntimeError("lltm: the kernel path did not launch the kernel")
+    ph, pc, pgrads = step("plain")
+    for name, a, b in (("new_h", kh, ph), ("new_cell", kc, pc)):
+        err = float((a - b).detach().abs().max())
+        log(f"  lltm {name}: max |kernel - plain| {err:.3e} (bound {LLTM_ATOL:g})")
+        if not err <= LLTM_ATOL:
+            raise RuntimeError(f"lltm: {name} disagrees with the plain path")
+    for name, a, b in zip(("d_input", "d_weights", "d_bias", "d_old_h", "d_old_cell"),
+                          kgrads, pgrads):
+        grad_compare(f"lltm {name}", a, b)
+    times = {}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        times.setdefault(path, []).append(wall_ms(lambda: step(path), warmup=3, reps=20))
+    launches = gc.lltm.launches
+    if launches != kernel_steps:
+        raise RuntimeError(f"lltm: {launches} launches in {kernel_steps} kernel steps")
+    for path, ts in times.items():
+        log(f"  lltm B={B} I={I} H={H} forward + backward, {path}: "
+            f"{statistics.median(ts):.4f} ms/step [{card}]")
+    return {"lltm": launches}
 
 
 def slice_phase(device, card: str, tmp: str):
@@ -862,10 +1080,13 @@ def main():
 
     stats = kernel_phase(device, card)
     stats.update(taco_kernel_phase(device, card))
+    stats.update(frontend_kernel_phase(device, card))
     with tempfile.TemporaryDirectory() as tmp:
         launches = slice_phase(device, card, tmp)
         launches.update(tacotron_phase(device, card, tmp))
     launches.update(train_phase(device, card))  # wn_group: its count on the train path
+    launches.update(mel_frontend_phase(device, card))
+    launches.update(lltm_phase(device, card))
     # the fused step is on no model path: its count is the kernel phase's
     launches["taco_step_fused"] = stats["taco_step_fused"]["launches"]
 
@@ -880,12 +1101,18 @@ def main():
                "taco_step_fused": ("torch_tts_tpu_torch/csrc/taco_step.cu",
                                    "torch_tts_tpu/kernels/taco_step.py:171"),
                "taco_step_streamed": ("torch_tts_tpu_torch/csrc/taco_step.cu",
-                                      "torch_tts_tpu/kernels/taco_step.py:301")}
-    # no single PyTorch call computes any of these functions: library_ms null
+                                      "torch_tts_tpu/kernels/taco_step.py:301"),
+               "mel_spectrogram_fused": ("torch_tts_tpu_torch/csrc/stft_mel.cu",
+                                         "torch_tts_tpu/kernels/stft.py:47"),
+               "lltm": ("torch_tts_tpu_torch/csrc/gated_cell.cu",
+                        "torch_tts_tpu/kernels/gated_cell.py:81")}
+    # library_ms: the torch.stft mel's device busy time for the STFT+mel
+    # kernel (whose ms and plain_ms are device busy times too); no single
+    # PyTorch call computes any of the other functions
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],
                     plain_ms=stats[n]["plain_ms"], bound_ms=stats[n]["bound"][0],
-                    bound_by=stats[n]["bound"][1], library_ms=None)
+                    bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"))
                for n, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

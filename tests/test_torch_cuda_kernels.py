@@ -6,7 +6,9 @@ without CUDA. On the card, from the repository root:
     python -m pytest --noconftest -q tests/test_torch_cuda_kernels.py
 
 TF32 is off, so both sides compute in fp32; they differ only in summation
-order (rtol 1e-4, atol 1e-4). MAS must equal its plain version exactly. WN
+order (rtol 1e-4, atol 1e-4). MAS must equal its plain version exactly. The
+log-mel of the STFT+mel kernel is held within 1e-3 abs of its plain version
+(the log turns a small mel value's relative error into an absolute one). WN
 gradients: per tensor, max |kernel - plain| <= 1e-4 * max |plain| + 1e-5
 (sums over up to B*T frames in another order). The Taco2Prod step with
 bf16 LSTM matrices is held against the plain step given the same
@@ -16,6 +18,8 @@ bf16-rounded matrices in fp32, so its tolerance stays the fp32 one.
 import pytest
 import torch
 
+from torch_tts_tpu_torch.kernels import gated_cell as gc
+from torch_tts_tpu_torch.kernels import stft
 from torch_tts_tpu_torch.kernels import taco_step as ts
 from torch_tts_tpu_torch.kernels.mas import MAX_NEG, maximum_path, maximum_path_plain
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused, mrf_plain
@@ -23,6 +27,7 @@ from torch_tts_tpu_torch.kernels.wn_stack import (
     wn_group, wn_group_backward, wn_group_backward_plain, wn_group_plain, wn_stack)
 
 RTOL, ATOL = 1e-4, 1e-4
+MEL_ATOL = 1e-3
 
 
 @pytest.fixture
@@ -242,3 +247,91 @@ def test_taco_step_rejects_unsupported_input(cuda_device):
     y_in, state, memory, mmask, wts, _ = _taco_inputs(g, cuda_device, 2, 20, 36, False)
     with pytest.raises(ValueError, match="multiples of 8"):
         ts.taco_step_fused(y_in, state, memory, mmask, wts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,n_fft,hop,n_mels,sr", [
+    (8, 8192, 1024, 256, 80, 22050), (8, 220500, 1024, 256, 80, 22050),
+    (3, 12345, 1024, 256, 80, 22050), (2, 4000, 256, 64, 20, 8000), (1, 999, 512, 100, 128, 16000),
+])
+def test_stft_mel_kernel_matches_plain(cuda_device, B, L, n_fft, hop, n_mels, sr):
+    """The chip shapes, then frame counts that are not a multiple of the
+    kernel's 32 frames a CTA (3 x 48, 1 x 9) and other n_fft, hop and mels;
+    a 1-D waveform gives the same numbers as its row of the batch."""
+    g = torch.Generator().manual_seed(L)
+    y = _randn(g, cuda_device, B, L, scale=0.3)
+    before = stft.mel_spectrogram_fused.launches
+    out = stft.mel_spectrogram_fused(y, n_fft, n_mels, sr, hop, n_fft)
+    assert stft.mel_spectrogram_fused.launches == before + 1
+    pad = (n_fft - hop) // 2
+    assert out.shape == (B, 1 + (L + 2 * pad - n_fft) // hop, n_mels)
+    torch.testing.assert_close(out, stft.mel_spectrogram_plain(y, n_fft, n_mels, sr, hop, n_fft),
+                               rtol=0, atol=MEL_ATOL)
+    torch.testing.assert_close(stft.mel_spectrogram_fused(y[0], n_fft, n_mels, sr, hop, n_fft),
+                               out[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_fft,hop", [(1024, 256), (256, 64)])
+def test_stft_mel_kernel_weights_bin_0_and_nyquist(cuda_device, n_fft, hop):
+    """A mel basis gives bin 0 and the Nyquist bin no weight; a basis of
+    U(0, 1) weights on every bin holds tile 0's special case (bin 0 without
+    its sin column, the Nyquist bin in the spare column)."""
+    g = torch.Generator().manual_seed(n_fft)
+    y = _randn(g, cuda_device, 3, 5001, scale=0.3)
+    window, dft, _ = stft._kernel_constants(n_fft, 16000, 80, 0.0, None, cuda_device)
+    basis_t = torch.rand(n_fft // 2 + 1, 80, generator=g).to(cuda_device)
+    torch.testing.assert_close(stft._launch(y, n_fft, hop, window, dft, basis_t),
+                               stft._log_mel_plain(y, n_fft, hop, basis_t), rtol=0, atol=MEL_ATOL)
+
+
+@pytest.mark.cuda
+def test_stft_mel_auto_dispatch(cuda_device):
+    y = _randn(torch.Generator().manual_seed(1), cuda_device, 8, 8192, scale=0.3)
+    before = stft.mel_spectrogram_fused.launches
+    stft.mel_spectrogram_auto(y, 1024, 80, 22050, 256, 1024)  # 264 frames: torch.stft
+    assert stft.mel_spectrogram_fused.launches == before
+    y = _randn(torch.Generator().manual_seed(2), cuda_device, 8, 65536, scale=0.3)
+    stft.mel_spectrogram_auto(y, 1024, 80, 22050, 256, 1024)  # 2056 frames: the kernel
+    assert stft.mel_spectrogram_fused.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_stft_mel_rejects_a_gradient_and_fp16(cuda_device):
+    y = torch.zeros(2, 8192, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        stft.mel_spectrogram_fused(y, 1024, 80, 22050, 256, 1024)
+    with pytest.raises(ValueError, match="fp32"):
+        stft.mel_spectrogram_fused(y.detach().half(), 1024, 80, 22050, 256, 1024)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        stft.mel_spectrogram_fused(y.detach(), 800, 80, 22050, 200, 800)
+
+
+def _lltm_inputs(g, device, B, I, H):
+    s = H ** -0.5
+    return [_randn(g, device, B, I), _randn(g, device, 3 * H, H + I, scale=s),
+            _randn(g, device, 3 * H, scale=s), _randn(g, device, B, H), _randn(g, device, B, H)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,H", [(16, 32, 128), (5, 7, 13), (40, 3, 1), (1, 1, 33)])
+def test_lltm_kernel_matches_plain(cuda_device, B, I, H):
+    """The tutorial's shape, odd H, more rows than a warp has lanes."""
+    g = torch.Generator().manual_seed(B * 100 + H)
+    args = _lltm_inputs(g, cuda_device, B, I, H)
+    before = gc.lltm.launches
+    got = gc._lltm_forward_cuda(*args)
+    assert gc.lltm.launches == before + 1
+    for a, b in zip(got, gc.lltm_forward_plain(*args)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=1e-5)
+    leaves = [a.clone().requires_grad_() for a in args]
+    new_h, new_c = gc.lltm(*leaves)
+    assert gc.lltm.launches == before + 2
+    (new_h.sum() + new_c.sum()).backward()
+    refs = [a.clone().requires_grad_() for a in args]
+    ref_h, ref_c = gc.lltm_ref(*refs)
+    (ref_h.sum() + ref_c.sum()).backward()
+    torch.testing.assert_close(new_h, ref_h, rtol=0, atol=1e-5)
+    torch.testing.assert_close(new_c, ref_c, rtol=0, atol=1e-5)
+    for i, (a, b) in enumerate(zip(leaves, refs)):
+        _assert_grad_close(f"lltm grad {i}", a.grad, b.grad)

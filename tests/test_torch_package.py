@@ -73,6 +73,11 @@ def test_entry_points_default_to_the_card():
     for cli in (vits2_infer, tacotron_infer):
         assert "default='cuda'" in inspect.getsource(cli.main) or \
             'default="cuda"' in inspect.getsource(cli.main)
+    # the mel frontend and the LLTM cell run where their input lies
+    from torch_tts_tpu_torch.kernels import gated_cell, stft
+
+    for fn in (stft.mel_spectrogram_auto, stft.mel_spectrogram_fused, gated_cell.lltm):
+        assert "device" not in inspect.signature(fn).parameters
 
 
 def test_mrf_fused_raises_instead_of_dropping_a_gradient():
@@ -101,6 +106,13 @@ def test_wrappers_raise_on_non_cpu_non_cuda_device():
         mrf_fused(x, blocks)
     with pytest.raises(ValueError):
         wn_group(x, x[..., :1], None, *(torch.zeros(1, device="meta"),) * 4)
+    from torch_tts_tpu_torch.kernels.gated_cell import lltm
+    from torch_tts_tpu_torch.kernels.stft import mel_spectrogram_fused
+
+    with pytest.raises(ValueError):
+        mel_spectrogram_fused(torch.zeros(8, 65536, device="meta"), 1024, 80, 22050, 256, 1024)
+    with pytest.raises(ValueError):
+        lltm(*(torch.zeros(2, 2, device="meta"),) * 5)
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -117,7 +129,7 @@ def test_build_dir_is_keyed_by_sources():
     d = build.library_dir()
     assert d.parent == ROOT / "build" / "torch_kernels" and len(d.name) == 16
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "mas.cu", "mrf_fused.cu", "taco_step.cu", "wn_stack.cu"]
+        "gated_cell.cu", "mas.cu", "mrf_fused.cu", "stft_mel.cu", "taco_step.cu", "wn_stack.cu"]
 
 
 def test_cli_writes_wav_on_cpu(tmp_path):
