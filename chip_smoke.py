@@ -10,7 +10,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
 
 1. The card: requires CUDA, prints `nvidia-smi`'s name and power limit.
 2. Build: compiles torch_tts_tpu_torch/csrc/*.cu with nvcc, one process
-   per source (timed).
+   per source (timed); prints ptxas's registers and spills per kernel.
 3. Kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes the main paths give it, with TF32 off: max
    abs/rel error against the stated tolerance and each version's median
@@ -25,9 +25,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
    shape (8 x 10 s at 22.05 kHz), n_fft 1024, hop 256, 80 mels, within
    MEL_ATOL of its plain version, beside the torch.stft mel
    (`audio/mel.py`, the library); its kernels-line times are device busy
-   per call (torch.profiler), since the torch.stft mel's time between CUDA
-   events is its host's. The LLTM cell forward at the PyTorch extension
-   tutorial's size (B=16, I=32, H=128).
+   per call (torch.profiler, the three paths in turns), since the
+   torch.stft mel's time between CUDA events is its host's. Then a dense
+   U(0, 1) mel basis (every bin weighted), and the kernel against the
+   torch.stft mel at 8 clips of MEL_AUTO_LENGTHS samples, the measurement
+   behind `mel_spectrogram_auto`'s threshold. The LLTM cell forward at the
+   PyTorch extension tutorial's size (B=16, I=32, H=128). Bounds: the MRF
+   bank and the WN group forward and backward at 3xTF32's 165 TFLOP/s (the
+   fp32 SIMT bound logged beside), the rest at fp32's 67 TFLOP/s or HBM3's
+   3.35 TB/s.
 4. Inference: full-width LJSpeech SynthesizerTrn from the config defaults
    with seeded random weights, `fuse_mrf=True` and `TTS_FUSED_WN=1`. Launch
    counters are zeroed, then three English sentences go through the CLI's
@@ -35,7 +41,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (B=1 and B=8, T_x=256, max_frames=1024) through `infer`; audio must be
    finite with 0 < y_lengths <= max_frames and silence past each length,
    and both kernels must have launched. The same inputs and noise then run
-   through the plain path (no launches), and the audio must agree.
+   through the plain path (no launches), and the audio must agree. Call
+   times at B=1 and B=8, plain and kernel in turns, and each path's device
+   busy time per call.
 5. Tacotron: full-width `TacotronConfig()` (LJSpeech) with seeded random
    weights. Counters zeroed, then the three sentences through the
    Tacotron CLI's `main()` (state dict in a temp .pth, --max-steps 400,
@@ -123,14 +131,30 @@ MEL_STFT_RTOL, MEL_STFT_ATOL = 2e-3, 2e-4
 # the LLTM cell at the PyTorch extension tutorial's size; outputs kernel vs plain
 LLTM_B, LLTM_I, LLTM_H = 16, 32, 128
 LLTM_ATOL = 1e-5
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3;
+# and the rate that keeps fp32 accuracy on the tensor cores, 3xTF32 (three
+# TF32 products a fp32 product) at a third of the 495 TFLOP/s TF32 peak,
+# the bound of the product-bound kernels (MRF bank, WN forward and backward)
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
+# mel_spectrogram_auto's threshold sweep: 8 clips of these many samples
+MEL_AUTO_LENGTHS = (2048, 8192, 32768, 220500)
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
     """(least time in ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def product_bound(name: str, flops: float, nbytes: float, card: str):
+    """The bound of a product-bound kernel at the 3xTF32 rate; the fp32 SIMT
+    figure is logged beside it."""
+    b = bound(flops, nbytes, PEAK_3XTF32_FLOPS)
+    simt = bound(flops, nbytes)[0]
+    log(f"  {name}: bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.1f} GFLOP at 3xTF32's "
+        f"{PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s); fp32 SIMT bound {simt:.4f} ms [{card}]")
+    return b
 
 
 def log(msg: str):
@@ -245,8 +269,9 @@ def kernel_phase(device, card: str):
         flops += 2.0 * T * C * C * taps
         nbytes += 4.0 * (2 * T * C + sum(w.numel() + b.numel() for block in blocks
                                           for it in block for _, w, b in it))
+    log(f"  mrf_fused three stages: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
     res["mrf_fused"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                            bound=bound(flops, nbytes))
+                            bound=product_bound("mrf_fused B=1 bank", flops, nbytes, card))
 
     errs = []
     H, L, k, T = WN_SHAPE["H"], WN_SHAPE["L"], WN_SHAPE["k"], WN_SHAPE["T"]
@@ -270,9 +295,10 @@ def kernel_phase(device, card: str):
         t_k = cuda_ms(lambda: wn_group(*args))
         t_p = cuda_ms(lambda: wn_group_plain(*args))
         log(f"  wn_group B={B} T={T} H={H} L={L}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms [{card}]")
+        nbytes = 4.0 * (3 * B * T * H + B * T + L * (k + 2) * H * 2 * H)
+        b = product_bound(f"wn_group B={B}", wn_flops(B, T), nbytes, card)
         if B == 1:
-            nbytes = 4.0 * (3 * B * T * H + B * T + L * (k + 2) * H * 2 * H)
-            res["wn_group"] = dict(ms=t_k, plain_ms=t_p, bound=bound(wn_flops(B, T), nbytes))
+            res["wn_group"] = dict(ms=t_k, plain_ms=t_p, bound=b)
     res["wn_group"]["max_abs_err"] = max(errs)
 
     # WN group backward: the flows' and enc_q's groups at the train batch,
@@ -300,8 +326,8 @@ def kernel_phase(device, card: str):
                 f"plain (autograd of the plain group) {t_p:.3f} ms [{card}]")
             nbytes = 4.0 * (L * B * T * 3 * H + 3 * B * T * H + B * T
                             + 2 * L * (k + 1) * H * 2 * H + 2 * L * 2 * H)
-            res["wn_group_backward"] = dict(ms=t_k, plain_ms=t_p,
-                                            bound=bound(2 * wn_flops(B, T), nbytes))
+            res["wn_group_backward"] = dict(ms=t_k, plain_ms=t_p, bound=product_bound(
+                f"wn_group_backward B={B}", 2 * wn_flops(B, T), nbytes, card))
     res["wn_group_backward"]["max_abs_err"] = max(errs)
 
     # MAS at the train shape: exact equality, random lengths and ties
@@ -499,6 +525,39 @@ def mel_dft_floor_ms(B: int, T: int, n_fft: int, n_mels: int) -> float:
     return bound(2.0 * B * T * F * (2 * n_fft + n_mels), 0.0)[0]
 
 
+def busy_in_turns(paths, calls: int = 10):
+    """Device busy ms per call of each path (torch.profiler over `calls`
+    calls), measured in turns a b c c b a; the median of each path's two."""
+    order = list(range(len(paths)))
+    times = {i: [] for i in order}
+    for i in order + order[::-1]:
+        times[i].append(profile_busy_ms(lambda: [paths[i]() for _ in range(calls)]) / calls)
+    return [statistics.median(times[i]) for i in order]
+
+
+def mel_auto_sweep(device, card: str):
+    """The kernel against the torch.stft mel at 8 clips of MEL_AUTO_LENGTHS
+    samples: device busy per call (in turns) and per call with the host
+    (CUDA events), for mel_spectrogram_auto's threshold."""
+    import torch
+
+    from torch_tts_tpu_torch.audio import mel as melmod
+    from torch_tts_tpu_torch.kernels import stft
+
+    g = torch.Generator().manual_seed(5)
+    n_fft, _, _, hop, _ = MEL_ARGS
+    for L in MEL_AUTO_LENGTHS:
+        y = (torch.randn(8, L, generator=g) * 0.3).to(device)
+        paths = (lambda: stft.mel_spectrogram_fused(y, *MEL_ARGS),
+                 lambda: melmod.mel_spectrogram(y, *MEL_ARGS))
+        busy = busy_in_turns(paths)
+        call = [cuda_ms(fn, warmup=3, reps=20) for fn in paths]
+        frames = 8 * (1 + L // hop)  # mel_spectrogram_auto's estimate
+        log(f"  mel auto sweep 8x{L} ({frames} estimated frames): device busy kernel "
+            f"{busy[0]:.4f} ms, torch.stft mel {busy[1]:.4f} ms; per call with the host kernel "
+            f"{call[0]:.4f} ms, torch.stft mel {call[1]:.4f} ms [{card}]")
+
+
 def lltm_inputs(g, device, B, I, H):
     """x, h, c ~ N(0, 1); weights and bias ~ U(-1/sqrt(H), 1/sqrt(H)), the
     tutorial's initialisation."""
@@ -539,9 +598,9 @@ def frontend_kernel_phase(device, card: str):
                  lambda: stft.mel_spectrogram_plain(y, *MEL_ARGS),
                  lambda: melmod.mel_spectrogram(y, *MEL_ARGS))
         t_k, t_p, t_l = (cuda_ms(fn) for fn in paths)
-        # device busy per call (the torch.stft mel is a dozen launches, so its
-        # time between CUDA events can be the host's)
-        busy = [profile_busy_ms(lambda: [fn() for _ in range(10)]) / 10 for fn in paths]
+        # device busy per call, the three paths in turns (the torch.stft mel is
+        # a dozen launches, so its time between CUDA events can be the host's)
+        busy = busy_in_turns(paths)
         T = out.shape[1]
         b_ms, b_by = mel_bound(B, L, T, n_fft, n_mels)
         log(f"  mel_spectrogram_fused {B}x{L} ({B * T} frames): CUDA events: kernel {t_k:.4f} "
@@ -552,6 +611,16 @@ def frontend_kernel_phase(device, card: str):
         # the kernels line: the bulk shape's (the last) device busy times
         res["mel_spectrogram_fused"] = dict(ms=busy[0], plain_ms=busy[1], library_ms=busy[2],
                                             bound=(b_ms, b_by))
+    # a dense U(0, 1) basis: full bin ranges, bins 0 and n_fft / 2 weighted
+    y = (torch.randn(*MEL_SHAPES[0], generator=g) * 0.3).to(device)
+    window, twiddles, _, _ = stft._kernel_constants(n_fft, MEL_ARGS[2], n_mels, 0.0, None, device)
+    basis = torch.rand(n_mels, n_fft // 2 + 1, generator=g)
+    ranges = torch.from_numpy(stft._mel_ranges(basis.numpy())).to(device)
+    basis = basis.to(device)
+    errs.append(compare("mel_spectrogram_fused dense U(0, 1) basis",
+                        stft._launch(y, n_fft, hop, window, twiddles, basis, ranges),
+                        stft._log_mel_plain(y, n_fft, hop, basis.t()), atol=MEL_ATOL, rtol=0.0))
+    mel_auto_sweep(device, card)
     res["mel_spectrogram_fused"]["max_abs_err"] = max(errs)
 
     B, I, H = LLTM_B, LLTM_I, LLTM_H
@@ -774,8 +843,11 @@ def slice_phase(device, card: str, tmp: str):
             times.setdefault(path, []).append(wall_ms(lambda: run(B, seed=B)))
         for path, ts in times.items():
             ms = statistics.median(ts)
+            model.dec.fuse_mrf = path == "kernel"
+            os.environ["TTS_FUSED_WN"] = "1" if path == "kernel" else "0"
+            busy = profile_busy_ms(lambda: run(B, seed=B))
             log(f"  infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: {ms:.2f} ms/call, "
-                f"{B * audio_s / (ms / 1e3):.1f}x real time [{card}]")
+                f"{B * audio_s / (ms / 1e3):.1f}x real time; device busy {busy:.2f} ms/call [{card}]")
     model.dec.fuse_mrf = True
     os.environ["TTS_FUSED_WN"] = "1"
     return launches
@@ -1074,9 +1146,12 @@ def main():
     build.load_library()
     log(f"build: {time.perf_counter() - t0:.1f} s ({build.library_dir()})")
     with open(build.library_dir() / "nvcc.log") as f:
+        entry = ""
         for line in f:
-            if "registers" in line or "spill" in line:
-                log("  ptxas: " + line.strip())
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {entry}: {line.strip()}")
 
     stats = kernel_phase(device, card)
     stats.update(taco_kernel_phase(device, card))

@@ -3,10 +3,14 @@
 For every `pl.pallas_call` site of the JAX package, at the shapes its main
 path (or, off any path, its bench or test) gives it: the operations and
 bytes of the function (each input read once, each output written once) and
-the larger of operations / 67 TFLOP/s (fp32 outside the tensor cores) and
-bytes / 3.35 TB/s (HBM3), from NVIDIA's data sheet. Pure arithmetic on
-shapes: runs anywhere, needs no card. chip_smoke.py computes the same bound
-for the ported kernels from its own run's inputs.
+the larger of operations / peak and bytes / 3.35 TB/s (HBM3), from
+NVIDIA's data sheet. The peak is 67 TFLOP/s (fp32 outside the tensor cores)
+for most rows; for the product-bound rows (1-3: the MRF bank, the WN group
+forward and backward) it is the rate that keeps fp32 accuracy on the tensor
+cores, 3xTF32 at a third of the 495 TFLOP/s TF32 peak (165 TFLOP/s), and
+their fp32 SIMT bound is printed beside it. Pure arithmetic on shapes: runs
+anywhere, needs no card. chip_smoke.py computes the same bound for the
+ported kernels from its own run's inputs.
 
 Usage:
     python scripts/kernel_bounds.py
@@ -15,11 +19,12 @@ Usage:
 import math
 
 PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 F32 = 4
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_FLOPS):
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -78,29 +83,32 @@ def lltm(B=16, I=32, H=128):
     return flops, F32 * (B * I + (I + H) * 3 * H + 3 * H + 2 * B * H + 5 * B * H)
 
 
+# (row, (operations, bytes), product-bound: the 3xTF32 rate applies)
 ROWS = (
-    ("1 mrf_fused, B=1 decode (C=128/64/32)", mrf()),
-    ("1 mrf_fused, B=1 decode, C=128 stage", mrf(stages=((128, 65536),))),
-    ("1 mrf_fused, B=1 decode, C=64 stage", mrf(stages=((64, 131072),))),
-    ("1 mrf_fused, B=1 decode, C=32 stage", mrf(stages=((32, 262144),))),
-    ("2 wn_group, B=1 T=1024 (inference flows)", wn(1, 1024)),
-    ("2 wn_group, B=8 T=1024 (inference flows)", wn(8, 1024)),
-    ("2 wn_group, B=8 T=1000 (train step)", wn(8, 1000)),
-    ("3 wn_group backward, B=8 T=1000 (train step)", wn(8, 1000, backward=True)),
-    ("4 maximum_path, [8, 1000, 192] (train step)", mas()),
-    ("5 mel_spectrogram_fused, 8 x 8192 samples", stft_mel(8, 8192)),
-    ("5 mel_spectrogram_fused, 8 x 10 s at 22.05 kHz", stft_mel(8, 220500)),
-    ("6 taco_step_fused, B=1, dim_rnn 320 (the largest that fits)", taco_step(H1=320, H2=320)),
-    ("7 taco_step_streamed, B=1, LJSpeech dim_rnn 1024", taco_step()),
-    ("8 _lltm_fwd_pallas, B=16 I=32 H=128 (the extension tutorial's LLTM)", lltm()),
+    ("1 mrf_fused, B=1 decode (C=128/64/32)", mrf(), True),
+    ("1 mrf_fused, B=1 decode, C=128 stage", mrf(stages=((128, 65536),)), True),
+    ("1 mrf_fused, B=1 decode, C=64 stage", mrf(stages=((64, 131072),)), True),
+    ("1 mrf_fused, B=1 decode, C=32 stage", mrf(stages=((32, 262144),)), True),
+    ("2 wn_group, B=1 T=1024 (inference flows)", wn(1, 1024), True),
+    ("2 wn_group, B=8 T=1024 (inference flows)", wn(8, 1024), True),
+    ("2 wn_group, B=8 T=1000 (train step)", wn(8, 1000), True),
+    ("3 wn_group backward, B=8 T=1000 (train step)", wn(8, 1000, backward=True), True),
+    ("4 maximum_path, [8, 1000, 192] (train step)", mas(), False),
+    ("5 mel_spectrogram_fused, 8 x 8192 samples", stft_mel(8, 8192), False),
+    ("5 mel_spectrogram_fused, 8 x 10 s at 22.05 kHz", stft_mel(8, 220500), False),
+    ("6 taco_step_fused, B=1, dim_rnn 320 (the largest that fits)", taco_step(H1=320, H2=320), False),
+    ("7 taco_step_streamed, B=1, LJSpeech dim_rnn 1024", taco_step(), False),
+    ("8 _lltm_fwd_pallas, B=16 I=32 H=128 (the extension tutorial's LLTM)", lltm(), False),
 )
 
 
 def main():
-    print(f"{'kernel and shape':68s} {'GFLOP':>10s} {'MB':>10s} {'bound ms':>10s}  by")
-    for name, (flops, nbytes) in ROWS:
-        t, by = bound(flops, nbytes)
-        print(f"{name:68s} {flops / 1e9:10.4f} {nbytes / 1e6:10.3f} {t:10.5f}  {by}")
+    print(f"{'kernel and shape':68s} {'GFLOP':>10s} {'MB':>10s} {'bound ms':>10s}  by"
+          f"          {'fp32 SIMT bound ms':>18s}")
+    for name, (flops, nbytes), product_bound in ROWS:
+        t, by = bound(flops, nbytes, PEAK_3XTF32_FLOPS if product_bound else PEAK_FLOPS)
+        simt = f"{bound(flops, nbytes)[0]:18.5f}" if product_bound else ""
+        print(f"{name:68s} {flops / 1e9:10.4f} {nbytes / 1e6:10.3f} {t:10.5f}  {by:10s} {simt}")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,9 @@ against the JAX package.
 - The CUDA kernel's launch plan (per ResBlock1 iteration: buffers, tile,
   halo, rows computed per conv, epilogue), replayed window by window on the
   CPU with never-computed rows poisoned with NaN, equals the plain version:
-  every row a conv reads was computed.
+  every row a conv reads was computed. The same replay with every product
+  in 3xTF32 (`split_tf32`, the kernel's split) stays within 1e-5 of it,
+  where 1xTF32 does not; `split_tf32` rounds as cvt.rna does.
 - The port's Generator(fuse_mrf=True) equals the JAX Generator(fuse_mrf=True)
   on the same weights, unmasked and masked.
 - A CPU tensor takes the plain version and launches nothing (the kernel on
@@ -27,13 +29,16 @@ from torch_tts_tpu_torch.kernels.mrf_fused import (
     ADD,
     ADD_DIV,
     DIV,
-    ROWS_PER_PASS_TIMES_C,
     SMEM_BYTES,
     STORE,
     dilated_offsets,
     mrf_fused,
     mrf_plain,
     plan_mrf,
+    ring_bytes,
+    rows_per_pass,
+    split_tf32,
+    window_bytes,
 )
 from torch_tts_tpu_torch.models.vits2.convert import state_dict_from_jax_params
 from torch_tts_tpu_torch.ops.hifigan import Generator
@@ -75,11 +80,18 @@ def test_plain_matches_pallas_interpret(T, tile):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 
 
-def _replay_plan(x, blocks, launches):
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel's tensor cores form it: small terms first."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _replay_plan(x, blocks, launches, mm=torch.matmul):
     """The CUDA kernel's algorithm on the CPU: launch by launch over the
     buffers {0: x, 1: out, 2, 3: scratch}, per tile a window of
-    T0 + 2*halo rows; each conv computes exactly its planned rows; rows not
-    (re)computed are NaN, so reading one shows in the output."""
+    T0 + 2*halo rows; each conv computes exactly its planned rows (each tap
+    one product `mm`); rows not (re)computed are NaN, so reading one shows
+    in the output."""
     B, T, C = x.shape
     nan = float("nan")
     bufs = {0: x, 1: torch.full_like(x, nan), 2: torch.full_like(x, nan),
@@ -99,7 +111,7 @@ def _replay_plan(x, blocks, launches):
             for j, ((offs, w, b), (lo, hi)) in enumerate(zip(convs, ln.ranges)):
                 inp = torch.nn.functional.leaky_relu(xb, 0.1) if j == 0 else tb
                 assert lo + min(offs) >= 0 and hi - 1 + max(offs) < W
-                y = sum(inp[:, lo + o:hi + o] @ w[t * C:(t + 1) * C] for t, o in enumerate(offs))
+                y = sum(mm(inp[:, lo + o:hi + o], w[t * C:(t + 1) * C]) for t, o in enumerate(offs))
                 y = (y + b) * valid[:, lo:hi]
                 if j == 0:
                     tb[:, lo:hi] = torch.nn.functional.leaky_relu(y, 0.1)
@@ -116,9 +128,14 @@ def _replay_plan(x, blocks, launches):
     return bufs[1]
 
 
-@pytest.mark.parametrize("T,smem,n_blocks", [(70, 2 * 68 * 4 * 100, 3), (9, 2 * 68 * 4 * 100, 3),
-                                             (900, 2 * 68 * 4 * 400, 3), (77, SMEM_BYTES, 1),
-                                             (200, 2 * 68 * 4 * 150, 2)])
+def _smem(rows):
+    """Shared memory of the weight ring and two windows of `rows` rows at C=64."""
+    return ring_bytes(64) + window_bytes(rows, 64)
+
+
+@pytest.mark.parametrize("T,smem,n_blocks", [(70, _smem(100), 3), (9, _smem(100), 3),
+                                             (900, _smem(400), 3), (77, SMEM_BYTES, 1),
+                                             (200, _smem(150), 2)])
 def test_kernel_plan_replay_matches_plain(T, smem, n_blocks):
     rng = np.random.default_rng(1)
     C = 64
@@ -137,22 +154,62 @@ def test_kernel_plan_replay_matches_plain(T, smem, n_blocks):
 
 def test_plan_fits_shared_memory_at_decoder_shapes():
     """At the LJSpeech bank the C=128/64/32 stages get tiles whose two
-    padded buffers fit the 227 KB of shared memory, the first conv reads the
-    whole window and the last computes exactly the tile, and the planner
-    executes at most 1.3 rows per output row and conv."""
+    padded window buffers fit the 227 KB of shared memory beside the weight
+    ring, the first conv reads the whole window and the last computes
+    exactly the tile, and the planner executes at most 1.1 rows per output
+    row and conv in passes of 128 (C=128) or 256 rows."""
     offs = [[(dilated_offsets(k, d), dilated_offsets(k, 1)) for d in (1, 3, 5)]
             for k in (3, 7, 11)]
     for C, T in ((128, 65536), (64, 131072), (32, 262144)):
-        rows = ROWS_PER_PASS_TIMES_C // C
-        for ln in plan_mrf(offs, C, T):
+        rows = rows_per_pass(C)
+        assert rows == (128 if C == 128 else 256)
+        for ln in plan_mrf(offs, C, T, n_sm=132):
             W = ln.T0 + 2 * ln.halo
-            assert 2 * W * (C + 4) * 4 <= SMEM_BYTES and ln.T0 >= 8
+            assert ring_bytes(C) + window_bytes(W, C) <= SMEM_BYTES and ln.T0 >= 8
             bi, it = ln.convs
             r0 = max(abs(o) for o in offs[bi][it][0])
             assert ln.ranges[0] == (r0, W - r0)
             assert ln.ranges[-1] == (ln.halo, ln.halo + ln.T0)
             executed = sum(-(-(hi - lo) // rows) * rows for lo, hi in ln.ranges)
-            assert executed <= 1.3 * 2 * ln.T0, (C, ln)
+            assert executed <= 1.1 * 2 * ln.T0, (C, ln)
+
+
+def test_split_tf32_rounds_as_cvt_rna():
+    """hi is x rounded half away from zero to 11 significant bits (bit for
+    bit, against frexp), lo the same rounding of x - hi; ties included."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal(4096) * 10.0 ** rng.integers(-8, 8, 4096)).astype(np.float32)
+    ties = np.array([1 + 2 ** -11, 1 + 3 * 2 ** -11, -(1 + 2 ** -11), (1.5 + 2 ** -11) * 2 ** -20],
+                    np.float32)
+    x = np.concatenate([x, ties, -ties, [0.0, 1.0, -2.5]]).astype(np.float32)
+
+    def rna(v):
+        m, e = np.frexp(np.abs(v).astype(np.float64))  # |v| = m 2^e, m in [0.5, 1)
+        return (np.sign(v) * np.floor(m * 2 ** 11 + 0.5) * np.exp2(e - 11)).astype(np.float32)
+
+    hi, lo = split_tf32(torch.from_numpy(x))
+    np.testing.assert_array_equal(hi.numpy(), rna(x))
+    np.testing.assert_array_equal(lo.numpy(), rna((x - hi.numpy()).astype(np.float32)))
+    assert (hi.numpy().view(np.int32) & 0x1FFF == 0).all()
+    assert hi[4096:4100].tolist() == [1 + 2 ** -10, 1 + 2 ** -9, -(1 + 2 ** -10),
+                                      (1.5 + 2 ** -10) * 2 ** -20]
+
+
+def test_kernel_plan_replay_in_3xtf32_matches_plain():
+    """The plan replayed with every product in 3xTF32 stays within 1e-5 of
+    the fp32 plain version over a three-block bank; with the hi parts alone
+    (1xTF32) it does not."""
+    rng = np.random.default_rng(5)
+    C, T = 32, 90
+    blocks = _convert(_rand_blocks(rng, C, kernel_sizes=(3, 7, 11)), torch.from_numpy)
+    x = torch.from_numpy(rng.standard_normal((1, T, C)).astype(np.float32))
+    launches = plan_mrf([[(it[0][0], it[1][0]) for it in blk] for blk in blocks], C, T,
+                        smem_bytes=ring_bytes(C) + window_bytes(100, C))
+    want = mrf_plain(x, blocks).numpy()
+    np.testing.assert_allclose(_replay_plan(x, blocks, launches, _mm_3xtf32).numpy(), want,
+                               rtol=RTOL, atol=ATOL)
+    one = _replay_plan(x, blocks, launches, lambda a, b: split_tf32(a)[0] @ split_tf32(b)[0])
+    assert float(np.abs(one.numpy() - want).max()) > 10 * ATOL
 
 
 GEN_KW = dict(

@@ -12,10 +12,11 @@ n_fft 256, hop 64, 20 mels, 8 kHz).
   `mel_spectrogram_auto` off the TPU (the rfft mel), within 1e-4 abs;
 - a 1-D input, a length that is not a hop multiple, and fmin/fmax set, each
   with the frame count 1 + (L + 2 pad - n_fft) // hop;
-- the CUDA kernel's packed DFT constants, used as the kernel uses them
-  (bins in tiles of 64, the Nyquist bin in tile 0's spare column), give the
-  plain version's log-mel within 1e-4 abs at n_fft 256, 512 and 1024, and
-  with a basis that weights bin 0 and the Nyquist bin too.
+- a numpy emulation of the CUDA kernel's arithmetic (its twiddle table,
+  the Stockham stages' index maps, the two-for-one split, the mel product
+  over each mel's bin range) gives the plain version's log-mel within 1e-4
+  abs at n_fft 256, 512 and 1024, and with a dense U(0, 1) basis that
+  weights every bin, bin 0 and the Nyquist bin included.
 
 The kernel itself runs on a card: tests/test_torch_cuda_kernels.py.
 """
@@ -100,18 +101,39 @@ def test_plain_and_auto_cases(wave, case):
     np.testing.assert_allclose(auto, _jax_auto(y, fmin, fmax), rtol=0, atol=PLAIN_ATOL)
 
 
-def _as_the_kernel_computes(y, n_fft, hop, window, dft, basis_t):
-    """The packed constants combined tile by tile as stft_mel.cu combines them."""
-    frames = stft._reflect_pad(y, n_fft, hop).unfold(-1, n_fft, hop) * window
-    mel = 0.0
-    for j in range(dft.shape[0]):
-        re, im = frames @ dft[j, :, :64], frames @ dft[j, :, 64:]
-        mag = torch.sqrt(re * re + im * im + 1e-6)
-        if j == 0:  # bin 0 has no sin column; its slot holds the Nyquist bin
-            mag[..., 0] = torch.sqrt(re[..., 0] ** 2 + 1e-6)
-            mel = mel + torch.sqrt(im[..., :1] ** 2 + 1e-6) * basis_t[n_fft // 2]
-        mel = mel + mag @ basis_t[64 * j:64 * (j + 1)]
-    return torch.log(torch.clamp(mel, min=1e-5))
+def _as_the_kernel_computes(y, n_fft, hop, window, twiddles, basis, ranges):
+    """stft_mel.cu's arithmetic in numpy float32: z[j] = x[2j] + i x[2j+1]
+    of the windowed frame, the Stockham stages of `stft.fft_radices` with
+    the kernel's index maps and twiddle table (W_N^e = twiddle[2e]), the
+    two-for-one split into bins 0 .. n_fft / 2, and the mel product over
+    each mel's range."""
+    frames = (stft._reflect_pad(y, n_fft, hop).unfold(-1, n_fft, hop) * window).numpy()
+    tw = (twiddles[:, 0] + 1j * twiddles[:, 1]).numpy().astype(np.complex64)
+    N = n_fft // 2
+    x = (frames[..., 0::2] + 1j * frames[..., 1::2]).astype(np.complex64)
+    n, s = N, 1
+    for r in stft.fft_radices(n_fft):
+        m = n // r
+        p, q = np.arange(m)[:, None], np.arange(s)[None, :]
+        v = [x[..., (q + s * (p + j * m)).ravel()] for j in range(r)]
+        if r == 4:
+            apc, amc, bpd, jbmd = v[0] + v[2], v[0] - v[2], v[1] + v[3], 1j * (v[1] - v[3])
+            outs = (apc + bpd, amc - jbmd, apc - bpd, amc + jbmd)
+        else:
+            outs = (v[0] + v[1], v[0] - v[1])
+        out = np.empty_like(x)
+        for j, o in enumerate(outs):
+            out[..., (q + s * (r * p + j)).ravel()] = o * tw[(2 * j * p * s + 0 * q).ravel()]
+        x, n, s = out, m, s * r
+    k = np.arange(N + 1)
+    zk, zc = x[..., k % N], np.conj(x[..., (N - k) % N])
+    X = 0.5 * (zk + zc) - 0.5j * tw[k] * (zk - zc)
+    mag = np.sqrt(X.real ** 2 + X.imag ** 2 + np.float32(1e-6)).astype(np.float32)
+    basis, ranges = basis.numpy(), ranges.numpy()
+    mel = np.zeros(mag.shape[:-1] + (basis.shape[0],), np.float32)
+    for mi, (lo, hi) in enumerate(ranges):
+        mel[..., mi] = mag[..., lo:hi] @ basis[mi, lo:hi]
+    return torch.from_numpy(np.log(np.maximum(mel, np.float32(1e-5))))
 
 
 def _wave(n_fft):
@@ -121,29 +143,48 @@ def _wave(n_fft):
 
 @pytest.mark.parametrize("n_fft,hop,n_mels,sr", [(256, 64, 20, 8000), (512, 128, 40, 16000),
                                                  (1024, 256, 80, 22050)])
-def test_kernel_constants_reproduce_the_plain_mel(n_fft, hop, n_mels, sr):
-    """The packed DFT, window and transposed basis the CUDA kernel reads."""
+def test_kernel_fft_emulation_reproduces_the_plain_mel(n_fft, hop, n_mels, sr):
+    """The window, twiddle table, mel basis and bin ranges the CUDA kernel
+    reads, combined as it combines them; the ranges of a triangular basis
+    are narrow."""
     y = _wave(n_fft)
-    window, dft, basis_t = stft._kernel_constants(n_fft, sr, n_mels, 0.0, None,
-                                                  torch.device("cpu"))
-    assert dft.shape == (n_fft // 128, n_fft, 128) and basis_t.shape == (n_fft // 2 + 1, n_mels)
-    got = _as_the_kernel_computes(y, n_fft, hop, window, dft, basis_t)
+    window, twiddles, basis, ranges = stft._kernel_constants(n_fft, sr, n_mels, 0.0, None,
+                                                             torch.device("cpu"))
+    F = n_fft // 2 + 1
+    assert twiddles.shape == (n_fft, 2) and basis.shape == (n_mels, F)
+    assert ranges.dtype == torch.int32 and int((ranges[:, 1] - ranges[:, 0]).sum()) < 3 * F
+    got = _as_the_kernel_computes(y, n_fft, hop, window, twiddles, basis, ranges)
     want = stft.mel_spectrogram_plain(y, n_fft, n_mels, sr, hop, n_fft)
     torch.testing.assert_close(got, want, rtol=0, atol=PLAIN_ATOL)
 
 
 @pytest.mark.parametrize("n_fft,hop", [(256, 64), (1024, 256)])
-def test_kernel_packing_carries_bin_0_and_nyquist(n_fft, hop):
+def test_kernel_fft_emulation_dense_basis(n_fft, hop):
     """A mel basis gives bin 0 and the Nyquist bin no weight, so a basis of
-    U(0, 1) weights on every bin holds the packing of those two bins (tile
-    0's cos and spare columns) against the plain product, within 1e-4 abs."""
+    U(0, 1) weights on every bin (full ranges) holds the split's two edge
+    bins, both from Z[0], against the plain product, within 1e-4 abs."""
     y = _wave(n_fft)
-    window, dft, _ = stft._kernel_constants(n_fft, 8000, 20, 0.0, None, torch.device("cpu"))
-    basis_t = torch.from_numpy(np.random.default_rng(1).uniform(size=(n_fft // 2 + 1, 20))
-                               .astype(np.float32))
-    got = _as_the_kernel_computes(y, n_fft, hop, window, dft, basis_t)
-    torch.testing.assert_close(got, stft._log_mel_plain(y, n_fft, hop, basis_t), rtol=0,
-                               atol=PLAIN_ATOL)
+    window, twiddles, _, _ = stft._kernel_constants(n_fft, 8000, 20, 0.0, None,
+                                                    torch.device("cpu"))
+    basis = np.random.default_rng(1).uniform(size=(20, n_fft // 2 + 1)).astype(np.float32)
+    ranges = stft._mel_ranges(basis)
+    assert (ranges == [0, n_fft // 2 + 1]).all()
+    got = _as_the_kernel_computes(y, n_fft, hop, window, twiddles, torch.from_numpy(basis),
+                                  torch.from_numpy(ranges))
+    torch.testing.assert_close(got, stft._log_mel_plain(y, n_fft, hop, torch.from_numpy(basis).t()),
+                               rtol=0, atol=PLAIN_ATOL)
+
+
+@pytest.mark.parametrize("n_fft,radices", [(256, (4, 4, 4, 2)), (512, (4, 4, 4, 4)),
+                                           (2048, (4, 4, 4, 4, 4))])
+def test_fft_radices_and_mel_ranges(n_fft, radices):
+    """The stage plan multiplies out to n_fft / 2; the ranges of a basis with
+    a zero row, an interior zero and an edge weight."""
+    assert stft.fft_radices(n_fft) == radices and np.prod(radices) == n_fft // 2
+    basis = np.zeros((3, 9), np.float32)
+    basis[1, [2, 4, 5]] = 1.0
+    basis[2, 8] = 0.5
+    assert stft._mel_ranges(basis).tolist() == [[0, 0], [2, 6], [8, 9]]
 
 
 def test_fused_refuses_a_gradient_and_other_devices():

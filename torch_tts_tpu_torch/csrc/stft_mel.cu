@@ -1,215 +1,175 @@
-// Fused STFT + log-mel: window -> real DFT as two products -> magnitude ->
-// mel product -> log, one CTA per block of 32 frames.
+// Fused STFT + log-mel as an FFT on chip: window -> real FFT (an n_fft / 2
+// point complex FFT and the two-for-one split) -> magnitude -> mel product
+// over each mel's nonzero bins -> log, one warp per frame.
 //
 // Replaces the TPU kernel torch_tts_tpu/kernels/stft.py
-// (mel_spectrogram_fused -> _stft_mel_kernel). Contract of the Python wrapper
+// (mel_spectrogram_fused -> _stft_mel_kernel), which computes the DFT as two
+// dense products. Contract of the Python wrapper
 // (torch_tts_tpu_torch/kernels/stft.py): yp [B, Lp] fp32, the reflect-padded
-// waveform; window [n_fft]; dft [n_fft / 128, n_fft, 128], per tile of 64
-// bins their cos columns then their sin columns, tile 0's first sin column
-// (bin 0's, which is zero) replaced by the Nyquist bin's cos column;
-// mel_t [n_fft / 2 + 1, M], the mel basis transposed -> out [B, T, M] with
-//   frame (b, t)[k] = yp[b, t * hop + k] * window[k]
-//   re, im = frame @ cos, frame @ sin          (bins 0 .. n_fft / 2)
+// waveform; window [n_fft]; twiddle [n_fft] complex (re, im) fp32 with
+// twiddle[k] = exp(-2 pi i k / n_fft), computed in float64 on the host;
+// mel [M, F] fp32, F = n_fft / 2 + 1; ranges [M, 2] int32, the half-open
+// range [lo_m, hi_m) of mel m's nonzero bins -> out [B, T, M] with
+//   frame (b, t)[j] = yp[b, t * hop + j] * window[j]
+//   X = rfft(frame)                            (bins 0 .. n_fft / 2)
 //   mag = sqrt(re^2 + im^2 + 1e-6)
-//   out[b, t] = log(max(mag @ mel_t, 1e-5))
-// as the TPU kernel computes it. The Nyquist bin's sin column (sin(-pi n) in
-// float64, at most about 1e-13) is dropped: its square is below 1e-24 next
-// to the 1e-6 under the root.
+//   out[b, t, m] = log(max(sum_{f in [lo_m, hi_m)} mag[f] mel[m, f], 1e-5))
 //
-// Work on the H100 at 8 x 10 s (6,888 frames, n_fft 1024, 80 mels): the
-// products here are 2 * 6888 * 513 * (2 * 1024 + 80) = 15.0 GFLOP, 0.22 ms at
-// 67 TFLOP/s fp32, against 13 MB of waveform, constants and output (4 us at
-// 3.35 TB/s). A real FFT and the mel product need about 0.70 GFLOP (0.010 ms):
-// the DFT as products is the TPU kernel's formulation, here in fp32 SIMT FMAs.
+// Bound on the H100 at 8 x 10 s (6,888 frames, n_fft 1024, 80 mels): the
+// function's least work, a real FFT and the mel product, is about 0.70
+// GFLOP (0.010 ms at 67 TFLOP/s fp32), against 13 MB of waveform, basis and
+// output (0.004 ms at 3.35 TB/s). This kernel does about 0.13 GFLOP of FFT
+// and, with the ranges of a triangular basis, under 0.03 GFLOP of mel
+// product; it is bound by latency and shared-memory traffic, not by either.
 // Design:
-// - A CTA of 128 threads takes 32 consecutive frames of the flattened
-//   [B * T] frame axis and reads them straight from yp at stride hop (the
-//   frames overlap n_fft / hop times; nothing is framed in device memory).
-// - Bins in tiles of 64: per tile the DFT is a [32 x n_fft] @ [n_fft x 128]
-//   product (cos and sin columns side by side) in K steps of 32, each step's
-//   windowed frame tile and DFT tile staged in shared memory, double
-//   buffered through registers. A thread owns 4 frames x 4 bins and holds
-//   both re and im, so the magnitude is its own epilogue.
-// - The tile's magnitudes go to shared memory, and the mel sums [32 x M]
-//   stay in registers across all tiles (4 frames x up to 8 mels a thread).
-//   n_fft / 2 bins are n_fft / 128 whole tiles; the odd bin, Nyquist, rides
-//   in tile 0's spare column, so no tile is partly empty.
-// - The log and the clamp are applied on the store; frames past B * T are
-//   zeros and are not stored.
+// - A CTA of kWarps warps takes kWarps consecutive frames of the flattened
+//   [B * T] frame axis, a warp a frame, so 256 frames still give 64 CTAs.
+//   Frames are read straight from yp at stride hop and windowed on load;
+//   nothing is framed in device memory.
+// - Two-for-one: z[j] = x[2 j] + i x[2 j + 1], an N = n_fft / 2 point
+//   complex FFT Z of z, then for k = 0 .. N
+//     X[k] = (Z[k] + conj Z[N - k]) / 2 - i W^k (Z[k] - conj Z[N - k]) / 2
+//   with W = exp(-2 pi i / n_fft) and Z[N] = Z[0] (bins 0 and N both from Z[0]).
+// - The complex FFT is Stockham, decimation in frequency, in two float2
+//   buffers of N per warp in shared memory: radix-4 stages, then one
+//   radix-2 stage when log2 N is odd (stft.fft_radices). A stage of length
+//   n and stride s (n s = N) takes butterfly (p, q), p < n / r, q < s, from
+//   x[q + s (p + j n / r)], j < r, and writes y[q + s (r p + j)] times
+//   W_n^(j p); the output lands in natural order. Stage 0 reads z from the
+//   waveform. Twiddles W_N^e = twiddle[2 e] come from the table, staged in
+//   shared memory once per CTA.
+// - Magnitudes of the N + 1 bins go to the warp's free buffer; lane l then
+//   sums mels l, l + 32, ... over their ranges (a triangular basis costs
+//   about two multiply-adds a bin in all; a dense basis gives full ranges
+//   and stays exact), and stores the log.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kFrames = 32;          // frames per CTA
-constexpr int kFreqs = 64;           // bins per tile
-constexpr int kCols = 2 * kFreqs;    // cos and sin columns of a tile
-constexpr int kK = 32;               // DFT depth per staged step
-constexpr int kAStride = kFrames + 4;        // frame-tile row, float4-aligned
-constexpr int kMStride = kFreqs + 1;         // magnitude row, bin kFreqs = Nyquist
-constexpr int kMelsPerThread = 8;            // M <= 128
-constexpr int kAPerThread = kK * kFrames / kThreads;          // 8
-constexpr int kBPerThread = kK * kCols / 4 / kThreads;        // 8 float4
-constexpr int kSmemFloats = 2 * kK * kAStride + 2 * kK * kCols + kFrames * kMStride;
+constexpr int kWarps = 4;  // frames per CTA
+constexpr int kThreads = 32 * kWarps;
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 w) {
+  return make_float2(a.x * w.x - a.y * w.y, a.x * w.y + a.y * w.x);
+}
+// i * a
+__device__ __forceinline__ float2 cmul_i(float2 a) { return make_float2(-a.y, a.x); }
 
 __global__ void __launch_bounds__(kThreads)
 stft_mel_kernel(const float* __restrict__ yp, const float* __restrict__ window,
-                const float* __restrict__ dft, const float* __restrict__ mel_t,
-                float* __restrict__ out, int Lp, int T, int N, int n_fft, int hop, int M) {
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                          // [2][kK][kAStride] windowed frames, k-major
-  float* Bs = As + 2 * kK * kAStride;        // [2][kK][kCols]   DFT columns
-  float* Ms = Bs + 2 * kK * kCols;           // [kFrames][kMStride] magnitudes
+                const float2* __restrict__ twiddle, const float* __restrict__ mel,
+                const int* __restrict__ ranges, float* __restrict__ out, int Lp, int T,
+                int n_frames, int n_fft, int hop, int M) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int N = n_fft / 2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float2* tw = smem;                               // [n_fft]
+  float2* x = smem + n_fft + warp * 2 * N;         // [N]
+  float2* y = x + N;                               // [N]
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n0 = blockIdx.x * kFrames;
-  const int fr = tid & 7;   // frames 4 fr .. 4 fr + 3 (DFT and mel)
-  const int fq = tid >> 3;  // bins 4 fq .. 4 fq + 3; mels fq + 16 q
+  for (int i = threadIdx.x; i < n_fft; i += kThreads) tw[i] = twiddle[i];
+  __syncthreads();  // the only CTA-wide barrier: warps past n_frames leave below
 
-  // staging: this thread's frames warp + 4 r, sample k0 + lane of each
-  int a_off[kAPerThread];
-#pragma unroll
-  for (int r = 0; r < kAPerThread; ++r) {
-    const int n = n0 + warp + 4 * r;
-    a_off[r] = n < N ? (n / T) * Lp + (n % T) * hop : -1;
-  }
+  const int n = blockIdx.x * kWarps + warp;
+  if (n >= n_frames) return;
+  const float* frame = yp + (size_t)(n / T) * Lp + (size_t)(n % T) * hop;
 
-  float mel[4][kMelsPerThread];
+  int len = N, log2_s = 0;
+  bool first = true;
+  while (len > 1) {
+    const int s = 1 << log2_s;
+    if (len >= 4) {
+      const int m = len >> 2;
+      for (int b = lane; b < N / 4; b += 32) {
+        const int p = b >> log2_s, q = b & (s - 1);
+        float2 v[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int q = 0; q < kMelsPerThread; ++q) mel[i][q] = 0.f;
-
-  const int n_tiles = n_fft / kCols;
-  const int n_steps = n_fft / kK;
-  for (int j = 0; j < n_tiles; ++j) {
-    const float4* dft_tile = reinterpret_cast<const float4*>(dft + (size_t)j * n_fft * kCols);
-    float a_reg[kAPerThread];
-    float4 b_reg[kBPerThread];
-    auto load = [&](int step) {
-      const int k = step * kK + lane;
-      const float w = __ldg(window + k);
-#pragma unroll
-      for (int r = 0; r < kAPerThread; ++r)
-        a_reg[r] = a_off[r] >= 0 ? __ldg(yp + a_off[r] + k) * w : 0.f;
-#pragma unroll
-      for (int r = 0; r < kBPerThread; ++r)
-        b_reg[r] = __ldg(dft_tile + (size_t)step * (kK * kCols / 4) + tid + r * kThreads);
-    };
-    auto store = [&](int buf) {
-      float* as = As + buf * kK * kAStride;
-#pragma unroll
-      for (int r = 0; r < kAPerThread; ++r) as[lane * kAStride + warp + 4 * r] = a_reg[r];
-      float4* bs = reinterpret_cast<float4*>(Bs + buf * kK * kCols);
-#pragma unroll
-      for (int r = 0; r < kBPerThread; ++r) bs[tid + r * kThreads] = b_reg[r];
-    };
-
-    float re[4][4], im[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) re[i][q] = im[i][q] = 0.f;
-
-    load(0);
-    store(0);
-    __syncthreads();
-    for (int step = 0; step < n_steps; ++step) {
-      const int buf = step & 1;
-      if (step + 1 < n_steps) load(step + 1);
-      const float* as = As + buf * kK * kAStride + 4 * fr;
-      const float* bs = Bs + buf * kK * kCols + 4 * fq;
-#pragma unroll
-      for (int kk = 0; kk < kK; ++kk) {
-        const float4 a4 = *reinterpret_cast<const float4*>(as + kk * kAStride);
-        const float4 c4 = *reinterpret_cast<const float4*>(bs + kk * kCols);
-        const float4 s4 = *reinterpret_cast<const float4*>(bs + kk * kCols + kFreqs);
-        const float a[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float c[4] = {c4.x, c4.y, c4.z, c4.w};
-        const float s[4] = {s4.x, s4.y, s4.z, s4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            re[i][q] = fmaf(a[i], c[q], re[i][q]);
-            im[i][q] = fmaf(a[i], s[q], im[i][q]);
+        for (int j = 0; j < 4; ++j) {
+          const int i = q + s * (p + j * m);
+          if (first) {
+            v[j] = make_float2(__ldg(frame + 2 * i) * __ldg(window + 2 * i),
+                               __ldg(frame + 2 * i + 1) * __ldg(window + 2 * i + 1));
+          } else {
+            v[j] = x[i];
           }
-      }
-      if (step + 1 < n_steps) store(buf ^ 1);
-      __syncthreads();
-    }
-
-    // magnitudes of the tile (and of the Nyquist bin in tile 0's spare column)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float* row = Ms + (4 * fr + i) * kMStride;
-        if (j == 0 && fq == 0 && q == 0) {
-          row[0] = sqrtf(re[i][0] * re[i][0] + 1e-6f);
-          row[kFreqs] = sqrtf(im[i][0] * im[i][0] + 1e-6f);
-        } else {
-          row[4 * fq + q] = sqrtf(re[i][q] * re[i][q] + im[i][q] * im[i][q] + 1e-6f);
         }
+        const float2 apc = cadd(v[0], v[2]), amc = csub(v[0], v[2]);
+        const float2 bpd = cadd(v[1], v[3]), jbmd = cmul_i(csub(v[1], v[3]));
+        const int e = 2 * p * s;  // twiddle[e] = W_N^(p s) = W_len^p
+        float2* o = y + q + s * 4 * p;
+        o[0] = cadd(apc, bpd);
+        o[s] = cmul(csub(amc, jbmd), tw[e]);
+        o[2 * s] = cmul(csub(apc, bpd), tw[2 * e]);
+        o[3 * s] = cmul(cadd(amc, jbmd), tw[3 * e]);
       }
-    __syncthreads();
-
-    // mel sums: this thread's 4 frames x mels fq + 16 q
-    const int n_bins = j == 0 ? kFreqs + 1 : kFreqs;
-    for (int c = 0; c < n_bins; ++c) {
-      const int f = c < kFreqs ? j * kFreqs + c : n_fft / 2;
-      float m4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) m4[i] = Ms[(4 * fr + i) * kMStride + c];
-#pragma unroll
-      for (int q = 0; q < kMelsPerThread; ++q) {
-        const int m = fq + 16 * q;
-        if (m < M) {
-          const float w = __ldg(mel_t + (size_t)f * M + m);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) mel[i][q] = fmaf(m4[i], w, mel[i][q]);
-        }
+      len >>= 2;
+      log2_s += 2;
+    } else {  // len == 2: p = 0, no twiddle
+      for (int q = lane; q < N / 2; q += 32) {
+        const float2 a = x[q], b = x[q + s];
+        y[q] = cadd(a, b);
+        y[q + s] = csub(a, b);
       }
+      len = 1;
+      log2_s += 1;
     }
-    __syncthreads();  // Ms is rewritten by the next tile
+    first = false;
+    float2* t = x;
+    x = y;
+    y = t;
+    __syncwarp();
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + 4 * fr + i;
-    if (n >= N) continue;
-#pragma unroll
-    for (int q = 0; q < kMelsPerThread; ++q) {
-      const int m = fq + 16 * q;
-      if (m < M) {
-        const float v = mel[i][q];
-        out[(size_t)n * M + m] = logf(v < 1e-5f ? 1e-5f : v);  // NaN stays NaN
-      }
-    }
+  // two-for-one split and magnitudes of bins 0 .. N into the free buffer
+  float* mag = reinterpret_cast<float*>(y);
+  for (int k = lane; k <= N; k += 32) {
+    const float2 zk = x[k & (N - 1)], zc = x[(N - k) & (N - 1)];
+    const float er = 0.5f * (zk.x + zc.x), ei = 0.5f * (zk.y - zc.y);
+    // O = -i (Z[k] - conj Z[N - k]) / 2
+    const float o_r = 0.5f * (zk.y + zc.y), o_i = -0.5f * (zk.x - zc.x);
+    const float2 w = tw[k];
+    const float re = er + w.x * o_r - w.y * o_i;
+    const float im = ei + w.x * o_i + w.y * o_r;
+    mag[k] = sqrtf(re * re + im * im + 1e-6f);
+  }
+  __syncwarp();
+
+  const int F = N + 1;
+  for (int m = lane; m < M; m += 32) {
+    const int lo = __ldg(ranges + 2 * m), hi = __ldg(ranges + 2 * m + 1);
+    const float* row = mel + (size_t)m * F;
+    float acc = 0.f;
+    for (int f = lo; f < hi; ++f) acc = fmaf(mag[f], __ldg(row + f), acc);
+    out[(size_t)n * M + m] = logf(acc < 1e-5f ? 1e-5f : acc);  // NaN stays NaN
   }
 }
 
 }  // namespace
 
 // Log-mel of B reflect-padded waveforms [B, Lp] into out [B, T, M] on
-// `stream`; n_fft a multiple of 128, 1 <= M <= 128, B * Lp < 2^31. Returns
-// the CUDA error (0 on success).
-extern "C" int tts_stft_mel_forward(const float* yp, const float* window, const float* dft,
-                                    const float* mel_t, float* out, int B, int Lp, int T,
-                                    int n_fft, int hop, int M, void* stream) {
-  if (B < 1 || T < 1 || hop < 1 || n_fft < kCols || n_fft % kCols != 0 || M < 1 ||
-      M > 16 * kMelsPerThread || (T - 1) * hop + n_fft > Lp)
+// `stream`; n_fft a power of two in [256, 2048], 1 <= M <= 128,
+// B * Lp < 2^31, every range within [0, n_fft / 2 + 1). Returns the CUDA
+// error (0 on success).
+extern "C" int tts_stft_mel_forward(const float* yp, const float* window, const float* twiddle,
+                                    const float* mel, const int* ranges, float* out, int B,
+                                    int Lp, int T, int n_fft, int hop, int M, void* stream) {
+  int log2_n = 0;
+  while ((1 << log2_n) < n_fft) ++log2_n;
+  if (B < 1 || T < 1 || hop < 1 || n_fft < 256 || n_fft > 2048 || (1 << log2_n) != n_fft ||
+      M < 1 || M > 128 || (T - 1) * hop + n_fft > Lp)
     return (int)cudaErrorInvalidValue;
-  const int N = B * T;
-  const size_t smem = (size_t)kSmemFloats * sizeof(float);
+  const int n_frames = B * T;
+  const size_t smem = (size_t)(n_fft + kWarps * n_fft) * sizeof(float2);
   cudaError_t err = cudaFuncSetAttribute(stft_mel_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  stft_mel_kernel<<<(N + kFrames - 1) / kFrames, kThreads, smem,
-                    reinterpret_cast<cudaStream_t>(stream)>>>(yp, window, dft, mel_t, out, Lp, T,
-                                                              N, n_fft, hop, M);
+  stft_mel_kernel<<<(n_frames + kWarps - 1) / kWarps, kThreads, smem,
+                    reinterpret_cast<cudaStream_t>(stream)>>>(
+      yp, window, reinterpret_cast<const float2*>(twiddle), mel, ranges, out, Lp, T, n_frames,
+      n_fft, hop, M);
   return (int)cudaGetLastError();
 }

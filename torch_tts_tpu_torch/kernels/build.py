@@ -43,8 +43,8 @@ _SIGNATURES = {
     # ptrs (host int64, 35 device pointers), scalars (host float32 p_zoneout,
     # keep), B, L, D_mel, P, Dc, H1, H2, r, weights_bf16, stream
     "tts_taco_step_forward": (_P, _P) + (_I,) * 9 + (_P,),
-    # yp, window, dft, mel_t, out, B, Lp, T, n_fft, hop, n_mels, stream
-    "tts_stft_mel_forward": (_P,) * 5 + (_I,) * 6 + (_P,),
+    # yp, window, twiddle, mel, ranges, out, B, Lp, T, n_fft, hop, n_mels, stream
+    "tts_stft_mel_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
     # x, w, bias, h, c, new_h, new_c, gates, B, I, H, stream
     "tts_lltm_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
 }

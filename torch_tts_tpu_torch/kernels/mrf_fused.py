@@ -10,13 +10,18 @@ result is the mean over blocks of x run through each block's
 lrelu -> conv -> lrelu -> conv -> residual iterations, with zero padding
 at both sequence ends.
 
-On the H100 the bank is bound by fp32 FMA issue: about 472 GFLOP per B=1,
-1024-frame decode over the C=128/64/32 stages. Each launch of the kernel
-runs one ResBlock1 iteration (two convs) on windows held in shared memory
-and streams the weights from L2; `plan_mrf` below orders the launches over
-two scratch buffers, picks each launch's tile to fit the 227 KB of shared
-memory with the least recompute, and plans which window rows each conv
-computes (see the header of the .cu file).
+On the H100 the bank is bound by operations: about 473.5 GFLOP per B=1,
+1024-frame decode over the C=128/64/32 stages, 2.87 ms at the 165 TFLOP/s
+that 3xTF32 tensor-core products (fp32-level error) reach, 7.07 ms at the
+67 TFLOP/s of fp32 outside the tensor cores. Each launch of the kernel runs
+one ResBlock1 iteration (two convs) on windows held in shared memory, each
+conv an implicit GEMM (rows x C_out x taps * C_in) on Hopper's warpgroup
+tensor-core products (wgmma) in 3xTF32 (`split_tf32` is its split), with
+the weights streamed from L2 and split into a ring in shared memory.
+`plan_mrf` below orders the launches over two scratch buffers, picks each
+launch's tile to fit the 227 KB of shared memory beside the ring with the
+least recompute, and plans which window rows each conv computes (see the
+header of the .cu file).
 
 Dispatch: a CPU tensor takes `mrf_plain`; a CUDA tensor launches the kernel
 or raises. `mrf_fused.launches` counts kernel launches. The kernel has no
@@ -39,7 +44,8 @@ from torch_tts_tpu_torch.kernels import build
 
 _SLOPE = 0.1
 SMEM_BYTES = 232448  # per-block dynamic shared memory limit on Hopper
-SMEM_ROW_PAD = 4  # floats of padding per shared-memory row (mrf_fused.cu kPad)
+SMEM_ROW_PAD = 4  # floats of padding per window row (mrf_fused.cu kPad)
+K_CHUNK = 32  # input channels per staged weight chunk (mrf_fused.cu kKChunk)
 SUPPORTED_CHANNELS = (32, 64, 128)
 _MAX_TAPS = 16
 _META_PER_CONV = 3 + _MAX_TAPS
@@ -72,6 +78,19 @@ def _conv_offsets(x: torch.Tensor, offsets: Sequence[int], w: torch.Tensor,
     if -offsets[0] == offsets[-1]:  # 'same' padding: let the conv pad
         return F.conv1d(x, weight, b, padding=offsets[-1], dilation=d)
     return F.conv1d(F.pad(x, (-offsets[0], offsets[-1])), weight, b, dilation=d)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's 3xTF32 split of a finite fp32 tensor: hi = cvt.rna.tf32(x),
+    x rounded half away from zero to a 10-bit mantissa (the low 13 bits of
+    the encoding cleared), and lo = cvt.rna.tf32(x - hi); a product a b is
+    then a_lo b_hi + a_hi b_lo + a_hi b_hi to about 2^-22 of |a b|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
 
 
 def mrf_plain(x: torch.Tensor, blocks) -> torch.Tensor:
@@ -109,7 +128,23 @@ class Launch:
 
 
 STORE, ADD, ADD_DIV, DIV = 0, 1, 2, 3
-ROWS_PER_PASS_TIMES_C = 16384  # kThreads * kTM * 4 in mrf_fused.cu
+
+
+def rows_per_pass(C: int) -> int:
+    """Window rows one pass of a conv computes: two warpgroups of one m64
+    tile at C=128, two at C<=64 (mrf_fused.cu ROWS)."""
+    return 128 if C == 128 else 256
+
+
+def ring_bytes(C: int) -> int:
+    """Shared memory of the weight ring at C channels: one chunk of K_CHUNK
+    input channels as two TF32 tiles (hi and lo), and 128 bytes to align it."""
+    return 2 * K_CHUNK * C * 4 + 128
+
+
+def window_bytes(W: int, C: int) -> int:
+    """Shared memory of the two [W, C] window buffers."""
+    return 2 * W * (C + SMEM_ROW_PAD) * 4
 
 
 @functools.lru_cache(maxsize=256)
@@ -117,13 +152,14 @@ def _tile(reaches: Tuple[int, ...], C: int, T: int, B: int, n_sm: int, smem_byte
     """The tile that minimises the launch's time, modelled as waves of CTAs
     (one CTA per SM: the window fills shared memory) times the rows each
     CTA executes: each conv computes the tile plus twice the reach of the
-    convs after it, in passes of ROWS_PER_PASS_TIMES_C / C rows. n_sm=0 drops the wave term
-    (rows per output row only)."""
+    convs after it, in passes of `rows_per_pass(C)` rows. The two window
+    buffers share `smem_bytes` with the weight ring. n_sm=0 drops the wave
+    term (rows per output row only)."""
     halo = sum(reaches)
-    cap = smem_bytes // (2 * (C + SMEM_ROW_PAD) * 4) - 2 * halo
+    cap = (smem_bytes - ring_bytes(C)) // window_bytes(1, C) - 2 * halo
     if cap < 8:
         raise ValueError(f"halo {halo} at C={C} does not fit in shared memory")
-    rows = ROWS_PER_PASS_TIMES_C // C
+    rows = rows_per_pass(C)
     best, best_cost = None, None
     for t0 in range(8, min(cap, max(T, 8)) + 1):
         rem, executed = halo, 0
@@ -197,6 +233,23 @@ def check_no_grad(x: torch.Tensor, blocks):
                            "plain convolutions (fuse_mrf=False) when training")
 
 
+@functools.lru_cache(maxsize=64)
+def _planned(offsets: Tuple[Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...], ...], C: int,
+             T: int, B: int, n_sm: int):
+    """(launches, the C entry's meta array, whether scratch 0 and 1 are
+    written) of one plan, built once per plan."""
+    launches = plan_mrf(offsets, C, T, B, n_sm)
+    meta = (ctypes.c_int * (_META_PER_LAUNCH * len(launches)))()
+    for li, ln in enumerate(launches):
+        m0 = li * _META_PER_LAUNCH
+        bi, it = ln.convs
+        meta[m0:m0 + _META_HEAD] = [ln.T0, ln.halo, ln.src, ln.dst, ln.mode, ln.div]
+        for j, (offs, (lo, hi)) in enumerate(zip(offsets[bi][it], ln.ranges)):
+            c0 = m0 + _META_HEAD + j * _META_PER_CONV
+            meta[c0:c0 + 3 + len(offs)] = [len(offs), lo, hi, *offs]
+    return launches, meta, tuple(any(ln.dst == i for ln in launches) for i in (2, 3))
+
+
 def mrf_fused(x: torch.Tensor, blocks) -> torch.Tensor:
     """Fused resblock bank: x [B, T, C] -> [B, T, C]."""
     if x.device.type == "cpu":
@@ -207,30 +260,20 @@ def mrf_fused(x: torch.Tensor, blocks) -> torch.Tensor:
     _check_cuda_args(x, blocks)
     B, T, C = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    launches = plan_mrf([[(it[0][0], it[1][0]) for it in block] for block in blocks], C, T, B,
-                        n_sm)
-    n = len(launches)
-    meta = (ctypes.c_int * (_META_PER_LAUNCH * n))()
-    w_ptrs = (ctypes.c_longlong * (2 * n))()
-    b_ptrs = (ctypes.c_longlong * (2 * n))()
-    for li, ln in enumerate(launches):
-        m0 = li * _META_PER_LAUNCH
-        bi, it = ln.convs
-        meta[m0:m0 + _META_HEAD] = [ln.T0, ln.halo, ln.src, ln.dst, ln.mode, ln.div]
-        for j, ((offs, w, b), (lo, hi)) in enumerate(zip(blocks[bi][it], ln.ranges)):
-            c0 = m0 + _META_HEAD + j * _META_PER_CONV
-            meta[c0:c0 + 3 + len(offs)] = [len(offs), lo, hi, *offs]
-            w_ptrs[li * 2 + j] = w.data_ptr()
-            b_ptrs[li * 2 + j] = b.data_ptr()
+    offsets = tuple(tuple((it[0][0], it[1][0]) for it in block) for block in blocks)
+    launches, meta, scratch_used = _planned(offsets, C, T, B, n_sm)
+    convs = [blocks[bi][it][j] for bi, it in (ln.convs for ln in launches) for j in (0, 1)]
+    w_ptrs = (ctypes.c_longlong * len(convs))(*(w.data_ptr() for _, w, _ in convs))
+    b_ptrs = (ctypes.c_longlong * len(convs))(*(b.data_ptr() for _, _, b in convs))
     out = torch.empty_like(x)
-    scratch = [torch.empty_like(x) if any(ln.dst == i for ln in launches) else out
-               for i in (2, 3)]
+    scratch = [torch.empty_like(x) if used else out for used in scratch_used]
     lib = build.load_library()
     with torch.cuda.device(x.device):
         code = lib.tts_mrf_fused_forward(
             x.data_ptr(), out.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-            B, T, C, n, ctypes.cast(meta, ctypes.c_void_p), ctypes.cast(w_ptrs, ctypes.c_void_p),
-            ctypes.cast(b_ptrs, ctypes.c_void_p), torch.cuda.current_stream(x.device).cuda_stream)
+            B, T, C, len(launches), ctypes.cast(meta, ctypes.c_void_p),
+            ctypes.cast(w_ptrs, ctypes.c_void_p), ctypes.cast(b_ptrs, ctypes.c_void_p),
+            torch.cuda.current_stream(x.device).cuda_stream)
     build.check_cuda_error(code, "mrf_fused")
     mrf_fused.launches += 1
     return out
