@@ -16,11 +16,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
    abs/rel error against the stated tolerance and each version's median
    time over CUDA events after warm-up. MAS must equal its plain version
    exactly (random lengths, and tied inputs); the WN group backward is held
-   against autograd through the plain group. The Taco2Prod step: the fused
-   entry point at B=1 and B=8 with dim_rnn 320 and 1024, the streamed one
-   at 1024 with fp32 and bf16 LSTM matrices (the plain step given the same
-   bf16-rounded matrices in fp32), PreNet masks on, and a 50-step rollout
-   in which both take the plain path's previous frame. The STFT+mel
+   against autograd through the plain group, and two runs of it must give
+   the same bits. The Taco2Prod step: the fused entry point with fp32
+   matrices and the streamed one with fp32 and bf16 LSTM matrices (the
+   plain step given the same bf16-rounded matrices in fp32), each at
+   dim_rnn 320 and 1024 and B=1, 8 and 16 (two launches of 8 rows), PreNet
+   masks on, and a 50-step rollout in which both take the plain path's
+   previous frame. The STFT+mel
    kernel at the train step's y_hat shape (8 x 8192 samples) and the bulk
    shape (8 x 10 s at 22.05 kHz), n_fft 1024, hop 256, 80 mels, within
    MEL_ATOL of its plain version, beside the torch.stft mel
@@ -35,7 +37,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    fp32 SIMT bound logged beside), the rest at fp32's 67 TFLOP/s or HBM3's
    3.35 TB/s.
 4. Inference: full-width LJSpeech SynthesizerTrn from the config defaults
-   with seeded random weights, `fuse_mrf=True` and `TTS_FUSED_WN=1`. Launch
+   with seeded random weights and the port's kernel defaults (`fuse_mrf`
+   on, `TTS_FUSED_WN` unset). Launch
    counters are zeroed, then three English sentences go through the CLI's
    `main()` (state dict written to a temp .pth) and the bench shapes
    (B=1 and B=8, T_x=256, max_frames=1024) through `infer`; audio must be
@@ -49,14 +52,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
    Tacotron CLI's `main()` (state dict in a temp .pth, --max-steps 400,
    Griffin-Lim 32 iterations) and one ragged B=8 batch through `infer`:
    finite mel and audio, 1 <= stop_lengths <= max_steps, attention rows
-   summing to 1, and one `taco_step_streamed` launch per step of every
+   summing to 1; then the batch twice as one B=16 decode; one
+   `taco_step_streamed` launch per row group of at most 8 per step of every
    decode. The batch again through the plain path (the cell module, no
    launches): gated per step with the kernel path's frames as every
    step's input; free-running, the largest difference and whether the stop
    lengths agree are printed. Then decode times at B=1 and B=8, plain and
    kernel in turns, and a profiled decode on each path (device busy time).
-6. Training: full-width `VITS2Config()` (`fuse_mrf=False`, as the JAX
-   step), seeded G and MPD, `TTS_FUSED_WN=1`, the JAX train bench's batch
+6. Training: full-width `VITS2Config()` (the decoder's banks on their plain
+   convolutions under autograd, as the JAX step), seeded G and MPD,
+   `TTS_FUSED_WN=1`, the JAX train bench's batch
    shape (B=8, T_x=192, T_y=1000, 80 mel bins, wav x0.1). Counters zeroed,
    three `ddp` steps: finite losses, moved parameters, and MAS, WN forward
    and WN backward launched; then a valid monotonic MAS path. From one
@@ -316,6 +321,11 @@ def kernel_phase(device, card: str):
         errs += [grad_compare(f"wn_group_backward B={B} {n}", a, b)
                  for n, a, b in zip(names, got, want) if b is not None]
         if B == TRAIN_B:
+            again = wn_stack.wn_group_backward(*args, d_xo, d_sk, saved=saved)
+            same = all(torch.equal(a, b) for a, b in zip(got, again) if a is not None)
+            log(f"  wn_group_backward B={B}: two runs equal bit for bit -> {'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError("wn_group_backward: two runs on the same inputs differ")
             t_k = cuda_ms(lambda: wn_stack.wn_group_backward(*args, d_xo, d_sk, saved=saved))
             with torch.enable_grad():
                 ins = [a.detach().requires_grad_() for a in (args[0], *args[3:])]
@@ -441,8 +451,10 @@ def taco_kernel_phase(device, card: str):
     log(f"  taco_step: L={TACO_L}, D_mel 80, P 256, Dc 512, r 1, PreNet masks on")
     fused_launches = 0
     errs = {"taco_step_fused": [], "taco_step_streamed": []}
-    cases = [("fused", H, B, torch.float32) for H in (320, 1024) for B in (1, 8)]
-    cases += [("streamed", 1024, B, dt) for dt in (torch.float32, torch.bfloat16) for B in (1, 8)]
+    # B=16: two launches of 8 rows
+    cases = [("fused", H, B, torch.float32) for H in (320, 1024) for B in (1, 8, 16)]
+    cases += [("streamed", H, B, dt) for H in (320, 1024) for dt in (torch.float32, torch.bfloat16)
+              for B in (1, 8, 16)]
     for entry, H, B, dt in cases:
         y_in, state, memory, mmask, wts, masks = taco_inputs(g, device, B, TACO_L, H)
         if entry == "fused":
@@ -450,11 +462,12 @@ def taco_kernel_phase(device, card: str):
             plain = lambda: ts.taco_step_fused_via_plain(y_in, state, memory, mmask, wts,  # noqa: E731
                                                          prenet_masks=masks)
         else:
+            # n_tile: the TPU kernel's DMA tile, which 4 H must divide (1280 and 4096)
             packed = ts.pack_streamed(wts, dt)
-            kern = lambda: ts.taco_step_streamed(y_in, state, memory, mmask, packed,  # noqa: E731
+            kern = lambda: ts.taco_step_streamed(y_in, state, memory, mmask, packed, n_tile=128,  # noqa: E731
                                                  prenet_masks=masks)
             plain = lambda: ts.taco_step_streamed_via_plain(y_in, state, memory, mmask, packed,  # noqa: E731
-                                                            prenet_masks=masks)
+                                                            n_tile=128, prenet_masks=masks)
         name = f"taco_step_{entry}"
         with torch.no_grad():
             before = ts.taco_step_fused.launches
@@ -464,7 +477,7 @@ def taco_kernel_phase(device, card: str):
             # the plain step's: its kernels' device time (it is host-bound)
             launch, _ = ts.prepare_cuda(y_in, state, memory, mmask, masks,
                                         *ts.launch_args(wts if entry == "fused" else packed), 0.1)
-            t_k = batched_ms(launch)
+            t_k = batched_ms(launch)  # per step (all its row groups)
             t_p = profile_busy_ms(lambda: [plain() for _ in range(10)]) / 10
             call_k, call_p = cuda_ms(kern, warmup=3, reps=20), cuda_ms(plain, warmup=3, reps=20)
         b_ms, b_by = taco_step_bound(wts, B, TACO_L, 2 if dt == torch.bfloat16 else 4)
@@ -747,12 +760,13 @@ def slice_phase(device, card: str, tmp: str):
     from torch_tts_tpu_torch.kernels.wn_stack import wn_group
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
 
+    # the port's defaults: fuse_mrf on, TTS_FUSED_WN unset (fused on the card)
     base = VITS2Config()
     cfg = dataclasses.replace(
-        base,
-        model=dataclasses.replace(base.model, fuse_mrf=True),
-        data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
-    os.environ["TTS_FUSED_WN"] = "1"
+        base, data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
+    os.environ.pop("TTS_FUSED_WN", None)
+    if not cfg.model.fuse_mrf:
+        raise RuntimeError("the port's default config has fuse_mrf off")
     t0 = time.perf_counter()
     model = build_synthesizer(cfg, len(symbols), seed=0, device=device)
     # the flows' zero-initialised output convs would make the WN stacks'
@@ -788,6 +802,14 @@ def slice_phase(device, card: str, tmp: str):
         lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
         return x, lengths
 
+    def use_infer_path(path):
+        """The kernel path is the defaults; the plain path is named."""
+        model.dec.fuse_mrf = path == "kernel"
+        if path == "kernel":
+            os.environ.pop("TTS_FUSED_WN", None)
+        else:
+            os.environ["TTS_FUSED_WN"] = "0"
+
     def run(B, seed):
         x, lengths = bench_inputs(B)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -814,13 +836,12 @@ def slice_phase(device, card: str, tmp: str):
         log(f"  bench B={B}: audio {tuple(audio.shape)}, y_lengths {y_lengths.tolist()}")
     torch.cuda.synchronize()
     launches = {"mrf_fused": mrf_fused.launches, "wn_group": wn_group.launches}
-    log(f"  launch counts on the main path: {launches}")
+    log(f"  launch counts on the main path (the port's defaults): {launches}")
     if not all(launches.values()):
         raise RuntimeError(f"a kernel of the main path did not launch: {launches}")
 
     # --- same inputs and noise through the plain path
-    model.dec.fuse_mrf = False
-    os.environ["TTS_FUSED_WN"] = "0"
+    use_infer_path("plain")
     for B in (1, 8):
         audio, attn, y_mask, aux, y_lengths = run(B, seed=B)
         check(audio, y_lengths, f"plain B={B}")
@@ -838,18 +859,15 @@ def slice_phase(device, card: str, tmp: str):
     for B in (1, 8):
         times = {}
         for path in ("plain", "kernel", "kernel", "plain"):
-            model.dec.fuse_mrf = path == "kernel"
-            os.environ["TTS_FUSED_WN"] = "1" if path == "kernel" else "0"
+            use_infer_path(path)
             times.setdefault(path, []).append(wall_ms(lambda: run(B, seed=B)))
         for path, ts in times.items():
             ms = statistics.median(ts)
-            model.dec.fuse_mrf = path == "kernel"
-            os.environ["TTS_FUSED_WN"] = "1" if path == "kernel" else "0"
+            use_infer_path(path)
             busy = profile_busy_ms(lambda: run(B, seed=B))
             log(f"  infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: {ms:.2f} ms/call, "
                 f"{B * audio_s / (ms / 1e3):.1f}x real time; device busy {busy:.2f} ms/call [{card}]")
-    model.dec.fuse_mrf = True
-    os.environ["TTS_FUSED_WN"] = "1"
+    use_infer_path("kernel")
     return launches
 
 
@@ -924,11 +942,21 @@ def tacotron_phase(device, card: str, tmp: str):
     y_k, yp_k, s_k, aux_k = run("kernel")
     torch.cuda.synchronize()
     dev = check(yp_k, aux_k, "batch")
+    # B=16 (the batch twice): each step is two launches of 8 rows
+    model.decoder.use_kernel = True
+    with torch.no_grad():
+        y16, yp16, s16, aux16 = model.infer(x.repeat(2, 1), lengths.repeat(2), max_steps=S,
+                                            generator=torch.Generator(device=device).manual_seed(6))
+    torch.cuda.synchronize()
+    check(yp16, aux16, "B=16 batch")
     launches = ts.taco_step_streamed.launches
+    expected = S * (len(SENTENCES) + len(ts.row_groups(B)) + len(ts.row_groups(2 * B)))
     log(f"  B={B} batch, text lengths {lengths.tolist()}: stop_lengths {aux_k['stop_lengths'].tolist()}, "
-        f"attention rows sum to 1 +- {dev:.2e}; taco_step_streamed launches {launches} "
-        f"(expected {S} x {len(SENTENCES) + 1})")
-    if launches != S * (len(SENTENCES) + 1):
+        f"attention rows sum to 1 +- {dev:.2e}; B=16 batch: stop_lengths "
+        f"{aux16['stop_lengths'].tolist()}; taco_step_streamed launches {launches} (expected "
+        f"{S} x ({len(SENTENCES)} + {len(ts.row_groups(B))} + {len(ts.row_groups(2 * B))}), one per "
+        "row group of at most 8 a step)")
+    if launches != expected:
         raise RuntimeError("the decoder did not run every step through taco_step_streamed")
 
     # --- the plain path (the cell module), same inputs and masks
@@ -1032,7 +1060,9 @@ def train_phase(device, card: str):
     n_d = sum(p.numel() for p in state.opt_d.params)
     log(f"train phase: G {n_g} trained params, MPD {n_d} params, seeded init "
         f"{time.perf_counter() - t0:.1f} s; batch B={B} T_x={T_x} T_y={T_y} "
-        f"wav {tuple(batch['wav'].shape)}, TTS_FUSED_WN=1, fuse_mrf={cfg.model.fuse_mrf}")
+        f"wav {tuple(batch['wav'].shape)}, TTS_FUSED_WN=1 (plain path: 0); the decoder's banks on "
+        f"their plain convolutions under autograd (fuse_mrf={cfg.model.fuse_mrf} applies when no "
+        "gradient is needed)")
     before = [p.detach().clone() for p in state.opt_g.params + state.opt_d.params]
 
     # --- main path: three ddp steps through the kernels

@@ -1,7 +1,7 @@
-"""Time the MRF bank and the STFT+log-mel kernels of torch_tts_tpu_torch on
-one NVIDIA GPU, through their public entry points only, so the same script
-times an older checkout of the package too (run it from that checkout's
-root with this file's path).
+"""Time the MRF bank, STFT+log-mel, Taco2Prod step and WN group backward
+kernels of torch_tts_tpu_torch on one NVIDIA GPU, through their public
+entry points only, so the same script times an older checkout of the
+package too (run it from that checkout's root with this file's path).
 
 - MRF bank (`mrf_fused` against `mrf_plain`, cuDNN with TF32 off): per
   stage of one B=1, 1024-frame LJSpeech decode (C=128/64/32 over 65,536 /
@@ -11,6 +11,14 @@ root with this file's path).
   `audio/mel.py`) at 8 x 8192 and 8 x 220,500 samples (n_fft 1024, hop
   256, 80 mels): device busy per call from torch.profiler (the reflect pad
   included), over 20 calls.
+- Taco2Prod step (`taco_step.prepare_cuda` of the streamed entry's
+  `pack_streamed` matrices, fp32 and bf16, and of the fused entry's
+  weights): device time per step of 50 prepared launches back to back
+  (median of 3), L=160, D_mel 80, P 256, Dc 512, r 1, PreNet masks on, at
+  dim_rnn 1024 and 320, B=1 and B=8.
+- WN group backward (`wn_group_backward` from the saving forward's
+  saves) at the train shape: B=8, T=1000, H=192, L=4, k=5, median over
+  CUDA events.
 
 Prints one line per measurement with the card's name and power limit, then
 a JSON line of the numbers.
@@ -31,7 +39,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.getcwd())
 
 from torch_tts_tpu_torch.audio import mel as melmod  # noqa: E402
-from torch_tts_tpu_torch.kernels import stft  # noqa: E402
+from torch_tts_tpu_torch.kernels import stft, taco_step, wn_stack  # noqa: E402
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused, mrf_plain  # noqa: E402
 
 MRF_SHAPES = ((128, 65536), (64, 131072), (32, 262144))
@@ -52,6 +60,47 @@ def cuda_ms(fn, warmup=2, reps=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def batched_ms(fn, n=50, batches=3):
+    """Device time per call of fn() launched n times back to back."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def taco_launch(g, dev, B, H, entry, dtype):
+    """A prepared step of seeded inputs at the LJSpeech widths (dim_rnn H)."""
+    D_mel, P, Dc, r, L = 80, 256, 512, 1, 160
+
+    def u(*shape, fan):
+        return ((torch.rand(shape, generator=g) * 2 - 1) * fan ** -0.5).to(dev)
+
+    wts = taco_step.TacoStepWeights(
+        prenet_w1=u(D_mel, P, fan=D_mel), prenet_b1=u(P, fan=D_mel), prenet_w2=u(P, P, fan=P),
+        prenet_b2=u(P, fan=P), att_w_ih=u(P + Dc, 4 * H, fan=H), att_w_hh=u(H, 4 * H, fan=H),
+        att_b=u(4 * H, fan=H), query_w=u(H, Dc, fan=H), dec_w_ih=u(H + Dc, 4 * H, fan=H),
+        dec_w_hh=u(H, 4 * H, fan=H), dec_b=u(4 * H, fan=H), mel_w=u(H + Dc, r * D_mel, fan=H + Dc),
+        mel_b=u(r * D_mel, fan=H + Dc), stop_w=u(H + Dc, r, fan=H + Dc), stop_b=u(r, fan=H + Dc))
+    w = torch.softmax(torch.randn(B, L, generator=g) * 3, dim=1).to(dev)
+    state = taco_step.TacoStepState(w, *((torch.randn(B, n, generator=g) * 0.3).to(dev)
+                                         for n in (Dc, H, H, H, H)))
+    masks = tuple((torch.rand(B, P, generator=g) < 0.5).to(dev) for _ in range(2))
+    y_in = (torch.randn(B, D_mel, generator=g) * 0.5).to(dev)
+    memory = (torch.randn(B, L, Dc, generator=g) * 0.5).to(dev)
+    weights = wts if entry == "fused" else taco_step.pack_streamed(wts, dtype)
+    launch, _ = taco_step.prepare_cuda(y_in, state, memory, torch.ones(B, L, device=dev), masks,
+                                       *taco_step.launch_args(weights), 0.1)
+    return launch
 
 
 def busy_ms(fn, calls=20):
@@ -101,6 +150,25 @@ def main():
         print(f"mel_spectrogram_fused {B}x{L}: device busy kernel {t_k:.4f} ms, torch.stft mel "
               f"{t_l:.4f} ms, max |kernel - plain| {err:.2e} [{card}]", flush=True)
         res[f"mel_{B}x{L}"] = dict(kernel_busy_ms=t_k, library_busy_ms=t_l, max_abs_err=err)
+
+    with torch.no_grad():
+        for entry, H, B, dtype in [("streamed", 1024, B, dt) for dt in (torch.float32, torch.bfloat16)
+                                   for B in (1, 8)] + [("fused", 320, B, torch.float32) for B in (1, 8)]:
+            t = batched_ms(taco_launch(g, dev, B, H, entry, dtype))
+            name = f"taco_step_{entry} dim_rnn {H} B={B} {str(dtype).split('.')[-1]}"
+            print(f"{name}: device time {t:.4f} ms a step [{card}]", flush=True)
+            res[name] = t
+
+    H, L, k, T, B = 192, 4, 5, 1000, 8
+    w_rs, b_rs = randn(L, H, 2 * H, scale=0.5 / H ** 0.5), randn(L, 2 * H, scale=0.1)
+    w_rs[-1, :, :H], b_rs[-1, :H] = 0, 0
+    args = (randn(B, T, H), torch.ones(B, T, 1, device=dev), None,
+            randn(L, k, H, 2 * H, scale=0.5 / (k * H) ** 0.5), randn(L, 2 * H, scale=0.1), w_rs, b_rs)
+    d_xo, d_sk = randn(B, T, H), randn(B, T, H)
+    saved = wn_stack._forward_cuda(*args, save=True)[2]
+    t = cuda_ms(lambda: wn_stack.wn_group_backward(*args, d_xo, d_sk, saved=saved))
+    print(f"wn_group_backward B={B} T={T} H={H} L={L}: kernel {t:.3f} ms [{card}]", flush=True)
+    res["wn_group_backward"] = t
     print(json.dumps(res))
 
 

@@ -141,6 +141,22 @@ def test_wn_backward_kernel_matches_autograd_of_plain(cuda_device, B, T, L, with
 
 
 @pytest.mark.cuda
+def test_wn_backward_kernel_is_deterministic(cuda_device):
+    """Split-K in a fixed order, no atomics: two runs at the train shape
+    give the same bits."""
+    g = torch.Generator().manual_seed(5)
+    args = _wn_args(g, cuda_device, 8, 1000, 192, 4, with_gl=True)
+    d_xo, d_sk = _randn(g, cuda_device, 8, 1000, 192), _randn(g, cuda_device, 8, 1000, 192)
+    first = wn_group_backward(*args, d_xo, d_sk)
+    again = wn_group_backward(*args, d_xo, d_sk)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    for name, a, b in zip(("d_x", "d_gl", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs"), first,
+                          wn_group_backward_plain(*args, d_xo, d_sk)):
+        _assert_grad_close(name, a, b)
+
+
+@pytest.mark.cuda
 def test_wn_group_autograd_runs_the_backward_kernel(cuda_device):
     g = torch.Generator().manual_seed(3)
     args = [a.requires_grad_() if a is not None and i != 1 else a
@@ -215,35 +231,57 @@ def _assert_step_close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,H,entry,ragged", [
     (1, 57, 320, "fused", False), (8, 160, 320, "fused", True), (3, 9, 1024, "fused", False),
-    (1, 160, 1024, "fp32", False), (8, 200, 1024, "fp32", True), (5, 33, 1024, "bf16", True),
-    (8, 160, 1024, "bf16", False),
+    (16, 160, 320, "fused", True), (1, 160, 1024, "fp32", False), (8, 200, 1024, "fp32", True),
+    (9, 160, 1024, "fp32", True), (16, 160, 1024, "fp32", False), (5, 33, 1024, "bf16", True),
+    (1, 160, 1024, "bf16", False), (8, 160, 1024, "bf16", False), (9, 160, 1024, "bf16", False),
+    (16, 160, 1024, "bf16", True),
 ])
 def test_taco_step_kernel_matches_plain(cuda_device, B, L, H, entry, ragged):
+    """With and without PreNet masks; B > 8 as groups of at most 8 rows,
+    one launch each."""
     g = torch.Generator().manual_seed(B * L + H)
     y_in, state, memory, mmask, wts, masks = _taco_inputs(g, cuda_device, B, L, H, ragged)
+    n = len(ts.row_groups(B))
     if entry == "fused":
         before = ts.taco_step_fused.launches
         got = ts.taco_step_fused(y_in, state, memory, mmask, wts, prenet_masks=masks)
-        assert ts.taco_step_fused.launches == before + 1
+        assert ts.taco_step_fused.launches == before + n
         want = ts.taco_step_fused_via_plain(y_in, state, memory, mmask, wts, prenet_masks=masks)
+        unmasked = (ts.taco_step_fused(y_in, state, memory, mmask, wts),
+                    ts.taco_step_fused_via_plain(y_in, state, memory, mmask, wts))
     else:
         packed = ts.pack_streamed(wts, torch.bfloat16 if entry == "bf16" else torch.float32)
         before = ts.taco_step_streamed.launches
         got = ts.taco_step_streamed(y_in, state, memory, mmask, packed, prenet_masks=masks)
-        assert ts.taco_step_streamed.launches == before + 1
+        assert ts.taco_step_streamed.launches == before + n
         want = ts.taco_step_streamed_via_plain(y_in, state, memory, mmask, packed, prenet_masks=masks)
+        unmasked = (ts.taco_step_streamed(y_in, state, memory, mmask, packed),
+                    ts.taco_step_streamed_via_plain(y_in, state, memory, mmask, packed))
     _assert_step_close(got, want)
     # without masks: the TPU contract
-    _assert_step_close(ts.taco_step_fused(y_in, state, memory, mmask, wts),
-                       ts.taco_step_plain(y_in, state, memory, mmask, wts))
+    _assert_step_close(*unmasked)
+
+
+@pytest.mark.cuda
+def test_taco_step_launches_in_turn_agree(cuda_device):
+    """The kernel's dependency counters carry over from launch to launch:
+    twenty prepared launches back to back, then one more, give the same
+    outputs as the first."""
+    g = torch.Generator().manual_seed(11)
+    y_in, state, memory, mmask, wts, masks = _taco_inputs(g, cuda_device, 9, 160, 1024, True)
+    launch, out = ts.prepare_cuda(y_in, state, memory, mmask, masks, *ts.launch_args(wts), 0.1)
+    assert launch() == 2
+    first = [t.clone() for t in out[:2] + tuple(out[2])]
+    for _ in range(20):
+        launch()
+    launch()
+    for a, b in zip(first, out[:2] + tuple(out[2])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
 def test_taco_step_rejects_unsupported_input(cuda_device):
     g = torch.Generator().manual_seed(0)
-    y_in, state, memory, mmask, wts, _ = _taco_inputs(g, cuda_device, 9, 20, 64, False)
-    with pytest.raises(ValueError, match="B=9"):
-        ts.taco_step_fused(y_in, state, memory, mmask, wts)
     y_in, state, memory, mmask, wts, _ = _taco_inputs(g, cuda_device, 2, 20, 36, False)
     with pytest.raises(ValueError, match="multiples of 8"):
         ts.taco_step_fused(y_in, state, memory, mmask, wts)
@@ -306,15 +344,84 @@ def test_stft_mel_auto_dispatch(cuda_device):
 
 
 @pytest.mark.cuda
-def test_stft_mel_rejects_a_gradient_and_fp16(cuda_device):
+def test_stft_mel_rejects_a_gradient_and_bad_n_fft(cuda_device):
     y = torch.zeros(2, 8192, device=cuda_device, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         stft.mel_spectrogram_fused(y, 1024, 80, 22050, 256, 1024)
-    with pytest.raises(ValueError, match="fp32"):
-        stft.mel_spectrogram_fused(y.detach().half(), 1024, 80, 22050, 256, 1024)
     for n_fft in (768, 128, 4096):
         with pytest.raises(ValueError, match="power of two"):
             stft.mel_spectrogram_fused(y.detach(), n_fft, 80, 22050, 200, n_fft)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_stft_mel_kernel_casts_half_precision(cuda_device, dtype):
+    """A bf16 or fp16 waveform is cast to fp32, as the JAX kernel casts: the
+    kernel's log-mel equals the one of the fp32 cast, bit for bit, and its
+    plain version within MEL_ATOL."""
+    y = _randn(torch.Generator().manual_seed(2), cuda_device, 8, 8192, scale=0.3).to(dtype)
+    before = stft.mel_spectrogram_fused.launches
+    out = stft.mel_spectrogram_fused(y, 1024, 80, 22050, 256, 1024)
+    assert stft.mel_spectrogram_fused.launches == before + 1
+    assert out.dtype == torch.float32
+    assert torch.equal(out, stft.mel_spectrogram_fused(y.float(), 1024, 80, 22050, 256, 1024))
+    torch.testing.assert_close(out, stft.mel_spectrogram_plain(y.float(), 1024, 80, 22050, 256, 1024),
+                               rtol=0, atol=MEL_ATOL)
+
+
+@pytest.mark.cuda
+def test_default_synthesizer_runs_both_inference_kernels(cuda_device, monkeypatch):
+    """With the port's defaults (fuse_mrf on, TTS_FUSED_WN unset) inference
+    on the card launches the MRF bank and the WN group kernels."""
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.models.vits2 import build_synthesizer
+    from torch_tts_tpu_torch.text import symbols
+
+    monkeypatch.delenv("TTS_FUSED_WN", raising=False)
+    model = build_synthesizer(VITS2Config(), len(symbols), seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(1, len(symbols), (2, 40), generator=g).to(cuda_device)
+    lengths = torch.tensor([40, 31], device=cuda_device)
+    before = (mrf_fused.launches, wn_group.launches)
+    audio = model.infer(x, lengths, max_frames=256,
+                        generator=torch.Generator(device=cuda_device).manual_seed(0))[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(audio).all())
+    assert mrf_fused.launches > before[0] and wn_group.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [9, 16])
+def test_tacotron_decodes_more_than_eight_rows(cuda_device, B):
+    """Tacotron inference at B > 8 on the card: the step kernel in groups of
+    at most 8 rows, against the plain path (the cell module) given the
+    kernel path's frames as every step's input, within chip_smoke's 1e-3."""
+    from torch_tts_tpu_torch.core.config import TacotronConfig
+    from torch_tts_tpu_torch.models.tacotron import build_tacotron
+
+    model = build_tacotron(TacotronConfig(), seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(B)
+    lengths = torch.randint(20, 60, (B,), generator=g)
+    x = torch.randint(1, 40, (B, int(lengths.max())), generator=g)
+    x = (x * (torch.arange(x.shape[1])[None] < lengths[:, None])).to(cuda_device)
+    lengths, S = lengths.to(cuda_device), 40
+
+    def run(kernel, step_inputs=None):
+        model.decoder.use_kernel = kernel
+        gen = torch.Generator(device=cuda_device).manual_seed(1)
+        with torch.no_grad():
+            return model.infer(x, lengths, max_steps=S, generator=gen, step_inputs=step_inputs)
+
+    before = ts.taco_step_streamed.launches
+    y_k, _, s_k, aux_k = run(True)
+    assert ts.taco_step_streamed.launches == before + S * len(ts.row_groups(B))
+    r, D = model.decoder.r, model.decoder.dim_mel
+    frames = torch.cat([torch.zeros(B, 1, D, device=cuda_device),
+                        y_k.reshape(B, S, r, D)[:, :-1, -1]], 1)
+    y_p, _, s_p, aux_p = run(False, frames)
+    model.decoder.use_kernel = True
+    for a, b in ((y_k, y_p), (s_k, s_p), (aux_k["w"], aux_p["w"])):
+        assert float((a - b).abs().max()) <= 1e-3
 
 
 def _lltm_inputs(g, device, B, I, H):

@@ -257,3 +257,27 @@ def test_cpu_tensor_takes_plain_version():
     out = mrf_fused(x, blocks)
     assert mrf_fused.launches == before
     assert torch.equal(out, mrf_plain(x, blocks))
+
+
+def test_training_forward_keeps_the_plain_convolutions(generator_pair, monkeypatch):
+    """fuse_mrf is the port's default; the bank takes the kernel only when no
+    gradient is needed (the kernel has no backward): a training forward
+    under autograd never reaches mrf_fused, an inference one does."""
+    from torch_tts_tpu_torch.ops import hifigan
+
+    assert VITS2ModelConfig().fuse_mrf
+    _, _, gen, x = generator_pair
+    calls = []
+    real = hifigan.mrf_fused
+    monkeypatch.setattr(hifigan, "mrf_fused", lambda *a: calls.append(1) or real(*a))
+    xt = torch.from_numpy(x).transpose(1, 2)
+    gen.train()
+    try:
+        gen(xt).sum().backward()
+    finally:
+        gen.eval()
+        gen.zero_grad(set_to_none=True)
+    assert not calls
+    with torch.no_grad():
+        gen(xt)
+    assert len(calls) == len(GEN_KW["upsample_rates"])

@@ -197,3 +197,25 @@ def test_fused_refuses_a_gradient_and_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         stft.mel_spectrogram_fused(torch.zeros(1, 4096, device="meta"), N_FFT, N_MELS, SR, HOP,
                                    N_FFT)
+
+
+def test_kernel_input_casts_like_the_jax_kernel():
+    """The kernel's input rule, checked on the CPU: any real waveform is
+    cast to fp32 (the JAX kernel casts its frames) before the launch;
+    complex input, other ranks and an n_fft the kernel lacks raise."""
+    y = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 5000)).astype(np.float32))
+    for dt in (torch.bfloat16, torch.float16, torch.float64, torch.int16):
+        got = stft.kernel_input(y.to(dt), N_FFT, HOP, N_MELS)
+        assert got.dtype == torch.float32 and got.is_contiguous()
+        assert torch.equal(got, y.to(dt).float())
+    assert stft.kernel_input(y, N_FFT, HOP, N_MELS).data_ptr() == y.data_ptr()
+    for bad in (y.to(torch.complex64), y[None], torch.zeros(())):
+        with pytest.raises(ValueError, match="real"):
+            stft.kernel_input(bad, N_FFT, HOP, N_MELS)
+    with pytest.raises(ValueError, match="power of two"):
+        stft.kernel_input(y, 768, HOP, N_MELS)
+    # the CPU path computes the same function of the cast waveform
+    half = y.to(torch.bfloat16)
+    torch.testing.assert_close(stft.mel_spectrogram_fused(half, N_FFT, N_MELS, SR, HOP, N_FFT),
+                               stft.mel_spectrogram_plain(half.float(), N_FFT, N_MELS, SR, HOP,
+                                                          N_FFT), rtol=0, atol=0)

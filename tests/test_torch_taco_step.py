@@ -152,8 +152,9 @@ def test_plain_path_launches_nothing_on_the_cpu():
 
 
 def test_kernel_wrapper_checks_inputs_before_launching():
-    """prepare_cuda validates every shape, the batch and the widths before
-    it builds or launches anything (here it never reaches the build)."""
+    """prepare_cuda validates every shape and the widths before it builds
+    or launches anything (here it never reaches the build); a batch above
+    8 rows passes the checks."""
     y_in, state, memory, mmask, wts = _torch(*_inputs(7))
     small, big = ts.launch_args(wts)
     bad_state = state._replace(c_dec=state.c_dec[:, :-1])
@@ -161,11 +162,78 @@ def test_kernel_wrapper_checks_inputs_before_launching():
         ts.prepare_cuda(y_in, bad_state, memory, mmask, None, small, big, 0.1)
     with pytest.raises(ValueError, match="shape"):
         ts.prepare_cuda(y_in, state, memory, mmask[:, :-1], None, small, big, 0.1)
-    nine = _torch(*_inputs(7, B=9))
-    with pytest.raises(ValueError, match="B=9"):
-        ts.prepare_cuda(*nine[:4], None, *ts.launch_args(nine[4]), 0.1)
+    for rows in (9, 16):  # any batch: the wrapper launches once per group of 8 rows
+        big_batch = _torch(*_inputs(7, B=rows))
+        assert ts.check_step_args(*big_batch[:4], None, *ts.launch_args(big_batch[4]))[0] == rows
     masks = (torch.ones(B, P), torch.ones(B, P + 1))
     with pytest.raises(ValueError, match="shape"):
         ts.prepare_cuda(y_in, state, memory, mmask, masks, small, big, 0.1)
     with pytest.raises(ValueError, match="fp32 or all bf16"):
         ts.prepare_cuda(y_in, state, memory, mmask, None, small, [big[0].bfloat16(), *big[1:]], 0.1)
+
+
+def test_row_groups_give_the_whole_batch():
+    """The wrapper's grouping on its plain path: B=17 in groups of at most 8
+    rows (one kernel launch each on the card) gives the whole batch's step,
+    since rows are independent (to fp32 rounding: the CPU's matrix products
+    sum in another order at another row count)."""
+    assert ts.row_groups(16) == [(0, 8), (8, 16)]
+    assert ts.row_groups(17) == [(0, 8), (8, 16), (16, 17)]
+    y_in, state, memory, mmask, wts = _torch(*_inputs(8, B=17, ragged=True))
+    whole = ts.taco_step_plain(y_in, state, memory, mmask, wts)
+    parts = [ts.taco_step_plain(y_in[a:b], ts.TacoStepState(*(t[a:b] for t in state)), memory[a:b],
+                                mmask[a:b], wts) for a, b in ts.row_groups(17)]
+    for i, got in enumerate(zip(*[p[:2] + tuple(p[2]) for p in parts])):
+        torch.testing.assert_close(torch.cat(got), (whole[:2] + tuple(whole[2]))[i], rtol=1e-6, atol=1e-6)
+
+
+def test_gate_sums_split_into_off_chain_and_on_chain_parts():
+    """The kernel's order of the LSTM sums: each gate sum is the part that
+    depends only on the previous state ([ctx, h_att] through the ctx rows of
+    att_w_ih and att_w_hh; h_dec through dec_w_hh), computed at launch,
+    plus the part on this step's chain (x_pre rows; [h_att', ctx'] through
+    dec_w_ih). Replayed step by step, it gives the plain step."""
+    y_in, state, memory, mmask, wts = _torch(*_inputs(9, ragged=True))
+    g = torch.Generator().manual_seed(1)
+    masks = (torch.rand(B, P, generator=g) < 0.5, torch.rand(B, P, generator=g) < 0.5)
+    want = ts.taco_step_plain(y_in, state, memory, mmask, wts, prenet_masks=masks)
+
+    def cell(gates, h, c, b, pz=0.1):
+        i, f, gg, o = (gates + b).chunk(4, dim=-1)
+        c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+        h_new = torch.sigmoid(o) * torch.tanh(c_new)
+        return pz * h + (1 - pz) * h_new, pz * c + (1 - pz) * c_new
+
+    att_off = state.ctx @ wts.att_w_ih[P:] + state.h_att @ wts.att_w_hh
+    dec_off = state.h_dec @ wts.dec_w_hh
+    keep = 1 - ts.PRENET_DROPOUT
+    x1 = torch.where(masks[0], torch.relu(y_in @ wts.prenet_w1 + wts.prenet_b1) / keep, 0.0)
+    x_pre = torch.where(masks[1], torch.relu(x1 @ wts.prenet_w2 + wts.prenet_b2) / keep, 0.0)
+    h_att, c_att = cell(x_pre @ wts.att_w_ih[:P] + att_off, state.h_att, state.c_att, wts.att_b)
+    e = torch.einsum("bld,bd->bl", memory, h_att @ wts.query_w)
+    e[:, -1] = 1e4
+    p = (1 + (e / 2) / torch.sqrt(1 + (e / 2) ** 2)) / 2
+    w = (state.w * p + torch.nn.functional.pad(state.w * (1 - p), (1, 0))[:, :-1]) * mmask
+    ctx = torch.einsum("bl,bld->bd", w, memory)
+    h_dec, c_dec = cell(torch.cat([h_att, ctx], -1) @ wts.dec_w_ih + dec_off, state.h_dec,
+                        state.c_dec, wts.dec_b)
+    out = torch.cat([h_dec, ctx], -1)
+    y = torch.nn.functional.leaky_relu(out @ wts.mel_w + wts.mel_b, 0.01)
+    s = out @ wts.stop_w + wts.stop_b
+    for a, b in zip((y, s, w, ctx, h_att, c_att, h_dec, c_dec), want[:2] + tuple(want[2])):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_pack_streamed_is_tile_major():
+    """pack_streamed lays each 8-unit tile's rows out contiguously: element
+    [u // 8, k, gate * 8 + u % 8] is W[k, gate * H + u]; the plain path gets
+    the JAX layout back exactly."""
+    _, _, _, _, wts = _torch(*_inputs(10))
+    packed = ts.pack_streamed(wts)
+    w = torch.cat([wts.att_w_ih, wts.att_w_hh])
+    assert packed.att_w.shape == (H1 // 8, P + DC + H1, 32) and packed.att_w.is_contiguous()
+    for u, k, g in ((0, 0, 0), (13, 5, 2), (H1 - 1, P + DC + H1 - 1, 3)):
+        assert packed.att_w[u // 8, k, g * 8 + u % 8] == w[k, g * H1 + u]
+    back = ts._unpacked(packed)
+    for f in ("att_w_ih", "att_w_hh", "dec_w_ih", "dec_w_hh"):
+        assert torch.equal(getattr(back, f), getattr(wts, f))

@@ -33,7 +33,8 @@ from torch_tts_tpu_torch.kernels.wn_stack import (wn_group, wn_group_backward,
                                                   wn_group_backward_plain, wn_group_plain,
                                                   wn_stack)
 from torch_tts_tpu_torch.models.vits2.convert import state_dict_from_jax_params
-from torch_tts_tpu_torch.ops.wavenet import WN
+from torch_tts_tpu_torch.kernels.mrf_fused import split_tf32
+from torch_tts_tpu_torch.ops.wavenet import WN, fused_wn_default
 
 RTOL, ATOL = 1e-4, 1e-5
 
@@ -95,8 +96,10 @@ def test_fused_wn_matches_jax(L, gin):
 
 
 def test_fused_default_reads_env(monkeypatch):
-    """fused=None follows TTS_FUSED_WN at call time, with no shape gate: the
-    B=1, L=4 flow shape takes the stack path when the env asks for it."""
+    """fused=None follows TTS_FUSED_WN at call time when it is set, with no
+    shape gate: the B=1, L=4 flow shape takes the stack path when the env
+    asks for it. Unset, the default is the fused group on a CUDA device and
+    the layerwise path on the CPU."""
     calls = []
     monkeypatch.setattr("torch_tts_tpu_torch.ops.wavenet.wn_stack",
                         lambda *a, **k: calls.append(1) or wn_group_plain(*a)[1])
@@ -105,9 +108,14 @@ def test_fused_default_reads_env(monkeypatch):
     monkeypatch.setenv("TTS_FUSED_WN", "0")
     wn(x, m)
     assert not calls
+    assert not fused_wn_default(torch.device("cuda"))
     monkeypatch.setenv("TTS_FUSED_WN", "1")
     wn(x, m)
     assert calls == [1]
+    monkeypatch.delenv("TTS_FUSED_WN")
+    wn(x, m)
+    assert calls == [1]
+    assert fused_wn_default(torch.device("cuda")) and not fused_wn_default(torch.device("cpu"))
 
 
 GRAD_NAMES = ("d_x", "d_gl", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs")
@@ -186,3 +194,76 @@ def test_pick_tile_fills_the_card():
     assert pick_tile(8, 1024, 132) == 64  # 128 CTAs already fill half the SMs
     assert pick_tile(4, 1024, 132) == 32
     assert pick_tile(1, 5, 132) == 16
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the backward kernel's tensor cores form it: small terms first."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _shift(a, s):
+    """out[:, t] = a[:, t + s] inside [0, T), zero outside."""
+    out = torch.zeros_like(a)
+    T = a.shape[1]
+    lo, hi = max(0, -s), min(T, T - s)
+    if lo < hi:
+        out[:, lo:hi] = a[:, lo + s:hi + s]
+    return out
+
+
+def _replay_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, mm):
+    """The backward kernel's algorithm on the CPU: the saving forward, then
+    per layer in reverse the four products (each through `mm`) and the bias
+    sums as products with a row of ones, per batch item for the weights."""
+    B, T, H = x.shape
+    L, k = w_in.shape[:2]
+    p = (k - 1) // 2
+    xs, x_ins = [], []
+    for i in range(L):  # the saving forward (fp32)
+        xs.append(x)
+        x_in = sum(_shift(x, t - p) @ w_in[i, t] for t in range(k)) + b_in[i]
+        if gl is not None:
+            x_in = x_in + gl[:, i][:, None]
+        x_ins.append(x_in)
+        rs = (torch.tanh(x_in[..., :H]) * torch.sigmoid(x_in[..., H:])) @ w_rs[i] + b_rs[i]
+        x = (x + rs[..., :H]) * mask
+    ones = torch.ones(1, T)
+    d, out = d_xo, {"d_w_in": [], "d_b_in": [], "d_w_rs": [], "d_b_rs": [], "d_gl": []}
+    for i in reversed(range(L)):
+        d_rs = torch.cat([d * mask, d_sk * mask], -1)
+        t = torch.tanh(x_ins[i][..., :H])
+        s = torch.sigmoid(x_ins[i][..., H:])
+        d_acts = mm(d_rs.reshape(-1, 2 * H), w_rs[i].t()).reshape(B, T, H)
+        d_xin = torch.cat([d_acts * s * (1 - t * t), d_acts * t * s * (1 - s)], -1)
+        acts = t * s
+        d = d_rs[..., :H] + mm(torch.cat([_shift(d_xin, p - tau) for tau in range(k)], -1)
+                               .reshape(-1, k * 2 * H),
+                               w_in[i].permute(0, 2, 1).reshape(k * 2 * H, H)).reshape(B, T, H)
+        a_in = torch.cat([_shift(xs[i], tau - p) for tau in range(k)], -1)  # [B, T, k H]
+        parts_in = [mm(torch.cat([a_in[b].t(), ones], 0), d_xin[b]) for b in range(B)]
+        parts_rs = [mm(torch.cat([acts[b].t(), ones], 0), d_rs[b]) for b in range(B)]
+        part_in, part_rs = sum(parts_in), sum(parts_rs)
+        out["d_w_in"].insert(0, part_in[:-1].reshape(k, H, 2 * H))
+        out["d_b_in"].insert(0, part_in[-1])
+        out["d_gl"].insert(0, torch.stack([q[-1] for q in parts_in]))
+        out["d_w_rs"].insert(0, part_rs[:-1])
+        out["d_b_rs"].insert(0, part_rs[-1])
+    stack = {n: torch.stack(v) for n, v in out.items()}
+    return (d, stack["d_gl"].transpose(0, 1) if gl is not None else None, stack["d_w_in"],
+            stack["d_b_in"], stack["d_w_rs"], stack["d_b_rs"])
+
+
+def test_backward_replay_in_3xtf32_matches_plain():
+    """The backward kernel's products replayed in 3xTF32 (every product and
+    bias sum split into hi and lo TF32 parts) stay within 1e-5 of autograd
+    through the plain group; with the hi parts alone (1xTF32) they do not."""
+    args = tuple(map(_t, _group_inputs(np.random.default_rng(7), B=2, T=21, H=8, L=2)))
+    d_xo, d_sk = (torch.from_numpy(np.random.default_rng(8).standard_normal((2, 21, 8))
+                                   .astype(np.float32)) for _ in range(2))
+    want = wn_group_backward_plain(*args, d_xo, d_sk)
+    got = _replay_backward(*args, d_xo, d_sk, _mm_3xtf32)
+    for name, g, w in zip(GRAD_NAMES, got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+    one = _replay_backward(*args, d_xo, d_sk, lambda a, b: split_tf32(a)[0] @ split_tf32(b)[0])
+    assert max(float((g - w).abs().max()) for g, w in zip(one, want)) > 1e-4

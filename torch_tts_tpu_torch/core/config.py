@@ -77,7 +77,11 @@ class VITS2ModelConfig:
     pack_narrow_convs: bool = False
     quantize_decoder: bool = False
     # decoder ResBlock1 banks with C <= 128 run through kernels/mrf_fused.py
-    fuse_mrf: bool = False
+    # when no gradient is needed (inference); training runs the plain
+    # convolutions. On by default in the port: the H100 measured the fused
+    # bank 30-52% under cuDNN fp32 per stage (PERF.md; the JAX package's
+    # False is a TPU verdict)
+    fuse_mrf: bool = True
     decoder_type: str = "hifigan"
     subbands: int = 4
     gen_istft_n_fft: int = 16

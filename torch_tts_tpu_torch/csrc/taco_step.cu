@@ -5,12 +5,12 @@
 // taco_step_fused -> _kernel (weights resident in VMEM) and
 // taco_step_streamed -> _streamed_kernel (the four big LSTM matrices
 // double-buffered from HBM, fp32 or bf16). On Hopper both are this one
-// kernel: the wrapper passes the w_ih and w_hh parts of each LSTM matrix as
-// two pointers, which for the streamed entry point are the two row blocks
-// of the pre-concatenated [w_ih; w_hh] matrix.
+// kernel: the fused entry passes each LSTM's w_ih and w_hh in the JAX
+// layout, the streamed one pack_streamed's tile-major [w_ih; w_hh].
 //
 // What it computes (the contract of torch_tts_tpu_torch/kernels/taco_step.py),
-// fp32 activations, B <= 8 rows:
+// fp32 activations, B <= 8 rows a launch (the wrapper launches once per
+// group of at most 8 rows):
 //   x1    = drop1(relu(y_in W1 + b1)); x_pre = drop2(relu(x1 W2 + b2))
 //   h_att, c_att = LSTM([x_pre, ctx, h_att] [W_ih; W_hh] + b)   zoneout blend
 //   q = h_att Wq; e = memory q; e[:, L-1] = 1e4; p = isru_sigmoid(e)
@@ -24,38 +24,61 @@
 // bf16 as well).
 //
 // Bound on the H100: bytes. At the LJSpeech widths (D_mel 80, P 256,
-// Dc 512, H 1024) the step reads 74 MB of fp32 weights (39 MB with bf16 LSTM
-// matrices) against about 2 B multiply-adds per 4 weight bytes at B <= 8:
-// about 22 us at 3.35 TB/s in fp32. Design:
-// - One persistent CTA per SM, 512 threads, cooperative launch; the step's
-//   four all-to-all dependencies (x_pre, h_att, ctx, h_dec) and the
-//   PreNet's and attention's inner ones are seven grid.sync() barriers
-//   between eight phases. Small intermediates (x1, x_pre, q, p) go through
-//   a global scratch buffer the wrapper allocates; later phases read
-//   anything written inside the launch with __ldcg (L2), never through the
-//   non-coherent path.
-// - Each phase stages its input vector [K, B] in shared memory once, then
-//   walks its tiles; every weight byte is read once per step for all B rows.
-// - LSTM phases: a tile is 8 hidden units and all four of their gate
-//   columns (gate-interleaved ownership, no repack: in the [K, 4H] layout a
-//   gate's 8 fp32 columns are one 32-byte sector). Threads are 8 column
-//   groups x 64 lanes over K, each loading 4 columns (16 bytes fp32, 8
-//   bytes bf16) of 4 rows at a time; a shuffle and a shared-memory pass
-//   reduce over K, and the LSTM nonlinearity and zoneout blend are the
-//   epilogue, so no barrier separates gates from cell.
+// Dc 512, H 1024) the step reads 74.5 MB of fp32 weights (39 MB with bf16
+// LSTM matrices) against about 2 B multiply-adds per 4 weight bytes at
+// B <= 8: about 22 us at 3.35 TB/s in fp32. 42 MB of those depend only on
+// the previous step's state: the ctx rows of att_w_ih, att_w_hh and
+// dec_w_hh. The chain that depends on this step is the PreNet (0.34 MB),
+// the x_pre rows of att_w_ih (4.2 MB), the query (2.1 MB), the energies and
+// context over memory, dec_w_ih (25.2 MB) and the mel/stop projection
+// (0.5 MB). Design, for the byte stream rather than the barriers:
+// - One persistent CTA per SM, 512 threads, cooperative launch (every CTA
+//   resident, so a CTA may wait for another). No grid-wide barrier: each
+//   dependency is a counter in global memory that every CTA adds one to
+//   once per launch (arrive), and only the CTAs that read the result wait
+//   for it (wait_for). Counters persist across launches: launch e of a
+//   stream waits for e * gridDim.x arrivals (the wrapper keeps e).
+// - At launch every CTA first computes the off-chain gate sums of the LSTM
+//   tiles it owns: [ctx, h_att] through the ctx rows of att_w_ih and
+//   att_w_hh, h_dec through dec_w_hh, kept in shared memory. The PreNet's
+//   layer 1 runs first, on 32 CTAs; nobody waits on the PreNet but the
+//   CTAs that read x_pre, after their off-chain sums.
+// - L2 policies: the off-chain stream is read evict_first; the weights on
+//   the chain (the PreNet, the x_pre rows of att_w_ih, the query, memory,
+//   dec_w_ih and the mel/stop projection, about 32 MB at dim_rnn 1024) are
+//   read and bulk-prefetched (cp.async.bulk.prefetch.L2, issued after the
+//   attention's off-chain sums) evict_last, so HBM stays busy while the
+//   chain's small phases pass their dependencies and, from step to step of
+//   a decode, they may stay in L2.
+// - Each phase issues its first batch of weight loads before it waits for
+//   its dependency and stages its input vector (the prologue of gate_sums
+//   and dense_tile), so the wait overlaps the weights' first round trip.
+// - pack_streamed's tile-major layout [H / 8, K, 32] gives each LSTM tile
+//   one contiguous range of rows; the fused entry's JAX layout [K, 4H]
+//   reads a tile as 4 sectors of 32 bytes a row (gate-interleaved
+//   ownership, no repack). A tile is 8 hidden units and all four of their
+//   gate columns. Threads are 8 column groups x 64 lanes over K, each
+//   loading 4 columns (16 bytes fp32, 8 bytes bf16) of 8 rows at a time; a
+//   shuffle and a shared-memory pass reduce over K (gate_sums), and the
+//   LSTM nonlinearity and zoneout blend are the epilogue (lstm_cell) of
+//   the on-chain sum plus the off-chain one.
 // - Small products (PreNet, query, mel/stop): tiles of 8 columns, 64 lanes
-//   over K, one fp32 load each.
-// - Attention: one warp per (b, l) dot for e and p; then per (b, 32 channels)
-//   the new weights (recomputed per CTA from p) and the context.
-// No tensor cores (fp32 SIMT FMAs), no TMA: later work.
+//   over K, 16 fp32 loads in flight a thread. Small intermediates (x1,
+//   x_pre, q, p) go through a global scratch buffer; anything written
+//   inside the launch is read with __ldcg (L2), never through the
+//   non-coherent path.
+// - Attention: one warp per (b, l) dot for e and p (its memory row loaded
+//   before the wait for q); then per (b, 32 channels) the new weights
+//   (recomputed per CTA from p) and the context.
+// - A wait that has not ended after kTimeoutNs traps (a launch error, not
+//   a hung card).
+// No tensor cores (fp32 SIMT FMAs at about 2 B flops per weight).
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
-
-namespace cg = cooperative_groups;
+#include <cstdint>
 
 namespace {
 
@@ -66,6 +89,7 @@ constexpr int kCols = 8;                // columns per small-product tile
 constexpr int kKLanes = kThreads / 8;   // lanes over K in both tile kinds
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSmemLimit = 232448;      // dynamic shared memory per block on Hopper
+constexpr unsigned long long kTimeoutNs = 2000000000ull;
 
 // Order of the wrapper's pointer array.
 enum Ptr {
@@ -76,6 +100,9 @@ enum Ptr {
   kNumPtrs
 };
 
+// The launch's dependencies, one counter each (x1, x_pre, h_att, q, p, ctx, h_dec).
+enum Counter { cX1, cXPre, cHAtt, cQ, cP, cCtx, cHDec, kNumCounters };
+
 struct Params {
   const float *y_in, *w, *ctx, *h_att, *c_att, *h_dec, *c_dec, *memory, *mmask, *pmask1, *pmask2;
   const float *pw1, *pb1, *pw2, *pb2;
@@ -85,7 +112,16 @@ struct Params {
   const float *dec_b, *mel_w, *mel_b, *stop_w, *stop_b;
   float *y, *s, *w_out, *ctx_out, *h_att_out, *c_att_out, *h_dec_out, *c_dec_out;
   float *q, *x1, *xpre, *p;  // scratch: [B, Dc], [B, P], [B, P], [B, L]
-  int B, L, Dm, P, Dc, H1, H2, r, xs_floats;
+  unsigned* ctr;             // kNumCounters counters, persistent across launches
+  unsigned target;           // their value once every CTA of this launch arrived
+  int B, L, Dm, P, Dc, H1, H2, r, xs_floats, att_own, dec_own;
+  // LSTM matrix layout: element (k, gate, unit u0 + u) of the tile holding
+  // unit u0 at W + (u0 / 8) tile_stride + k ld + gate gs + u. The JAX layout
+  // [K, 4H]: tile_stride 8, ld 4H, gs H. pack_streamed's tile-major layout
+  // [H / 8, K, 32]: tile_stride 32 K, ld 32, gs 8 (W_hh = W_ih + 32 K_ih).
+  int tile_major;
+  long long att_ts, dec_ts;
+  int att_ld, dec_ld, att_gs, dec_gs;
   float p_zoneout, keep;
 };
 
@@ -93,47 +129,153 @@ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
 
-__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
-  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+// L2 eviction policies: the weights on this step's chain stay in L2 across
+// steps (evict_last); the off-chain stream passes through (evict_first)
+__device__ __forceinline__ uint64_t l2_policy_keep() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ uint64_t l2_policy_stream() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+__device__ __forceinline__ float load1(const float* p, uint64_t pol) {
+  float v;
+  asm volatile("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4], uint64_t pol) {
+  asm volatile("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "l"(p), "l"(pol));
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4], uint64_t pol) {
+  uint32_t x, y;
+  asm volatile("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+               : "=r"(x), "=r"(y)
+               : "l"(p), "l"(pol));
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&y);
   v[0] = __bfloat162float(lo.x); v[1] = __bfloat162float(lo.y);
   v[2] = __bfloat162float(hi.x); v[3] = __bfloat162float(hi.y);
 }
 
-// xs[(k0 + k) * NB + b] = src[b, k] for k < n (rows b >= B are zero);
-// src may have been written earlier in this launch, so it is read via L2.
-template <int NB>
-__device__ void stage(float* xs, int k0, const float* src, int n, int B) {
-  for (int i = threadIdx.x; i < n * NB; i += kThreads) {
-    const int b = i / n, k = i - b * n;
-    xs[(k0 + k) * NB + b] = b < B ? __ldcg(src + (size_t)b * n + k) : 0.f;
+// L2 prefetch of [p, p + bytes) by the tensor memory accelerator with
+// eviction policy pol, issued by thread `by` (p 16-byte aligned, bytes a
+// multiple of 16); the other threads go on at once
+__device__ __forceinline__ void prefetch_bulk(const void* p, size_t bytes, uint64_t pol,
+                                              int by) {
+  if (threadIdx.x != by) return;
+  const char* c = static_cast<const char*>(p);
+  for (size_t off = 0; off < bytes; off += 65536) {
+    const unsigned n = (unsigned)(bytes - off < 65536 ? bytes - off : 65536);
+    asm volatile("cp.async.bulk.prefetch.L2.global.L2::cache_hint [%0], %1, %2;"
+                 ::"l"(c + off), "r"(n), "l"(pol) : "memory");
   }
 }
 
+// this CTA's 1/gridDim.x share of [p, p + bytes) into L2
+__device__ __forceinline__ void prefetch_share(const void* p, size_t bytes, uint64_t pol,
+                                               int by) {
+  const size_t chunk = (bytes / gridDim.x + 15) & ~(size_t)15;
+  const size_t off = chunk * blockIdx.x;
+  if (off < bytes)
+    prefetch_bulk(static_cast<const char*>(p) + off, bytes - off < chunk ? bytes - off : chunk,
+                  pol, by);
+}
+
+// this CTA's results are written: add one to the counter (release: the
+// CTA's writes, ordered before it by the barrier, are visible first)
+__device__ __forceinline__ void arrive(unsigned* ctr) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(ctr) : "memory");
+}
+
+// wait until every CTA of this launch arrived at the counter
+__device__ __forceinline__ void wait_for(const unsigned* ctr, unsigned target) {
+  if (threadIdx.x == 0) {
+    unsigned long long t0, now;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    for (;;) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(ctr) : "memory");
+      if ((int)(v - target) >= 0) break;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (now - t0 > kTimeoutNs) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// xs[(k0 + k) * NB + b] = src[b, k] for k < n (rows b >= B are zero);
+// src may have been written earlier in this launch, so it is read via L2.
+// Loads are issued 8 at a time before their stores, so a vector costs one
+// round trip per 8 * kThreads elements, not per kThreads.
+template <int NB>
+__device__ void stage(float* xs, int k0, const float* src, int n, int B) {
+  constexpr int U = 8;
+  for (int i0 = threadIdx.x; i0 < n * NB; i0 += U * kThreads) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads, b = i / n, k = i - b * n;
+      v[u] = (i < n * NB && b < B) ? __ldcg(src + (size_t)b * n + k) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * kThreads, b = i / n, k = i - b * n;
+      if (i < n * NB) xs[(k0 + k) * NB + b] = v[u];
+    }
+  }
+}
+
+// Each phase issues its first batch of weight loads, then runs `pro` (on
+// every thread: wait for the phase's dependency, stage its vector), then
+// a barrier, then the products: the wait and the staging overlap the
+// weights' first round trip. The weights do not depend on the step.
+
 // out[b, n] = sum_k xs[k, b] W[k, n] for the 8 columns n0..n0+7 (< N);
 // epi(n, b, sum) for b < B. Whole block; red holds kWarps * 8 * NB floats.
-template <int NB, typename Epi>
+template <int NB, typename Pro, typename Epi>
 __device__ void dense_tile(const float* xs, int K, const float* __restrict__ W, int N, int n0,
-                           int B, float* red, Epi epi) {
+                           int B, float* red, uint64_t pol, Pro pro, Epi epi) {
+  constexpr int U = 16;  // loads in flight a thread
   const int t = threadIdx.x, c = t & 7, kl = t >> 3, lane = t & 31, warp = t >> 5;
-  const int n = n0 + c;
+  const int n = min(n0 + c, N - 1);  // columns past N load a valid one, never stored
   float acc[NB];
 #pragma unroll
   for (int b = 0; b < NB; ++b) acc[b] = 0.f;
-  if (n < N) {
-#pragma unroll 4
-    for (int k = kl; k < K; k += kKLanes) {
-      const float wv = __ldg(W + (size_t)k * N + n);
-      const float* xk = xs + k * NB;
+  float wv[U];
+  auto load = [&](int k) {
 #pragma unroll
-      for (int b = 0; b < NB; ++b) acc[b] = fmaf(wv, xk[b], acc[b]);
+    for (int u = 0; u < U; ++u) {
+      const int kk = k + u * kKLanes;
+      wv[u] = kk < K ? load1(W + (size_t)kk * N + n, pol) : 0.f;
     }
+  };
+  auto fma = [&](int k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = k + u * kKLanes;
+      if (kk < K) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b) acc[b] = fmaf(wv[u], xs[kk * NB + b], acc[b]);
+      }
+    }
+  };
+  load(kl);
+  pro();
+  __syncthreads();
+  fma(kl);
+  for (int k = kl + U * kKLanes; k < K; k += U * kKLanes) {
+    load(k);
+    fma(k);
   }
 #pragma unroll
   for (int b = 0; b < NB; ++b) {  // the warp's 4 lanes over K
@@ -155,50 +297,60 @@ __device__ void dense_tile(const float* xs, int K, const float* __restrict__ W, 
   __syncthreads();
 }
 
-// One LSTM tile: hidden units u0..u0+7, all four gates. xs holds [x, h]
-// (K_ih + H rows); W_ih [K_ih, 4H], W_hh [H, 4H]. Writes the zoneout-blended
-// h and c. red holds (kWarps * 32 + 32) * NB floats.
-template <int NB, typename WT>
-__device__ void lstm_tile(const float* xs, int K_ih, const WT* __restrict__ W_ih,
-                          const WT* __restrict__ W_hh, int H, int u0, const float* __restrict__ bias,
-                          const float* h_prev, const float* c_prev, float* h_out, float* c_out,
-                          float pz, int B, float* red) {
+// Gate sums of one LSTM tile (8 hidden units, all four gates):
+// out[(gate * 8 + unit) * NB + b] = add[...] + sum_k xa[k, b] Wa(k, gate, unit)
+// + sum_k xb[k, b] Wb(k, gate, unit) over Ka >= 1 and Kb rows (Kb may be 0),
+// with W(k, gate, unit) = W[k ld + gate gs + unit] from the tile's pointers;
+// add may be null. red holds kWarps * 32 * NB floats.
+template <int NB, typename WT, typename Pro>
+__device__ void gate_sums(const float* xa, const WT* __restrict__ Wa, int Ka, const float* xb,
+                          const WT* __restrict__ Wb, int Kb, int ld, int gs, float* red,
+                          float* out, const float* add, uint64_t pol, Pro pro) {
+  constexpr int U = 8;  // loads of 4 columns in flight a thread
   const int t = threadIdx.x, grp = t & 7, kl = t >> 3, lane = t & 31, warp = t >> 5;
-  const size_t ld = 4 * (size_t)H;
-  const int col = (grp >> 1) * H + u0 + 4 * (grp & 1);
+  const int col = (grp >> 1) * gs + 4 * (grp & 1);
   float acc[NB][4];
 #pragma unroll
   for (int b = 0; b < NB; ++b)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[b][j] = 0.f;
-
-  auto run = [&](const WT* __restrict__ W, const float* x, int K) {
-    int k = kl;
-    for (; k + 3 * kKLanes < K; k += 4 * kKLanes) {
-      float wv[4][4];
+  float wv[U][4];
+  auto load = [&](const WT* __restrict__ W, int K, int k) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) load4(W + (size_t)(k + u * kKLanes) * ld + col, wv[u]);
+    for (int u = 0; u < U; ++u) {
+      const int kk = k + u * kKLanes;
+      if (kk < K) {
+        load4(W + (size_t)kk * ld + col, wv[u], pol);
+      } else {
+        wv[u][0] = wv[u][1] = wv[u][2] = wv[u][3] = 0.f;
+      }
+    }
+  };
+  auto fma = [&](const float* x, int K, int k) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* xk = x + (k + u * kKLanes) * NB;
+    for (int u = 0; u < U; ++u) {
+      const int kk = k + u * kKLanes;
+      if (kk < K) {
+        const float* xk = x + kk * NB;
 #pragma unroll
         for (int b = 0; b < NB; ++b)
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[b][j] = fmaf(wv[u][j], xk[b], acc[b][j]);
       }
     }
-    for (; k < K; k += kKLanes) {
-      float wv[4];
-      load4(W + (size_t)k * ld + col, wv);
-      const float* xk = x + k * NB;
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[b][j] = fmaf(wv[j], xk[b], acc[b][j]);
+  };
+  auto run = [&](const WT* __restrict__ W, const float* x, int K, int k) {
+    for (; k < K; k += U * kKLanes) {
+      load(W, K, k);
+      fma(x, K, k);
     }
   };
-  run(W_ih, xs, K_ih);
-  run(W_hh, xs + K_ih * NB, H);
+  load(Wa, Ka, kl);
+  pro();
+  __syncthreads();
+  fma(xa, Ka, kl);
+  run(Wa, xa, Ka, kl + U * kKLanes);
+  if (Kb > 0) run(Wb, xb, Kb, kl);
 
 #pragma unroll
   for (int b = 0; b < NB; ++b)
@@ -214,123 +366,246 @@ __device__ void lstm_tile(const float* xs, int K_ih, const WT* __restrict__ W_ih
       for (int j = 0; j < 4; ++j) red[(warp * 32 + grp * 4 + j) * NB + b] = acc[b][j];
   }
   __syncthreads();
-  float* gates = red + kWarps * 32 * NB;  // [gate * 8 + unit][b]
   for (int i = t; i < 32 * NB; i += kThreads) {
     const int ci = i / NB, b = i - ci * NB;
-    float sum = 0.f;
+    float sum = add != nullptr ? add[i] : 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += red[(w * 32 + ci) * NB + b];
-    gates[i] = sum;
+    out[i] = sum;
   }
   __syncthreads();
+}
+
+// The inputs of one thread's LSTM cell epilogue (thread t < 8 NB: unit
+// u0 + t / NB, row t % NB), loaded before the phase's products
+struct CellIn {
+  float b[4], h, c;
+};
+
+template <int NB>
+__device__ __forceinline__ CellIn cell_in(int H, int u0, const float* __restrict__ bias,
+                                          const float* h_prev, const float* c_prev, int B) {
+  CellIn ci{{0.f, 0.f, 0.f, 0.f}, 0.f, 0.f};
+  const int t = threadIdx.x, u = t / NB, b = t - u * NB, j = u0 + u;
+  if (t < kUnits * NB && b < B) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) ci.b[g] = __ldg(bias + g * H + j);
+    ci.h = __ldg(h_prev + (size_t)b * H + j);
+    ci.c = __ldg(c_prev + (size_t)b * H + j);
+  }
+  return ci;
+}
+
+// The LSTM cell and zoneout blend of units u0..u0+7 from their gate sums.
+template <int NB>
+__device__ void lstm_cell(const float* gates, const CellIn& ci, int H, int u0, float* h_out,
+                          float* c_out, float pz, int B) {
+  const int t = threadIdx.x;
   if (t < kUnits * NB) {
     const int u = t / NB, b = t - u * NB, j = u0 + u;
     if (b < B) {
-      const float gi = sigmoidf(gates[(0 * 8 + u) * NB + b] + bias[j]);
-      const float gf = sigmoidf(gates[(1 * 8 + u) * NB + b] + bias[H + j]);
-      const float gg = tanhf(gates[(2 * 8 + u) * NB + b] + bias[2 * H + j]);
-      const float go = sigmoidf(gates[(3 * 8 + u) * NB + b] + bias[3 * H + j]);
-      const float hp = h_prev[(size_t)b * H + j], cp = c_prev[(size_t)b * H + j];
-      const float c_new = gf * cp + gi * gg;
+      const float gi = sigmoidf(gates[(0 * 8 + u) * NB + b] + ci.b[0]);
+      const float gf = sigmoidf(gates[(1 * 8 + u) * NB + b] + ci.b[1]);
+      const float gg = tanhf(gates[(2 * 8 + u) * NB + b] + ci.b[2]);
+      const float go = sigmoidf(gates[(3 * 8 + u) * NB + b] + ci.b[3]);
+      const float c_new = gf * ci.c + gi * gg;
       const float h_new = go * tanhf(c_new);
-      h_out[(size_t)b * H + j] = pz * hp + (1.f - pz) * h_new;
-      c_out[(size_t)b * H + j] = pz * cp + (1.f - pz) * c_new;
+      h_out[(size_t)b * H + j] = pz * ci.h + (1.f - pz) * h_new;
+      c_out[(size_t)b * H + j] = pz * ci.c + (1.f - pz) * c_new;
     }
   }
   __syncthreads();
 }
 
+// L2 prefetch of the first `rows` rows of an LSTM matrix: in the
+// tile-major layout each tile's rows are one range (its owner prefetches
+// them); in the JAX layout the rows are one range, shared by all CTAs
+template <typename WT>
+__device__ void prefetch_rows(const WT* W, int rows, int tiles, long long ts, int ld,
+                              bool tile_major, uint64_t pol, int by) {
+  if (tile_major) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+      prefetch_bulk(W + tile * ts, (size_t)rows * ld * sizeof(WT), pol, by);
+  } else {
+    prefetch_share(W, (size_t)rows * ld * sizeof(WT), pol, by);
+  }
+}
+
 template <int NB, typename WT>
 __global__ void __launch_bounds__(kThreads, 1) taco_step_kernel(Params a) {
-  cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* xs = smem;
-  float* red = smem + a.xs_floats;
+  float* red = xs + a.xs_floats;          // kWarps * 32 * NB
+  float* gates = red + kWarps * 32 * NB;  // 32 * NB
+  float* part = gates + 32 * NB;          // (att_own + dec_own) * 32 * NB
   const int G = gridDim.x, cta = blockIdx.x, t = threadIdx.x;
   const int B = a.B, L = a.L, P = a.P, Dc = a.Dc, H1 = a.H1, H2 = a.H2;
+  const WT* att_ih = static_cast<const WT*>(a.att_ih);
+  const WT* att_hh = static_cast<const WT*>(a.att_hh);
+  const WT* dec_ih = static_cast<const WT*>(a.dec_ih);
+  const WT* dec_hh = static_cast<const WT*>(a.dec_hh);
+  const int p_tiles = cdiv(P, kCols), att_tiles = H1 / kUnits, dec_tiles = H2 / kUnits;
+  const int q_tiles = cdiv(Dc, kCols), dt = cdiv(Dc, 32);
+  const int n_mel = a.r * a.Dm, mel_tiles = cdiv(n_mel, kCols);
+  const int out_tiles = mel_tiles + cdiv(a.r, kCols);
+  unsigned* ctr = a.ctr;
+  const bool tm = a.tile_major != 0;
+  const uint64_t keep = l2_policy_keep(), stream = l2_policy_stream();
 
-  // 1. PreNet layer 1: x1 = drop1(relu(y_in W1 + b1))
-  int tiles = cdiv(P, kCols);
-  if (cta < tiles) {
-    stage<NB>(xs, 0, a.y_in, a.Dm, B);
-    __syncthreads();
-    for (int tile = cta; tile < tiles; tile += G)
-      dense_tile<NB>(xs, a.Dm, a.pw1, P, tile * kCols, B, red, [&](int n, int b, float v) {
-        v = fmaxf(v + a.pb1[n], 0.f);
-        if (a.pmask1 != nullptr) v = a.pmask1[b * P + n] != 0.f ? v / a.keep : 0.f;
-        a.x1[b * P + n] = v;
-      });
+  // 1. PreNet layer 1: x1 = drop1(relu(y_in W1 + b1)), at launch, before
+  // HBM is loaded. When at least one CTA a PreNet tile owns no LSTM tile
+  // (dim_rnn 320: 92 of 132), the PreNet runs there and layer 2 follows at
+  // once; else on the first CTAs, which run layer 2 after their attention
+  // off-chain sums (on a few free CTAs the tiles of a layer would run one
+  // after another, each a round trip under the full stream: slower).
+  const int lstm_ctas = max(att_tiles, dec_tiles);
+  const int p_base = G - lstm_ctas >= p_tiles ? lstm_ctas : 0;
+  const bool p_cta = cta >= p_base && cta < p_base + p_tiles;
+  auto prenet = [&](int K, const float* W, const float* bias, const float* mask, float* dst,
+                    auto pro) {
+    bool first = true;
+    for (int tile = cta - p_base; tile < p_tiles; tile += G, first = false)
+      dense_tile<NB>(xs, K, W, P, tile * kCols, B, red, keep, [&] { if (first) pro(); },
+                     [&](int n, int b, float v) {
+                       v = fmaxf(v + bias[n], 0.f);
+                       if (mask != nullptr) v = mask[b * P + n] != 0.f ? v / a.keep : 0.f;
+                       dst[b * P + n] = v;
+                     });
+  };
+  auto prenet2 = [&] {
+    prenet(P, a.pw2, a.pb2, a.pmask2, a.xpre, [&] {
+      wait_for(ctr + cX1, a.target);
+      stage<NB>(xs, 0, a.x1, P, B);
+    });
+  };
+  if (p_cta)
+    prenet(a.Dm, a.pw1, a.pb1, a.pmask1, a.x1, [&] { stage<NB>(xs, 0, a.y_in, a.Dm, B); });
+  arrive(ctr + cX1);
+  if (p_base > 0) {  // layer 2 on the free CTAs, at once
+    if (p_cta) prenet2();
+    arrive(ctr + cXPre);
   }
-  grid.sync();
 
-  // 2. PreNet layer 2: x_pre = drop2(relu(x1 W2 + b2))
-  if (cta < tiles) {
-    stage<NB>(xs, 0, a.x1, P, B);
-    __syncthreads();
-    for (int tile = cta; tile < tiles; tile += G)
-      dense_tile<NB>(xs, P, a.pw2, P, tile * kCols, B, red, [&](int n, int b, float v) {
-        v = fmaxf(v + a.pb2[n], 0.f);
-        if (a.pmask2 != nullptr) v = a.pmask2[b * P + n] != 0.f ? v / a.keep : 0.f;
-        a.xpre[b * P + n] = v;
-      });
+  // 2. off-chain gate sums of the attention LSTM, from the previous state
+  // only: [ctx, h_att] through the ctx rows of att_w_ih and att_w_hh
+  if (cta < att_tiles) {
+    int i = 0;
+    for (int tile = cta; tile < att_tiles; tile += G, ++i)
+      gate_sums<NB, WT>(xs, att_ih + tile * a.att_ts + (size_t)P * a.att_ld, Dc, xs + Dc * NB,
+                        att_hh + tile * a.att_ts, H1, a.att_ld, a.att_gs, red,
+                        part + i * 32 * NB, nullptr, stream, [&] {
+                          if (i == 0) {
+                            stage<NB>(xs, 0, a.ctx, Dc, B);
+                            stage<NB>(xs, Dc, a.h_att, H1, B);
+                          }
+                        });
   }
-  grid.sync();
 
-  // 3. attention LSTM on [x_pre, ctx, h_att]
-  tiles = H1 / kUnits;
-  if (cta < tiles) {
-    stage<NB>(xs, 0, a.xpre, P, B);
-    stage<NB>(xs, P, a.ctx, Dc, B);
-    stage<NB>(xs, P + Dc, a.h_att, H1, B);
-    __syncthreads();
-    for (int tile = cta; tile < tiles; tile += G)
-      lstm_tile<NB, WT>(xs, P + Dc, static_cast<const WT*>(a.att_ih), static_cast<const WT*>(a.att_hh),
-                        H1, tile * kUnits, a.att_b, a.h_att, a.c_att, a.h_att_out, a.c_att_out,
-                        a.p_zoneout, B, red);
+  // 3. PreNet layer 2: x_pre = drop2(relu(x1 W2 + b2)), by the first CTAs
+  // after their off-chain sums, when x1 is long written
+  if (p_base == 0) {
+    if (p_cta) prenet2();
+    arrive(ctr + cXPre);
   }
-  grid.sync();
 
-  // 4. query q = h_att Wq
-  tiles = cdiv(Dc, kCols);
-  if (cta < tiles) {
-    stage<NB>(xs, 0, a.h_att_out, H1, B);
-    __syncthreads();
-    for (int tile = cta; tile < tiles; tile += G)
-      dense_tile<NB>(xs, H1, a.qw, Dc, tile * kCols, B, red,
+  // 4. L2 prefetch (evict_last) of the chain's operands, each by its own
+  // warp: they stay in L2 from step to step (the off-chain stream is
+  // evict_first), so this matters for a first step
+  prefetch_share(a.pw1, (size_t)a.Dm * P * sizeof(float), keep, 0);
+  prefetch_share(a.pw2, (size_t)P * P * sizeof(float), keep, 32);
+  prefetch_rows(att_ih, P, att_tiles, a.att_ts, a.att_ld, tm, keep, 64);
+  prefetch_share(a.qw, (size_t)H1 * Dc * sizeof(float), keep, 96);
+  prefetch_share(a.memory, (size_t)B * L * Dc * sizeof(float), keep, 128);
+  prefetch_share(a.mel_w, (size_t)(H2 + Dc) * n_mel * sizeof(float), keep, 160);
+  prefetch_rows(dec_ih, H1 + Dc, dec_tiles, a.dec_ts, a.dec_ld, tm, keep, 192);
+
+  // 5. the decoder LSTM's off-chain sums: h_dec through dec_w_hh
+  if (cta < dec_tiles) {
+    int i = a.att_own;
+    for (int tile = cta; tile < dec_tiles; tile += G, ++i)
+      gate_sums<NB, WT>(xs, dec_hh + tile * a.dec_ts, H2, nullptr, nullptr, 0, a.dec_ld,
+                        a.dec_gs, red, part + i * 32 * NB, nullptr, stream, [&] {
+                          if (i == a.att_own) stage<NB>(xs, 0, a.h_dec, H2, B);
+                        });
+  }
+
+  // 6. attention LSTM: the x_pre rows, plus the off-chain sums
+  if (cta < att_tiles) {
+    int i = 0;
+    for (int tile = cta; tile < att_tiles; tile += G, ++i) {
+      const CellIn ci = cell_in<NB>(H1, tile * kUnits, a.att_b, a.h_att, a.c_att, B);
+      gate_sums<NB, WT>(xs, att_ih + tile * a.att_ts, P, nullptr, nullptr, 0, a.att_ld, a.att_gs,
+                        red, gates, part + i * 32 * NB, keep, [&] {
+                          if (i == 0) {
+                            wait_for(ctr + cXPre, a.target);
+                            stage<NB>(xs, 0, a.xpre, P, B);
+                          }
+                        });
+      lstm_cell<NB>(gates, ci, H1, tile * kUnits, a.h_att_out, a.c_att_out, a.p_zoneout, B);
+    }
+  }
+  arrive(ctr + cHAtt);
+
+  // 7. query q = h_att Wq
+  if (cta < q_tiles) {
+    bool first = true;
+    for (int tile = cta; tile < q_tiles; tile += G, first = false)
+      dense_tile<NB>(xs, H1, a.qw, Dc, tile * kCols, B, red, keep,
+                     [&] {
+                       if (first) {
+                         wait_for(ctr + cHAtt, a.target);
+                         stage<NB>(xs, 0, a.h_att_out, H1, B);
+                       }
+                     },
                      [&](int n, int b, float v) { a.q[b * Dc + n] = v; });
   }
-  grid.sync();
+  arrive(ctr + cQ);
 
-  // 5a. energies and stay probabilities, one warp per (b, l)
-  {
+  // 8. energies and stay probabilities, one warp per (b, l); memory is
+  // loaded before the wait for q
+  if (cta * kWarps < B * L) {
     const int lane = t & 31;
-    for (int item = cta * kWarps + (t >> 5); item < B * L; item += G * kWarps) {
-      const int b = item / L, l = item - b * L;
-      const float* m = a.memory + (size_t)item * Dc;
+    constexpr int kMaxDc4 = 8;  // float4s of a memory row a lane holds (Dc <= 1024)
+    for (int item0 = cta * kWarps; item0 < B * L; item0 += G * kWarps) {
+      const int item = item0 + (t >> 5);
+      const bool valid = item < B * L;
+      const int b = valid ? item / L : 0, l = valid ? item - b * L : 0;
+      const float* m = a.memory + (size_t)(valid ? item : 0) * Dc;
+      float4 mv[kMaxDc4];
+#pragma unroll
+      for (int i = 0; i < kMaxDc4; ++i) {
+        const int d = lane * 4 + i * 128;
+        mv[i] = d < Dc ? __ldg(reinterpret_cast<const float4*>(m + d))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (item0 == cta * kWarps) wait_for(ctr + cQ, a.target);
       const float* q = a.q + (size_t)b * Dc;
       float e = 0.f;
-      for (int d = lane * 4; d < Dc; d += 128) {
-        const float4 mv = __ldg(reinterpret_cast<const float4*>(m + d));
-        const float4 qv = __ldcg(reinterpret_cast<const float4*>(q + d));
-        e += mv.x * qv.x + mv.y * qv.y + mv.z * qv.z + mv.w * qv.w;
+#pragma unroll
+      for (int i = 0; i < kMaxDc4; ++i) {
+        const int d = lane * 4 + i * 128;
+        if (d < Dc) {
+          const float4 qv = __ldcg(reinterpret_cast<const float4*>(q + d));
+          e += mv[i].x * qv.x + mv[i].y * qv.y + mv[i].z * qv.z + mv[i].w * qv.w;
+        }
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(kFull, e, o);
-      if (lane == 0) {
+      if (lane == 0 && valid) {
         if (l == L - 1) e = 1e4f;  // sink: always stay at the last position
         const float h = e / 2.f;
         a.p[item] = (1.f + h / sqrtf(1.f + h * h)) / 2.f;
       }
     }
   }
-  grid.sync();
+  arrive(ctr + cP);
 
-  // 5b. new weights and context, per (b, 32 channels)
-  {
-    const int dt = cdiv(Dc, 32);
+  // 9. new weights and context, per (b, 32 channels)
+  if (cta < B * dt) {
     float* wn = xs;  // [L]
     for (int item = cta; item < B * dt; item += G) {
       const int b = item / dt, d0 = (item - b * dt) * 32;
+      if (item == cta) wait_for(ctr + cP, a.target);
       const float* wb = a.w + (size_t)b * L;
       const float* pb = a.p + (size_t)b * L;
       for (int l = t; l < L; l += kThreads) {
@@ -344,6 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1) taco_step_kernel(Params a) {
       const int d = t & 31, ll = t >> 5;
       float acc = 0.f;
       if (d0 + d < Dc)
+#pragma unroll 8
         for (int l = ll; l < L; l += kWarps)
           acc = fmaf(wn[l], __ldg(a.memory + ((size_t)b * L + l) * Dc + d0 + d), acc);
       red[ll * 32 + d] = acc;
@@ -357,37 +633,45 @@ __global__ void __launch_bounds__(kThreads, 1) taco_step_kernel(Params a) {
       __syncthreads();
     }
   }
-  grid.sync();
+  arrive(ctr + cCtx);
 
-  // 6. decoder LSTM on [h_att, ctx, h_dec]
-  tiles = H2 / kUnits;
-  if (cta < tiles) {
-    stage<NB>(xs, 0, a.h_att_out, H1, B);
-    stage<NB>(xs, H1, a.ctx_out, Dc, B);
-    stage<NB>(xs, H1 + Dc, a.h_dec, H2, B);
-    __syncthreads();
-    for (int tile = cta; tile < tiles; tile += G)
-      lstm_tile<NB, WT>(xs, H1 + Dc, static_cast<const WT*>(a.dec_ih), static_cast<const WT*>(a.dec_hh),
-                        H2, tile * kUnits, a.dec_b, a.h_dec, a.c_dec, a.h_dec_out, a.c_dec_out,
-                        a.p_zoneout, B, red);
+  // 10. decoder LSTM: [h_att, ctx] through dec_w_ih, plus the off-chain sums
+  if (cta < dec_tiles) {
+    int i = a.att_own;
+    for (int tile = cta; tile < dec_tiles; tile += G, ++i) {
+      const CellIn ci = cell_in<NB>(H2, tile * kUnits, a.dec_b, a.h_dec, a.c_dec, B);
+      gate_sums<NB, WT>(xs, dec_ih + tile * a.dec_ts, H1 + Dc, nullptr, nullptr, 0, a.dec_ld,
+                        a.dec_gs, red, gates, part + i * 32 * NB, keep, [&] {
+                          if (i == a.att_own) {
+                            wait_for(ctr + cCtx, a.target);
+                            stage<NB>(xs, 0, a.h_att_out, H1, B);
+                            stage<NB>(xs, H1, a.ctx_out, Dc, B);
+                          }
+                        });
+      lstm_cell<NB>(gates, ci, H2, tile * kUnits, a.h_dec_out, a.c_dec_out, a.p_zoneout, B);
+    }
   }
-  grid.sync();
+  arrive(ctr + cHDec);
 
-  // 7. projections of [h_dec, ctx]: mel frames (leaky ReLU) and stop logits
-  const int n_mel = a.r * a.Dm, mel_tiles = cdiv(n_mel, kCols);
-  tiles = mel_tiles + cdiv(a.r, kCols);
-  if (cta < tiles) {
-    stage<NB>(xs, 0, a.h_dec_out, H2, B);
-    stage<NB>(xs, H2, a.ctx_out, Dc, B);
-    __syncthreads();
-    for (int tile = cta; tile < tiles; tile += G) {
+  // 11. projections of [h_dec, ctx]: mel frames (leaky ReLU) and stop logits
+  if (cta < out_tiles) {
+    bool first = true;
+    auto pro = [&] {
+      if (first) {
+        wait_for(ctr + cHDec, a.target);
+        stage<NB>(xs, 0, a.h_dec_out, H2, B);
+        stage<NB>(xs, H2, a.ctx_out, Dc, B);
+      }
+    };
+    for (int tile = cta; tile < out_tiles; tile += G, first = false) {
       if (tile < mel_tiles) {
-        dense_tile<NB>(xs, H2 + Dc, a.mel_w, n_mel, tile * kCols, B, red, [&](int n, int b, float v) {
-          v += a.mel_b[n];
-          a.y[b * n_mel + n] = v >= 0.f ? v : 0.01f * v;
-        });
+        dense_tile<NB>(xs, H2 + Dc, a.mel_w, n_mel, tile * kCols, B, red, keep, pro,
+                       [&](int n, int b, float v) {
+                         v += a.mel_b[n];
+                         a.y[b * n_mel + n] = v >= 0.f ? v : 0.01f * v;
+                       });
       } else {
-        dense_tile<NB>(xs, H2 + Dc, a.stop_w, a.r, (tile - mel_tiles) * kCols, B, red,
+        dense_tile<NB>(xs, H2 + Dc, a.stop_w, a.r, (tile - mel_tiles) * kCols, B, red, keep, pro,
                        [&](int n, int b, float v) { a.s[b * a.r + n] = v + a.stop_b[n]; });
       }
     }
@@ -395,22 +679,27 @@ __global__ void __launch_bounds__(kThreads, 1) taco_step_kernel(Params a) {
 }
 
 template <int NB, typename WT>
-cudaError_t launch(Params a, cudaStream_t stream) {
-  const int k_max = std::max({a.Dm, a.P, a.P + a.Dc + a.H1, a.H1 + a.Dc + a.H2, a.H2 + a.Dc});
-  a.xs_floats = (std::max(k_max * NB, a.L) + 3) / 4 * 4;
-  const size_t smem = ((size_t)a.xs_floats + (size_t)(kWarps * 32 + 32) * NB) * sizeof(float);
-  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+cudaError_t launch(Params a, unsigned epoch, cudaStream_t stream) {
   auto kernel = taco_step_kernel<NB, WT>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
+  a.att_own = (a.H1 / kUnits + sms - 1) / sms;
+  a.dec_own = (a.H2 / kUnits + sms - 1) / sms;
+  const int k_max = std::max({a.Dm, a.P, a.Dc + a.H1, a.H2, a.H2 + a.Dc});
+  a.xs_floats = (std::max(k_max * NB, a.L) + 3) / 4 * 4;
+  const size_t smem = ((size_t)a.xs_floats + (size_t)(kWarps * 32 + 32) * NB +
+                       (size_t)(a.att_own + a.dec_own) * 32 * NB) * sizeof(float);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  a.target = epoch * (unsigned)sms;
   void* args[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(sms), dim3(kThreads), args,
                                     smem, stream);
@@ -419,27 +708,32 @@ cudaError_t launch(Params a, cudaStream_t stream) {
 }
 
 template <typename WT>
-cudaError_t dispatch(const Params& a, cudaStream_t s) {
-  if (a.B <= 1) return launch<1, WT>(a, s);
-  if (a.B <= 2) return launch<2, WT>(a, s);
-  if (a.B <= 4) return launch<4, WT>(a, s);
-  return launch<8, WT>(a, s);
+cudaError_t dispatch(const Params& a, unsigned epoch, cudaStream_t s) {
+  if (a.B <= 1) return launch<1, WT>(a, epoch, s);
+  if (a.B <= 2) return launch<2, WT>(a, epoch, s);
+  if (a.B <= 4) return launch<4, WT>(a, epoch, s);
+  return launch<8, WT>(a, epoch, s);
 }
 
 }  // namespace
 
-// One step on `stream`. ptrs: a host array of kNumPtrs device pointers in
-// the order of enum Ptr (pmask1/pmask2 may be null: no PreNet dropout; the
-// four LSTM matrices fp32, or bf16 when weights_bf16; everything else fp32
-// and contiguous). scalars: host {p_zoneout, keep}. scratch holds
-// B * (Dc + 2 P + L) floats. Requires 1 <= B <= 8, H1 and H2 multiples of 8,
-// Dc a multiple of 4, and 16-byte aligned tensors. Returns the CUDA error
-// (0 on success).
+// One step of at most 8 rows on `stream`. ptrs: a host array of kNumPtrs
+// device pointers in the order of enum Ptr (pmask1/pmask2 may be null: no
+// PreNet dropout; the four LSTM matrices fp32, or bf16 when weights_bf16,
+// in the JAX layout, or with tile_major each LSTM's [W_ih; W_hh] in
+// pack_streamed's [H / 8, K_ih + H, 32] layout, at kAttIH / kDecIH, with
+// kAttHH / kDecHH unused; everything else fp32 and contiguous). scalars: host {p_zoneout, keep}.
+// scratch holds B * (Dc + 2 P + L) floats. counters: 8 device uint32, zero
+// before a stream's first launch and used by no other stream; epoch: the
+// number of this launch among the stream's launches on them (1, 2, ...).
+// Requires 1 <= B <= 8, H1 and H2 multiples of 8, Dc a multiple of 4 and at
+// most 1024, and 16-byte aligned tensors. Returns the CUDA error (0 on success).
 extern "C" int tts_taco_step_forward(const long long* ptrs, const float* scalars, int B, int L,
                                      int D_mel, int P, int Dc, int H1, int H2, int r,
-                                     int weights_bf16, void* stream) {
-  if (B < 1 || B > 8 || L < 1 || D_mel < 1 || P < 1 || Dc < 4 || Dc % 4 || H1 < 8 || H1 % 8 ||
-      H2 < 8 || H2 % 8 || r < 1)
+                                     int weights_bf16, int tile_major, unsigned* counters,
+                                     int epoch, void* stream) {
+  if (B < 1 || B > 8 || L < 1 || D_mel < 1 || P < 1 || Dc < 4 || Dc % 4 || Dc > 1024 ||
+      H1 < 8 || H1 % 8 || H2 < 8 || H2 % 8 || r < 1 || counters == nullptr)
     return (int)cudaErrorInvalidValue;
   auto f = [&](int i) { return reinterpret_cast<float*>(ptrs[i]); };
   auto v = [&](int i) { return reinterpret_cast<const void*>(ptrs[i]); };
@@ -459,10 +753,29 @@ extern "C" int tts_taco_step_forward(const long long* ptrs, const float* scalars
   a.x1 = a.q + (size_t)B * Dc;
   a.xpre = a.x1 + (size_t)B * P;
   a.p = a.xpre + (size_t)B * P;
+  a.ctr = counters;
+  a.target = 0;
   a.B = B; a.L = L; a.Dm = D_mel; a.P = P; a.Dc = Dc; a.H1 = H1; a.H2 = H2; a.r = r;
-  a.xs_floats = 0;
+  a.xs_floats = a.att_own = a.dec_own = 0;
+  a.tile_major = tile_major;
+  if (tile_major) {
+    const size_t wb = weights_bf16 ? 2 : 4;
+    a.att_ts = 32LL * (P + Dc + H1);
+    a.dec_ts = 32LL * (H1 + Dc + H2);
+    a.att_hh = static_cast<const char*>(a.att_ih) + 32 * (size_t)(P + Dc) * wb;
+    a.dec_hh = static_cast<const char*>(a.dec_ih) + 32 * (size_t)(H1 + Dc) * wb;
+    a.att_ld = a.dec_ld = 32;
+    a.att_gs = a.dec_gs = 8;
+  } else {
+    a.att_ts = a.dec_ts = kUnits;
+    a.att_ld = 4 * H1;
+    a.dec_ld = 4 * H2;
+    a.att_gs = H1;
+    a.dec_gs = H2;
+  }
   a.p_zoneout = scalars[0];
   a.keep = scalars[1];
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return (int)(weights_bf16 ? dispatch<__nv_bfloat16>(a, s) : dispatch<float>(a, s));
+  const unsigned e = static_cast<unsigned>(epoch);  // the launch count's low 32 bits
+  return (int)(weights_bf16 ? dispatch<__nv_bfloat16>(a, e, s) : dispatch<float>(a, e, s));
 }

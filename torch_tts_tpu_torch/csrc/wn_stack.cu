@@ -35,6 +35,10 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "wgmma_tf32.cuh"
+
 namespace {
 
 constexpr int kTM = 4;     // rows per thread per pass
@@ -304,8 +308,9 @@ cudaError_t launch_group(const float* x, const float* mask, const float* gl,
 // above, with save_x / save_xin) writes each layer's input x_i [B, T, H]
 // and pre-activation x_in [B, T, 2H] to HBM (74 MB per group at B=8,
 // T=1000), and the backward walks the layers in reverse over the whole
-// sequence. Per layer i, with r = b*T + t a frame:
-//   d_rs   = [d_x * m, d_skip * m]                               (prep)
+// sequence. Per layer i, with r = b*T + t a frame and d_x the gradient
+// arriving from layer i + 1 (d_xo for the last layer):
+//   d_rs   = [d_x * m, d_skip * m]
 //   d_acts = d_rs @ w_rs[i]^T;  t = tanh(x_in[:H]), s = sigmoid(x_in[H:])
 //   d_xin  = [d_acts * s * (1 - t^2), d_acts * t * s * (1 - s)]   (ActsGrad)
 //   d_x    = d_rs[:, :H] + sum_tau d_xin[r + p - tau] @ w_in[i, tau]^T
@@ -313,137 +318,71 @@ cudaError_t launch_group(const float* x, const float* mask, const float* gl,
 //   d_w_in[i, tau] = sum_r x_i[r + tau - p]^T d_xin[r]          (WeightInGrad)
 //   d_w_rs[i]      = sum_r acts[r]^T d_rs[r]                     (WeightRsGrad)
 //   d_b_in[i] = sum_r d_xin[r], d_gl[b, i] = sum_t d_xin[b, t], d_b_rs[i] = sum_r d_rs[r]
-// with zeros outside [0, T) for the shifted reads.
+// with zeros outside [0, T) for the shifted reads. d_rs never exists in
+// memory: the products that read it form it from d_x, d_skip and the mask
+// as they load.
 //
-// All four products run through one fp32 SIMT tiled-product kernel
-// (gemm_kernel): 128 x 64 output tiles, 16-deep K chunks double-buffered
-// in shared memory, 8 x 4 outputs per thread. A "problem" struct supplies
-// the operand loads (with the shift, the transposes and the zero padding
-// written into them) and the epilogue. Which operand dimension is
-// contiguous in memory picks the thread-to-element map of the loads, so
-// neighbouring threads read neighbouring addresses.
-//
-// The weight products reduce over B*T frames. Each batch item is one
-// K-split (blockIdx.z): its partial sums go to a [B, M, N] buffer, and a
-// second pass adds the B partials in a fixed order. A row of ones appended
-// to the left operand turns the same product into the bias sums, and its
-// per-item partial is d_gl. No atomics: the result has the same bits on
-// every run.
-//
-// Work at B=8, T=1000, H=192, k=5, L=4: about 57 GFLOP per group, 0.85 ms
-// at the H100's 67 TFLOP/s fp32 peak; the products are bound by FMA issue.
+// Work at B=8, T=1000, H=192, k=5, L=4: about 57 GFLOP per group, bound by
+// operations: 0.343 ms at 3xTF32's 165 TFLOP/s (0.85 ms at fp32's 67).
+// Design:
+// - Every product is a tiled GEMM on Hopper's warpgroup tensor cores,
+//   wgmma tf32 in 3xTF32 (wgmma_tf32.cuh, the route of mrf_fused.cu): a
+//   CTA of two warpgroups owns 128 rows x 64 columns and walks K in
+//   32-deep chunks; two CTAs share an SM, so one's loads overlap the
+//   other's products.
+// - A comes from registers (wgmma's RS form, as mrf_fused.cu): each thread
+//   loads its fragment rows through per-row descriptors made once a tile,
+//   which write in the tap shift, the batch-item bounds, the transposes of
+//   the weight products (K = frames is their strided axis), the mask and
+//   the rows of ones. B is staged K-major into a two-slot shared-memory
+//   ring, split into hi and lo tiles as it is stored (the weight products'
+//   frame-major B transposed on that store); chunk c + 1 is loaded while
+//   the products of chunk c run. (Staging A in shared memory too, wgmma's
+//   SS form, was slower on the card: its staging set the time.)
+// - The weight products reduce over B*T frames. Each batch item is one
+//   K-split: its partial sums go to a [B, M, N] buffer, and a second pass
+//   adds the B partials in a fixed order. A row of ones in A turns the same
+//   product into the bias sums, and its per-item partial is d_gl. No
+//   atomics: the result has the same bits on every run.
+// - Launches per layer: ActsGrad; InputGrad, WeightInGrad and
+//   WeightRsGrad together (one grid, CTAs assigned to problems by index);
+//   the two reductions together. 3 per layer, 12 per group of 4 layers.
 
-constexpr int kBM = 128, kBN = 64, kBK = 16, kGemmThreads = 256, kGTM = 8, kGTN = 4;
+using namespace tts_wgmma;
 
-template <bool A_KCONTIG, bool B_KCONTIG>
-__device__ __forceinline__ void store_tiles(float (*As)[kBM + 4], float (*Bs)[kBN + 4],
-                                            const float (&ra)[8], const float (&rb)[4],
-                                            int tid) {
-  if (A_KCONTIG) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) As[tid % kBK][tid / kBK + 16 * i] = ra[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) As[tid / kBM + 2 * i][tid % kBM] = ra[i];
-  }
-  if (B_KCONTIG) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bs[tid % kBK][tid / kBK + 16 * i] = rb[i];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bs[tid / kBN + 4 * i][tid % kBN] = rb[i];
-  }
-}
+constexpr int kBwdThreads = 256;  // two warpgroups
+constexpr int kBM = 128;          // rows a CTA, 64 a warpgroup
+constexpr int kBN = 64;           // columns a CTA
+constexpr int kBK = 32;           // K of a staged chunk
 
-// C[z][m, n] = sum_k A(z, m, k) B(z, k, n); P supplies M, N, K, the loads
-// (A_KCONTIG: thread tid loads A(m0 + tid/16 + 16i, k0 + tid%16), else
-// A(m0 + tid%128, k0 + tid/128 + 2i); B likewise with 16 / 64) and store().
-template <class P>
-__global__ void __launch_bounds__(kGemmThreads) gemm_kernel(const P p) {
-  __shared__ __align__(16) float As[2][kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[2][kBK][kBN + 4];
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, z = blockIdx.z;
-  const typename P::Loader ld(p, m0, n0, z, tid);
-  float ra[8], rb[4];
-  ld.load(p, 0, ra, rb);
-  store_tiles<P::A_KCONTIG, P::B_KCONTIG>(As[0], Bs[0], ra, rb, tid);
-  __syncthreads();
-
-  float acc[kGTM][kGTN];
-#pragma unroll
-  for (int i = 0; i < kGTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kGTN; ++j) acc[i][j] = 0.f;
-  const int ty = tid / 16, tx = tid % 16;
-  const int nk = (p.K + kBK - 1) / kBK;
-  for (int c = 0; c < nk; ++c) {
-    const int cur = c & 1;
-    if (c + 1 < nk) ld.load(p, (c + 1) * kBK, ra, rb);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * kGTM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * kGTM + 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * kGTN]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int i = 0; i < kGTM; ++i) {
-        acc[i][0] = fmaf(av[i], bv.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], bv.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], bv.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], bv.w, acc[i][3]);
-      }
-    }
-    if (c + 1 < nk) store_tiles<P::A_KCONTIG, P::B_KCONTIG>(As[cur ^ 1], Bs[cur ^ 1], ra, rb, tid);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kGTM; ++i) {
-    const int m = m0 + ty * kGTM + i;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < kGTN; ++j) {
-      const int n = n0 + tx * kGTN + j;
-      if (n < p.N) p.store(z, m, n, acc[i][j]);
-    }
-  }
-}
+// Each problem gives a per-row descriptor (row, for A's rows m of item z,
+// computed once a tile), A(m, k0 + off) through it (a; k0 a chunk start,
+// so per-chunk index math is shared by a thread's loads), B(k..k+3, n)
+// (b4), zero outside [0, M) x [0, K), and the epilogue store(z, m, n, v).
 
 // d_acts = d_rs @ w_rs^T over frames r; the epilogue applies the gate
 // derivative and writes d_xin [R, 2H] and acts [R, H].
 struct ActsGrad {
-  static constexpr bool A_KCONTIG = true, B_KCONTIG = true;
-  int M, N, K;  // R, H, 2H
-  const float* d_rs;  // [R, 2H]
-  const float* w_rs;  // [H, 2H], this layer
-  const float* x_in;  // [R, 2H], this layer
+  int M, N, K, items;  // R, H, 2H, 1
+  const float* d_x;    // [R, H], from the layer above
+  const float* d_sk;   // [R, H]
+  const float* mask;   // [R]
+  const float* w_rs;   // [H, 2H], this layer
+  const float* x_in;   // [R, 2H], this layer
   float* d_xin;
   float* acts;
-  struct Loader {
-    const float* arow[8];
-    const float* brow[4];
-    int kk;
-    __device__ Loader(const ActsGrad& p, int m0, int n0, int, int tid) : kk(tid % kBK) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + tid / kBK + 16 * i;
-        arow[i] = m < p.M ? p.d_rs + (size_t)m * p.K : nullptr;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + tid / kBK + 16 * i;
-        brow[i] = n < p.N ? p.w_rs + (size_t)n * p.K : nullptr;
-      }
-    }
-    __device__ void load(const ActsGrad& p, int k0, float (&ra)[8], float (&rb)[4]) const {
-      const int k = k0 + kk;
-      const bool kv = k < p.K;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) ra[i] = (arow[i] != nullptr && kv) ? __ldg(arow[i] + k) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) rb[i] = (brow[i] != nullptr && kv) ? __ldg(brow[i] + k) : 0.f;
-    }
-  };
+  struct Row { const float* dx; const float* ds; float m; };
+  __device__ Row row(int, int r) const {
+    const int rr = r < M ? r : 0;
+    return {d_x + (size_t)rr * N, d_sk + (size_t)rr * N, r < M ? __ldg(mask + rr) : 0.f};
+  }
+  __device__ float a(const Row& w, int k0, int off) const {  // d_rs[r, k]
+    const int k = k0 + off;
+    return (k0 < N ? __ldg(w.dx + k) : __ldg(w.ds + k - N)) * w.m;  // a chunk lies in one half
+  }
+  __device__ float4 b4(int, int k, int n) const {  // w_rs[n, k..k+3]
+    return __ldg(reinterpret_cast<const float4*>(w_rs + (size_t)n * K + k));
+  }
   __device__ void store(int, int m, int n, float d_act) const {
     const float* xr = x_in + (size_t)m * K;
     const float t = tanhf(xr[n]);
@@ -458,98 +397,55 @@ struct ActsGrad {
 // d_x[r] = d_rs[r, :H] + sum_{tau, j} d_xin[r + p - tau, j] * w_in[tau, c, j]
 // (the transposed k-tap conv), zero where t + p - tau leaves [0, T).
 struct InputGrad {
-  static constexpr bool A_KCONTIG = true, B_KCONTIG = true;
-  int M, N, K;  // R, H, k*2H
+  int M, N, K, items;  // R, H, k*2H, 1
   int T, pad, H2;
   const float* d_xin;  // [R, 2H]
   const float* w_in;   // [k, H, 2H], this layer
-  const float* d_rs;   // [R, 2H]
-  float* d_x;          // [R, H]
-  struct Loader {
-    int row[8], t[8], col[4];
-    int kk;
-    __device__ Loader(const InputGrad& p, int m0, int n0, int, int tid) : kk(tid % kBK) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int m = m0 + tid / kBK + 16 * i;
-        row[i] = m < p.M ? m : -1;
-        t[i] = m % p.T;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int n = n0 + tid / kBK + 16 * i;
-        col[i] = n < p.N ? n : -1;
-      }
-    }
-    __device__ void load(const InputGrad& p, int k0, float (&ra)[8], float (&rb)[4]) const {
-      const int k = k0 + kk;
-      const bool kv = k < p.K;
-      const int tau = k / p.H2, j = k - tau * p.H2;
-      const int shift = p.pad - tau;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int st = t[i] + shift;
-        ra[i] = (kv && row[i] >= 0 && st >= 0 && st < p.T)
-                    ? __ldg(p.d_xin + (size_t)(row[i] + shift) * p.H2 + j) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        rb[i] = (kv && col[i] >= 0) ? __ldg(p.w_in + ((size_t)tau * p.N + col[i]) * p.H2 + j) : 0.f;
-    }
-  };
+  const float* d_x;    // [R, H], from the layer above
+  const float* mask;   // [R]
+  float* d_x_out;      // [R, H]
+  struct Row { int r, t; };
+  __device__ Row row(int, int r) const { return {r < M ? r : -1, r % T}; }
+  __device__ float a(const Row& w, int k0, int off) const {  // d_xin[r + p - tau, j]
+    const int tau = k0 / H2, j = k0 - tau * H2 + off;  // a chunk lies in one tap
+    const int st = w.t + pad - tau;
+    return (w.r >= 0 && st >= 0 && st < T)
+               ? __ldg(d_xin + (size_t)(w.r + pad - tau) * H2 + j) : 0.f;
+  }
+  __device__ float4 b4(int, int k, int n) const {  // w_in[tau, n, j..j+3]
+    const int tau = k / H2, j = k - tau * H2;
+    return __ldg(reinterpret_cast<const float4*>(w_in + ((size_t)tau * N + n) * H2 + j));
+  }
   __device__ void store(int, int m, int n, float v) const {
-    d_x[(size_t)m * N + n] = d_rs[(size_t)m * H2 + n] + v;
+    d_x_out[(size_t)m * N + n] = __ldg(d_x + (size_t)m * N + n) * __ldg(mask + m) + v;
   }
 };
 
 // Per batch item z: part[z][(tau, ci), j] = sum_t x_i[z, t + tau - p, ci] d_xin[z, t, j];
 // row k*H (a row of ones) gives sum_t d_xin[z, t, j].
 struct WeightInGrad {
-  static constexpr bool A_KCONTIG = false, B_KCONTIG = false;
-  int M, N, K;  // k*H + 1, 2H, T
+  int M, N, K, items;  // k*H + 1, 2H, T, B
   int H, pad;
   const float* x_i;    // [B, T, H], this layer
   const float* d_xin;  // [B, T, 2H]
   float* part;         // [B, M, N]
-  struct Loader {
-    const float* xb;
-    const float* db;
-    int ci, shift, kind, kk_a, col, kk_b;  // kind: 0 x row, 1 ones row, 2 padding
-    __device__ Loader(const WeightInGrad& p, int m0, int n0, int z, int tid) {
-      const int m = m0 + tid % kBM;
-      const int km = p.M - 1;
-      kind = m < km ? 0 : (m == km ? 1 : 2);
-      const int tau = m < km ? m / p.H : 0;
-      ci = m < km ? m - tau * p.H : 0;
-      shift = tau - p.pad;
-      kk_a = tid / kBM;
-      col = n0 + tid % kBN;
-      kk_b = tid / kBN;
-      xb = p.x_i + (size_t)z * p.K * p.H;
-      db = p.d_xin + (size_t)z * p.K * p.N;
-    }
-    __device__ void load(const WeightInGrad& p, int k0, float (&ra)[8], float (&rb)[4]) const {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = k0 + kk_a + 2 * i;
-        const int st = t + shift;
-        float v = 0.f;
-        if (t < p.K) {
-          if (kind == 0) {
-            if (st >= 0 && st < p.K) v = __ldg(xb + (size_t)st * p.H + ci);
-          } else if (kind == 1) {
-            v = 1.f;
-          }
-        }
-        ra[i] = v;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = k0 + kk_b + 4 * i;
-        rb[i] = (t < p.K && col < p.N) ? __ldg(db + (size_t)t * p.N + col) : 0.f;
-      }
-    }
-  };
+  struct Row { const float* xb; int shift, kind; };  // kind: 0 x, 1 ones, 2 none
+  __device__ Row row(int z, int m) const {
+    const int km = M - 1, tau = m < km ? m / H : 0;
+    return {x_i + (size_t)z * K * H + (m < km ? m - tau * H : 0), tau - pad,
+            m < km ? 0 : (m == km ? 1 : 2)};
+  }
+  __device__ float a(const Row& w, int k0, int off) const {  // x_i[z, t + tau - p, ci]
+    const int t = k0 + off, st = t + w.shift;
+    if (t >= K || w.kind == 2) return 0.f;
+    if (w.kind == 1) return 1.f;
+    return (st >= 0 && st < K) ? __ldg(w.xb + (size_t)st * H) : 0.f;
+  }
+  __device__ float4 b4(int z, int t, int n) const {  // d_xin[z, t..t+3, n]
+    const float* d = d_xin + ((size_t)z * K + t) * N + n;
+    return make_float4(t < K ? __ldg(d) : 0.f, t + 1 < K ? __ldg(d + N) : 0.f,
+                       t + 2 < K ? __ldg(d + 2 * N) : 0.f, t + 3 < K ? __ldg(d + 3 * N) : 0.f);
+  }
   __device__ void store(int z, int m, int n, float v) const {
     part[((size_t)z * M + m) * N + n] = v;
   }
@@ -558,83 +454,216 @@ struct WeightInGrad {
 // Per batch item z: part[z][c, j] = sum_t acts[z, t, c] d_rs[z, t, j]; row H
 // (ones) gives sum_t d_rs[z, t, j].
 struct WeightRsGrad {
-  static constexpr bool A_KCONTIG = false, B_KCONTIG = false;
-  int M, N, K;  // H + 1, 2H, T
-  const float* acts;  // [B, T, H]
-  const float* d_rs;  // [B, T, 2H]
-  float* part;        // [B, M, N]
-  struct Loader {
-    const float* ab;
-    const float* db;
-    int row, kind, kk_a, col, kk_b;
-    __device__ Loader(const WeightRsGrad& p, int m0, int n0, int z, int tid) {
-      row = m0 + tid % kBM;
-      kind = row < p.M - 1 ? 0 : (row == p.M - 1 ? 1 : 2);
-      kk_a = tid / kBM;
-      col = n0 + tid % kBN;
-      kk_b = tid / kBN;
-      ab = p.acts + (size_t)z * p.K * (p.M - 1);
-      db = p.d_rs + (size_t)z * p.K * p.N;
-    }
-    __device__ void load(const WeightRsGrad& p, int k0, float (&ra)[8], float (&rb)[4]) const {
+  int M, N, K, items;  // H + 1, 2H, T, B
+  const float* acts;   // [B, T, H]
+  const float* d_x;    // [B, T, H], from the layer above
+  const float* d_sk;   // [B, T, H]
+  const float* mask;   // [B, T]
+  float* part;         // [B, M, N]
+  struct Row { const float* ab; int kind; };
+  __device__ Row row(int z, int m) const {
+    const int H = M - 1;
+    return {acts + (size_t)z * K * H + (m < H ? m : 0), m < H ? 0 : (m == H ? 1 : 2)};
+  }
+  __device__ float a(const Row& w, int k0, int off) const {  // acts[z, t, c]
+    const int t = k0 + off;
+    if (t >= K || w.kind == 2) return 0.f;
+    return w.kind == 1 ? 1.f : __ldg(w.ab + (size_t)t * (M - 1));
+  }
+  __device__ float4 b4(int z, int t, int n) const {  // d_rs[z, t..t+3, n]
+    const int H = M - 1;
+    const float* src = n < H ? d_x : d_sk;
+    const int c = n < H ? n : n - H;
+    float v[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = k0 + kk_a + 2 * i;
-        float v = 0.f;
-        if (t < p.K) v = kind == 0 ? __ldg(ab + (size_t)t * (p.M - 1) + row) : (kind == 1 ? 1.f : 0.f);
-        ra[i] = v;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int t = k0 + kk_b + 4 * i;
-        rb[i] = (t < p.K && col < p.N) ? __ldg(db + (size_t)t * p.N + col) : 0.f;
-      }
+    for (int q = 0; q < 4; ++q) {
+      const size_t r = (size_t)z * K + t + q;
+      v[q] = t + q < K ? __ldg(src + r * H + c) * __ldg(mask + r) : 0.f;
     }
-  };
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
   __device__ void store(int z, int m, int n, float v) const {
     part[((size_t)z * M + m) * N + n] = v;
   }
 };
 
-// d_rs = [d_x * m, d_skip * m] over R frames.
-__global__ void prep_drs_kernel(const float* __restrict__ d_x, const float* __restrict__ d_sk,
-                                const float* __restrict__ mask, float* __restrict__ d_rs,
-                                int R, int H) {
-  const size_t n = (size_t)R * 2 * H;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t r = i / (2 * H);
-    const int c = (int)(i - r * 2 * H);
-    const float g = c < H ? d_x[r * H + c] : d_sk[r * H + c - H];
-    d_rs[i] = g * mask[r];
+template <class P>
+__host__ __device__ constexpr int tiles_m(const P& p) { return (p.M + kBM - 1) / kBM; }
+template <class P>
+__host__ __device__ constexpr int tiles_of(const P& p) {
+  return p.items * tiles_m(p) * ((p.N + kBN - 1) / kBN);
+}
+
+// One 128 x 64 output tile of problem p for batch item z in 3xTF32. A is in
+// registers (wgmma's RS form): each thread loads its fragment rows through
+// the problem's row descriptors, so any shift, transpose or row of ones is
+// free. B is staged K-major into a two-slot shared-memory ring, split into
+// hi and lo tiles as it is stored: chunk c + 1's A and B are loaded, and
+// its B stored, while the products of chunk c run.
+template <class P>
+__device__ __forceinline__ void run_tile(const P& p, int z, int mt, int nt, float* ring) {
+  constexpr int NR = kBN / 2;                      // accumulator registers a thread
+  constexpr int B_TILE = kBK * kBN;                // floats of one hi or lo tile
+  constexpr int BP = kBN * kBK / 4 / kBwdThreads;  // B float4 groups a thread
+  static_assert(BP * kBwdThreads * 4 == B_TILE, "chunk copy");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = mt * kBM + (warp >> 2) * 64 + (warp & 3) * 16;  // this warp's 16 rows
+  const int n0 = nt * kBN;
+  const int nk = (p.K + kBK - 1) / kBK;
+  const typename P::Row r0 = p.row(z, m0 + g), r1 = p.row(z, m0 + g + 8);
+
+  float an[kBK / 8][4];  // A fragments of the next chunk, fp32
+  float4 bv[BP];  // B of the next chunk: group q is (k4, n) = ((q >> 3) & 7, 8 (q >> 6) + (q & 7))
+  auto fetch = [&](int c) {
+    const int k0 = c * kBK;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      an[kk][0] = p.a(r0, k0, 8 * kk + t4);
+      an[kk][1] = p.a(r1, k0, 8 * kk + t4);
+      an[kk][2] = p.a(r0, k0, 8 * kk + t4 + 4);
+      an[kk][3] = p.a(r1, k0, 8 * kk + t4 + 4);
+    }
+#pragma unroll
+    for (int i = 0; i < BP; ++i) {
+      const int q = tid + i * kBwdThreads;
+      bv[i] = p.b4(z, k0 + 4 * ((q >> 3) & 7), n0 + ((q >> 6) << 3) + (q & 7));
+    }
+  };
+  auto stage_b = [&](float* hi) {  // 8 threads store 128 contiguous bytes
+#pragma unroll
+    for (int i = 0; i < BP; ++i) {
+      const int q = tid + i * kBwdThreads;
+      const int o = kmajor_offset<kBN>(4 * ((q >> 3) & 7), ((q >> 6) << 3) + (q & 7));
+      uint32_t h[4], l[4];
+      split_tf32(bv[i].x, h[0], l[0]);
+      split_tf32(bv[i].y, h[1], l[1]);
+      split_tf32(bv[i].z, h[2], l[2]);
+      split_tf32(bv[i].w, h[3], l[3]);
+      *reinterpret_cast<uint4*>(hi + o) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(hi + B_TILE + o) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+    fence_async_shared();
+  };
+  uint32_t ah[kBK / 8][4], al[kBK / 8][4];
+  auto split_a = [&] {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) split_tf32(an[kk][e], ah[kk][e], al[kk][e]);
+  };
+
+  float acc[NR];
+#pragma unroll
+  for (int e = 0; e < NR; ++e) acc[e] = 0.f;
+  fetch(0);
+  stage_b(ring);
+  split_a();
+  __syncthreads();
+  for (int c = 0; c < nk; ++c) {
+    const float* b_hi = ring + (c & 1) * 2 * B_TILE;
+    const float* b_lo = b_hi + B_TILE;
+#pragma unroll
+    for (int e = 0; e < NR; ++e) keep(acc[e]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const uint64_t dh = kmajor_desc<kBN>(b_hi, kk), dl = kmajor_desc<kBN>(b_lo, kk);
+      wgmma_tf32<kBN>(acc, al[kk], dh);
+      wgmma_tf32<kBN>(acc, ah[kk], dl);
+      wgmma_tf32<kBN>(acc, ah[kk], dh);
+    }
+    wgmma_commit();
+    if (c + 1 < nk) {  // the next chunk, while the products run
+      fetch(c + 1);
+      stage_b(ring + ((c + 1) & 1) * 2 * B_TILE);
+    }
+    wgmma_wait0();
+#pragma unroll
+    for (int e = 0; e < NR; ++e) keep(acc[e]);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) { keep(ah[kk][e]); keep(al[kk][e]); }
+    if (c + 1 < nk) split_a();  // the products no longer read ah / al
+    __syncthreads();            // slot c & 1 is free; chunk c + 1's B is in place
   }
+  // acc[4 j + {0, 1}] at (g, 8 j + 2 t4 + {0, 1}); acc[4 j + {2, 3}] at (g + 8, ...)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + g + 8 * h;
+    if (m >= p.M) continue;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t4;
+      if (n < p.N) p.store(z, m, n, acc[4 * j + 2 * h]);
+      if (n + 1 < p.N) p.store(z, m, n + 1, acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// runs blockIdx.x's tile if it falls in p's range, else moves the index past it
+template <class P>
+__device__ __forceinline__ bool run_if_mine(const P& p, int& bid, float* ring) {
+  const int n = tiles_of(p);
+  if (bid >= n) {
+    bid -= n;
+    return false;
+  }
+  const int tn = (p.N + kBN - 1) / kBN, per_item = tiles_m(p) * tn;
+  const int z = bid / per_item, rem = bid - z * per_item;
+  run_tile(p, z, rem / tn, rem % tn, ring);
+  return true;
+}
+
+// One grid over several problems: CTA i runs the i-th tile in order.
+template <class... Ps>
+__global__ void __launch_bounds__(kBwdThreads, 2) tiles_kernel(Ps... ps) {
+  extern __shared__ __align__(128) float ring[];
+  int bid = blockIdx.x;
+  (run_if_mine(ps, bid, ring) || ...);
+}
+
+template <class... Ps>
+cudaError_t launch_tiles(cudaStream_t stream, const Ps&... ps) {
+  const size_t smem = (size_t)4 * kBN * kBK * sizeof(float);  // two slots of B's hi + lo
+  const auto kernel = tiles_kernel<Ps...>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int grid = (tiles_of(ps) + ...);
+  kernel<<<grid, kBwdThreads, smem, stream>>>(ps...);
+  return cudaGetLastError();
 }
 
 // out_w[m, n] = sum_z part[z, m, n] for m < M - 1 (z in order); row M - 1
 // goes to out_b, and, when d_gl is given, each item's own row to
-// d_gl[z, layer].
-__global__ void reduce_parts_kernel(const float* __restrict__ part, int Z, int M, int N,
-                                    float* __restrict__ out_w, float* __restrict__ out_b,
-                                    float* __restrict__ d_gl, int layer, int L) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= M * N) return;
-  float s = 0.f;
-  for (int z = 0; z < Z; ++z) s += part[(size_t)z * M * N + idx];
-  const int m = idx / N, n = idx - (idx / N) * N;
-  if (m < M - 1) {
-    out_w[idx] = s;
-  } else {
-    out_b[n] = s;
-    if (d_gl != nullptr)
-      for (int z = 0; z < Z; ++z) d_gl[((size_t)z * L + layer) * N + n] = part[(size_t)z * M * N + idx];
-  }
-}
+// d_gl[z, layer]. blockIdx.y picks the reduction: 0 of WeightInGrad, 1 of
+// WeightRsGrad.
+struct Reduce {
+  const float* part;
+  int M;
+  float* out_w;
+  float* out_b;
+  float* d_gl;
+};
 
-template <class P>
-cudaError_t launch_gemm(const P& p, int Z, cudaStream_t stream) {
-  dim3 grid((p.M + kBM - 1) / kBM, (p.N + kBN - 1) / kBN, Z);
-  gemm_kernel<P><<<grid, kGemmThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+__global__ void reduce_parts_kernel(const Reduce ra, const Reduce rb, int Z, int N, int layer,
+                                    int L) {
+  const Reduce& r = blockIdx.y == 0 ? ra : rb;
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= r.M * N) return;
+  float s = 0.f;
+  for (int z = 0; z < Z; ++z) s += r.part[(size_t)z * r.M * N + idx];
+  const int m = idx / N, n = idx - (idx / N) * N;
+  if (m < r.M - 1) {
+    r.out_w[idx] = s;
+  } else {
+    r.out_b[n] = s;
+    if (r.d_gl != nullptr)
+      for (int z = 0; z < Z; ++z)
+        r.d_gl[((size_t)z * L + layer) * N + n] = r.part[(size_t)z * r.M * N + idx];
+  }
 }
 
 }  // namespace
@@ -662,7 +691,7 @@ extern "C" int tts_wn_group_forward(const float* x, const float* mask, const flo
 // and the cotangents d_xo, d_sk [B, T, H]: writes d_x [B, T, H], d_gl
 // [B, L, 2H] (skipped when null), d_w_in [L, k, H, 2H], d_b_in [L, 2H],
 // d_w_rs [L, H, 2H], d_b_rs [L, 2H]. `work` holds
-// B*T*6H + B*(k*H + 1)*2H + B*(H + 1)*2H floats (the wrapper's
+// B*T*4H + B*(k*H + 1)*2H + B*(H + 1)*2H floats (the wrapper's
 // `backward_workspace`). Returns the first CUDA error (0 on success).
 extern "C" int tts_wn_group_backward(const float* mask, const float* w_in, const float* w_rs,
                                      const float* save_x, const float* save_xin,
@@ -675,11 +704,10 @@ extern "C" int tts_wn_group_backward(const float* mask, const float* w_in, const
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int R = B * T, H2 = 2 * H, pad = (k - 1) / 2;
   const int Ma = k * H + 1, Mb = H + 1;
-  float* dx_tmp = work;                       // [R, H]
-  float* d_rs = dx_tmp + (size_t)R * H;       // [R, 2H]
-  float* d_xin = d_rs + (size_t)R * H2;       // [R, 2H]
-  float* acts = d_xin + (size_t)R * H2;       // [R, H]
-  float* part_a = acts + (size_t)R * H;       // [B, Ma, 2H]
+  float* dx_tmp = work;                          // [R, H]
+  float* d_xin = dx_tmp + (size_t)R * H;         // [R, 2H]
+  float* acts = d_xin + (size_t)R * H2;          // [R, H]
+  float* part_a = acts + (size_t)R * H;          // [B, Ma, 2H]
   float* part_b = part_a + (size_t)B * Ma * H2;  // [B, Mb, 2H]
 
   const float* cur = d_xo;
@@ -691,26 +719,17 @@ extern "C" int tts_wn_group_backward(const float* mask, const float* w_in, const
     const float* w_rs_i = w_rs + (size_t)i * H * H2;
     cudaError_t err;
 
-    prep_drs_kernel<<<264, 256, 0, s>>>(cur, d_sk, mask, d_rs, R, H);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const ActsGrad pa{R, H, H2, 1, cur, d_sk, mask, w_rs_i, xin, d_xin, acts};
+    if ((err = launch_tiles(s, pa)) != cudaSuccess) return (int)err;
 
-    ActsGrad pa{R, H, H2, d_rs, w_rs_i, xin, d_xin, acts};
-    if ((err = launch_gemm(pa, 1, s)) != cudaSuccess) return (int)err;
+    const InputGrad pi{R, H, k * H2, 1, T, pad, H2, d_xin, w_in_i, cur, mask, nxt};
+    const WeightInGrad pw{Ma, H2, T, B, H, pad, xi, d_xin, part_a};
+    const WeightRsGrad pr{Mb, H2, T, B, acts, cur, d_sk, mask, part_b};
+    if ((err = launch_tiles(s, pi, pw, pr)) != cudaSuccess) return (int)err;
 
-    InputGrad pi{R, H, k * H2, T, pad, H2, d_xin, w_in_i, d_rs, nxt};
-    if ((err = launch_gemm(pi, 1, s)) != cudaSuccess) return (int)err;
-
-    WeightInGrad pw{Ma, H2, T, H, pad, xi, d_xin, part_a};
-    if ((err = launch_gemm(pw, B, s)) != cudaSuccess) return (int)err;
-
-    WeightRsGrad pr{Mb, H2, T, acts, d_rs, part_b};
-    if ((err = launch_gemm(pr, B, s)) != cudaSuccess) return (int)err;
-
-    reduce_parts_kernel<<<(Ma * H2 + 255) / 256, 256, 0, s>>>(
-        part_a, B, Ma, H2, d_w_in + (size_t)i * k * H * H2, d_b_in + (size_t)i * H2, d_gl, i, L);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    reduce_parts_kernel<<<(Mb * H2 + 255) / 256, 256, 0, s>>>(
-        part_b, B, Mb, H2, d_w_rs + (size_t)i * H * H2, d_b_rs + (size_t)i * H2, nullptr, i, L);
+    const Reduce ra{part_a, Ma, d_w_in + (size_t)i * k * H * H2, d_b_in + (size_t)i * H2, d_gl};
+    const Reduce rb{part_b, Mb, d_w_rs + (size_t)i * H * H2, d_b_rs + (size_t)i * H2, nullptr};
+    reduce_parts_kernel<<<dim3((Ma * H2 + 255) / 256, 2), 256, 0, s>>>(ra, rb, B, H2, i, L);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     cur = nxt;
   }

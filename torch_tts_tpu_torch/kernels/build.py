@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-`csrc/*.cu` compile with nvcc, one process per source, all started
-together, into objects for sm_90a (Hopper) that one more nvcc links into a
-shared library with a plain C interface, loaded with ctypes. The library is
+`csrc/*.cu` (with the `csrc/*.cuh` headers they include) compile with
+nvcc, one process per source, all started together, into objects for
+sm_90a (Hopper) that one more nvcc links into a shared library with a
+plain C interface, loaded with ctypes. The library is
 built at first use into `build/torch_kernels/<hash of sources and flags>/`
 under the repository root (listed in .gitignore), so a changed source
 rebuilds and an unchanged one loads at once. nvcc is found through
@@ -41,8 +42,9 @@ _SIGNATURES = {
     # neg_cent, t_ys, t_xs, path, bits, B, T_y, T_x, stream
     "tts_mas_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
     # ptrs (host int64, 35 device pointers), scalars (host float32 p_zoneout,
-    # keep), B, L, D_mel, P, Dc, H1, H2, r, weights_bf16, stream
-    "tts_taco_step_forward": (_P, _P) + (_I,) * 9 + (_P,),
+    # keep), B, L, D_mel, P, Dc, H1, H2, r, weights_bf16, tile_major,
+    # counters (device uint32), epoch (the launch count's low 32 bits), stream
+    "tts_taco_step_forward": (_P, _P) + (_I,) * 10 + (_P, _I, _P),
     # yp, window, twiddle, mel, ranges, out, B, Lp, T, n_fft, hop, n_mels, stream
     "tts_stft_mel_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
     # x, w, bias, h, c, new_h, new_c, gates, B, I, H, stream
@@ -65,7 +67,7 @@ def nvcc_path() -> str:
 def library_dir() -> Path:
     """Build directory of the current sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted((*CSRC.glob("*.cu"), *CSRC.glob("*.cuh"))):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

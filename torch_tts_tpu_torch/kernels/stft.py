@@ -29,7 +29,9 @@ Reflect padding needs L > pad, as `torch.nn.functional.pad` requires: a
 shorter waveform raises.
 
 Dispatch: a CPU tensor takes `mel_spectrogram_plain`; a CUDA tensor
-launches the kernel or raises. The kernel has no backward, as the TPU
+launches the kernel or raises. A waveform of another real dtype (bf16,
+fp16, fp64, integers) is cast to fp32 first, as the JAX kernel casts its
+frames and the plain version does. The kernel has no backward, as the TPU
 kernel has no VJP: with a waveform that requires a gradient it raises
 instead of dropping it. `mel_spectrogram_fused.launches` counts launches.
 `mel_spectrogram_auto` applies the JAX package's dispatch rule with CUDA in
@@ -148,6 +150,20 @@ def check_no_grad(y: torch.Tensor):
                            "audio/mel.py:mel_spectrogram for a differentiable mel")
 
 
+def kernel_input(y: torch.Tensor, n_fft: int, hop_length: int, n_mels: int) -> torch.Tensor:
+    """The kernel's checks on its arguments, then the waveform it takes: y
+    cast to a contiguous fp32 [B, L] or [L] (any real dtype, as the JAX
+    kernel casts); raises ValueError on what the kernel does not take."""
+    if y.is_complex() or y.dtype == torch.bool or y.dim() not in (1, 2):
+        raise ValueError("mel_spectrogram_fused: the kernel takes a real [B, L] or [L] waveform")
+    lo, hi = N_FFT_RANGE
+    if (not lo <= n_fft <= hi or n_fft & (n_fft - 1) or hop_length < 1
+            or not 1 <= n_mels <= MAX_MELS):
+        raise ValueError(f"mel_spectrogram_fused: the kernel takes n_fft a power of two from "
+                         f"{lo} to {hi}, hop >= 1 and 1 to {MAX_MELS} mels")
+    return y.to(torch.float32).contiguous()
+
+
 def _launch(y: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
             twiddles: torch.Tensor, basis: torch.Tensor, ranges: torch.Tensor) -> torch.Tensor:
     """The kernel on a fp32 [B, L] waveform with the constants of
@@ -184,13 +200,7 @@ def mel_spectrogram_fused(y: torch.Tensor, n_fft: int, n_mels: int, sampling_rat
     if y.device.type != "cuda":
         raise ValueError(f"mel_spectrogram_fused: unsupported device {y.device}")
     check_no_grad(y)
-    if y.dtype != torch.float32 or y.dim() not in (1, 2):
-        raise ValueError("mel_spectrogram_fused: the kernel takes a fp32 [B, L] or [L] waveform")
-    lo, hi = N_FFT_RANGE
-    if (not lo <= n_fft <= hi or n_fft & (n_fft - 1) or hop_length < 1
-            or not 1 <= n_mels <= MAX_MELS):
-        raise ValueError(f"mel_spectrogram_fused: the kernel takes n_fft a power of two from "
-                         f"{lo} to {hi}, hop >= 1 and 1 to {MAX_MELS} mels")
+    y = kernel_input(y, n_fft, hop_length, n_mels)
     consts = _kernel_constants(n_fft, sampling_rate, n_mels, fmin, fmax, y.device)
     out = _launch(y[None] if y.dim() == 1 else y, n_fft, hop_length, *consts)
     return out[0] if y.dim() == 1 else out
@@ -205,8 +215,13 @@ def mel_spectrogram_auto(y: torch.Tensor, n_fft: int, n_mels: int, sampling_rate
     """Shape-aware dispatch, the JAX package's rule with the H100's
     threshold: the fused kernel on the card at >= AUTO_MIN_FRAMES frames
     (estimated as B * (1 + L // hop); 0, so every call on the card), else
-    the torch.stft mel of `audio/mel.py`. The kernel has no backward: for a
-    gradient call `audio/mel.py:mel_spectrogram` directly."""
+    the torch.stft mel of `audio/mel.py`.
+
+    Gradients: on the card every call takes the kernel, which has no
+    backward, so a waveform that requires a gradient raises there (it is
+    never dropped). For a gradient on the card call
+    `audio/mel.py:mel_spectrogram` directly, as the train step does for
+    y_hat. On the CPU the torch.stft mel is differentiable."""
     B = 1 if y.dim() == 1 else y.shape[0]
     n_frames = B * (1 + y.shape[-1] // hop_length)
     if y.device.type == "cuda" and n_frames >= AUTO_MIN_FRAMES:

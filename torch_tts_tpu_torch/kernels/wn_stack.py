@@ -19,11 +19,12 @@ version of the backward is autograd through `wn_group_plain`
 a mask that requires one raises.
 
 On the H100 a flow's WN (H=192, k=5, L=4, 1024 frames) is about 3.6 GFLOP
-per batch item forward and twice that backward, bound by fp32 FMA issue
-and, at B=1, by too few tiles to fill the card. The forward runs all layers
-of a group on one time tile in shared memory; `pick_tile` trades halo
-recompute against filling the SMs. The backward is a chain of tiled
-products (see the .cu file).
+per batch item forward and twice that backward. The forward runs all layers
+of a group on one time tile in shared memory, in fp32 FMAs; `pick_tile`
+trades halo recompute against filling the SMs. The backward's four
+products per layer run on the tensor cores in 3xTF32 (fp32-level error,
+`mrf_fused.split_tf32` is the split), deterministic split-K by batch item;
+see the .cu file.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. `wn_group.launches` and `wn_group_backward.launches`
@@ -133,8 +134,10 @@ def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool):
 
 
 def backward_workspace(B: int, T: int, H: int, k: int) -> int:
-    """Floats of scratch the backward kernel takes (tts_wn_group_backward)."""
-    return B * T * 6 * H + B * (k * H + 1) * 2 * H + B * (H + 1) * 2 * H
+    """Floats of scratch the backward kernel takes (tts_wn_group_backward):
+    d_x between layers [B, T, H], d_xin [B, T, 2H], acts [B, T, H] and the
+    per-item partial weight gradients."""
+    return B * T * 4 * H + B * (k * H + 1) * 2 * H + B * (H + 1) * 2 * H
 
 
 def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=None):

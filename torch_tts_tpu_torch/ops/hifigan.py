@@ -4,8 +4,10 @@
 conv_pre -> per stage [lrelu -> weight-normed transposed conv -> mean of
 the stage's ResBlock1 bank] -> lrelu(0.01) -> conv_post -> tanh. With
 `fuse_mrf`, a stage's bank runs through `kernels/mrf_fused.py` when the
-decode is unmasked and the stage has at most 128 channels (the same gate as
-the JAX package; the TPU lane-packing path has no counterpart here). A
+decode is unmasked, the stage has at most 128 channels (the same gate as
+the JAX package; the TPU lane-packing path has no counterpart here) and no
+gradient is needed: the kernel has no backward, so a training forward runs
+the plain convolutions. A
 given `x_mask` is threaded through every layer so a padded batch decodes
 as the exact-length sequences would.
 """
@@ -106,7 +108,9 @@ class Generator(nn.Module):
                 mask = torch.repeat_interleave(mask, u, dim=2)
                 x = x * mask
             bank = self.resblocks[i * nk:(i + 1) * nk]
-            if self.fuse_mrf and mask is None and x.shape[1] <= 128:
+            needs_grad = torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in bank.parameters()))
+            if self.fuse_mrf and mask is None and x.shape[1] <= 128 and not needs_grad:
                 blocks = tuple(block.kernels() for block in bank)
                 # the kernel works in [B, T, C]; copy back to a contiguous
                 # [B, C, T] so the next convolutions take cuDNN's usual layout
