@@ -15,9 +15,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the card, at the shapes the main paths give it, with TF32 off: max
    abs/rel error against the stated tolerance and each version's median
    time over CUDA events after warm-up. MAS must equal its plain version
-   exactly (random lengths, and tied inputs); the WN group backward is held
-   against autograd through the plain group, and two runs of it must give
-   the same bits. The Taco2Prod step: the fused entry point with fp32
+   exactly (random lengths, and tied inputs); its times are device times
+   (torch.profiler), and its chains' floor (T_y
+   DP and backtrack rows timed by `mas.chain_probe`) is logged beside its
+   bytes bound; the WN group forward with and without per-layer
+   conditioning on ragged lengths, its plan, and its saving variant timed
+   at the train shape; the WN group backward is held against autograd
+   through the plain group, and two runs of it must give the same bits.
+   The Taco2Prod step: the fused entry point with fp32
    matrices and the streamed one with fp32 and bf16 LSTM matrices (the
    plain step given the same bf16-rounded matrices in fp32), each at
    dim_rnn 320 and 1024 and B=1, 8 and 16 (two launches of 8 rows), PreNet
@@ -293,10 +298,23 @@ def kernel_phase(device, card: str):
         return 2.0 * B * T * H * 2 * H * (k + 1) * L
 
     for B in (1, 8):
-        args = wn_args(B, T, torch.tensor([T - 37 * i for i in range(B)]))
-        out, ref = wn_group(*args), wn_group_plain(*args)
-        errs.append(max(compare(f"wn_group B={B} {n}", o, r)
-                        for n, o, r in zip(("x_out", "skip"), out, ref)))
+        lengths = torch.tensor([T - 37 * i for i in range(B)])
+        args = wn_args(B, T, lengths)
+        for name, a in (("", args), (" gl", wn_args(B, T, lengths, with_gl=True))):
+            out, ref = wn_group(*a), wn_group_plain(*a)
+            errs.append(max(compare(f"wn_group B={B}{name} {n}", o, r)
+                            for n, o, r in zip(("x_out", "skip"), out, ref)))
+        # the planner's choice, and each cluster size it could take, timed
+        at_once = {c: wn_stack.clusters_at_once(c, k, device.index or 0)
+                   for c in wn_stack.FORWARD_CLUSTERS}
+        plan = wn_stack.plan_forward(B, T, k, L, H, one_wave=at_once[4])
+        for c in wn_stack.FORWARD_CLUSTERS:
+            p = dataclasses.replace(plan, cluster=c)
+            t_c = cuda_ms(lambda: wn_stack._forward_cuda(*args, save=False, plan=p))
+            log(f"  wn_group B={B} T={T}: {c}-CTA clusters{' (the plan)' * (c == plan.cluster)}: "
+                f"{p.ctas} CTAs of {wn_stack.WINDOW} rows, {p.frames} frames owned (halo share "
+                f"{p.halo_share:.2f}); the card holds {at_once[c]} such clusters at once; "
+                f"kernel {t_c:.3f} ms [{card}]")
         t_k = cuda_ms(lambda: wn_group(*args))
         t_p = cuda_ms(lambda: wn_group_plain(*args))
         log(f"  wn_group B={B} T={T} H={H} L={L}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms [{card}]")
@@ -305,6 +323,15 @@ def kernel_phase(device, card: str):
         if B == 1:
             res["wn_group"] = dict(ms=t_k, plain_ms=t_p, bound=b)
     res["wn_group"]["max_abs_err"] = max(errs)
+    # the saving forward of the train step, beside the inference variant at its shape
+    B, T = TRAIN_B, TRAIN_TY
+    args = wn_args(B, T, torch.tensor([T] * B))
+    t_s = cuda_ms(lambda: wn_stack._forward_cuda(*args, save=True))
+    t_i = cuda_ms(lambda: wn_stack._forward_cuda(*args, save=False))
+    log(f"  wn_group saving forward B={B} T={T} H={H} L={L}: kernel {t_s:.3f} ms, inference "
+        f"variant {t_i:.3f} ms [{card}]")
+    product_bound(f"wn_group saving forward B={B}", wn_flops(B, T),
+                  4.0 * (3 * B * T * H + B * T + L * (k + 2) * H * 2 * H + L * B * T * 3 * H), card)
 
     # WN group backward: the flows' and enc_q's groups at the train batch,
     # then two ragged items with per-layer conditioning (all six gradients)
@@ -352,13 +379,27 @@ def kernel_phase(device, card: str):
             f"-> {'ok' if same else 'FAIL'}")
         if not same:
             raise RuntimeError("maximum_path: kernel path differs from the plain version")
-    t_k = cuda_ms(lambda: mas._maximum_path_cuda(masked, t_ys, t_xs))
-    t_p = cuda_ms(lambda: mas.maximum_path_plain(masked, t_ys, t_xs), warmup=1, reps=3)
-    log(f"  maximum_path B={B} T_y={T_y} T_x={T_x}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms "
-        f"[{card}]")
+    # device time (the call's host work exceeds the kernel's), and per call with the host
+    t32 = (t_ys.int(), t_xs.int())
+    t_k = profile_busy_ms(lambda: [mas._maximum_path_cuda(masked, *t32) for _ in range(20)]) / 20
+    t_p = profile_busy_ms(lambda: mas.maximum_path_plain(masked, t_ys, t_xs))
+    w_k = cuda_ms(lambda: mas._maximum_path_cuda(masked, *t32))
+    w_p = cuda_ms(lambda: mas.maximum_path_plain(masked, t_ys, t_xs), warmup=1, reps=3)
+    log(f"  maximum_path B={B} T_y={T_y} T_x={T_x}: device time kernel {t_k:.4f} ms, plain "
+        f"{t_p:.3f} ms; per call with the host: kernel {w_k:.3f} ms, plain {w_p:.3f} ms [{card}]")
     cells = float((t_ys.long() * t_xs.long()).sum())  # the DP reads and updates these
     res["maximum_path"] = dict(max_abs_err=0.0, ms=t_k, plain_ms=t_p,
                                bound=bound(4 * cells, 4.0 * (cells + B * T_y * T_x + 2 * B)))
+    # the chains' floor: T_y dependent DP rows, then T_y backtrack rows, one
+    # item a CTA; per row from the chain probe's slope over rows already in
+    # shared memory (its launch cancels out)
+    rows = randn(32, T_x, scale=3.0)
+    probe = [cuda_ms(lambda n=n: mas.chain_probe(rows, n)) for n in (4 * T_y, 8 * T_y)]
+    per_row = (probe[1] - probe[0]) / (4 * T_y)
+    log(f"  maximum_path B={B} T_y={T_y} T_x={T_x}: bound {res['maximum_path']['bound'][0]:.4f} ms "
+        f"({res['maximum_path']['bound'][1]}); chain floor {T_y * per_row:.4f} ms ({T_y} DP and "
+        f"backtrack rows at {per_row * 1e6:.1f} ns a row, chain_probe over {4 * T_y} and "
+        f"{8 * T_y} rows: {probe[0]:.4f}, {probe[1]:.4f} ms) [{card}]")
     return res
 
 

@@ -1,7 +1,8 @@
-"""Time the MRF bank, STFT+log-mel, Taco2Prod step and WN group backward
-kernels of torch_tts_tpu_torch on one NVIDIA GPU, through their public
-entry points only, so the same script times an older checkout of the
-package too (run it from that checkout's root with this file's path).
+"""Time the MRF bank, STFT+log-mel, Taco2Prod step, WN group forward and
+backward, and MAS kernels of torch_tts_tpu_torch on one NVIDIA GPU, through
+their public entry points only, so the same script times an older checkout
+of the package too (run it from that checkout's root with this file's
+path).
 
 - MRF bank (`mrf_fused` against `mrf_plain`, cuDNN with TF32 off): per
   stage of one B=1, 1024-frame LJSpeech decode (C=128/64/32 over 65,536 /
@@ -16,9 +17,18 @@ package too (run it from that checkout's root with this file's path).
   weights): device time per step of 50 prepared launches back to back
   (median of 3), L=160, D_mel 80, P 256, Dc 512, r 1, PreNet masks on, at
   dim_rnn 1024 and 320, B=1 and B=8.
+- WN group forward (`wn_group`, H=192, L=4, k=5): the inference variant
+  at B=1 and B=8, T=1024 (the flows of a 1024-frame call), and the saving
+  variant (inputs that require a gradient) at the train shape B=8,
+  T=1000; median over CUDA events around the call (its allocations and
+  every kernel it launches included).
 - WN group backward (`wn_group_backward` from the saving forward's
   saves) at the train shape: B=8, T=1000, H=192, L=4, k=5, median over
   CUDA events.
+- MAS (`maximum_path`) at the train shape [8, 1000, 192], random lengths:
+  median over CUDA events around the call (the wrapper's masking
+  included), and the device time of the kernel alone (torch.profiler,
+  kernels named `mas_kernel`).
 
 Prints one line per measurement with the card's name and power limit, then
 a JSON line of the numbers.
@@ -39,7 +49,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.getcwd())
 
 from torch_tts_tpu_torch.audio import mel as melmod  # noqa: E402
-from torch_tts_tpu_torch.kernels import stft, taco_step, wn_stack  # noqa: E402
+from torch_tts_tpu_torch.kernels import mas, stft, taco_step, wn_stack  # noqa: E402
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused, mrf_plain  # noqa: E402
 
 MRF_SHAPES = ((128, 65536), (64, 131072), (32, 262144))
@@ -115,6 +125,19 @@ def busy_ms(fn, calls=20):
                if e.device_type == cuda) / 1e3 / calls
 
 
+def kernel_busy_ms(fn, name, calls=20):
+    """Device time per call of the kernels whose name contains `name`."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == cuda and name in e.key) / 1e3 / calls
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernels: needs a CUDA device")
@@ -159,16 +182,49 @@ def main():
             print(f"{name}: device time {t:.4f} ms a step [{card}]", flush=True)
             res[name] = t
 
-    H, L, k, T, B = 192, 4, 5, 1000, 8
-    w_rs, b_rs = randn(L, H, 2 * H, scale=0.5 / H ** 0.5), randn(L, 2 * H, scale=0.1)
-    w_rs[-1, :, :H], b_rs[-1, :H] = 0, 0
-    args = (randn(B, T, H), torch.ones(B, T, 1, device=dev), None,
-            randn(L, k, H, 2 * H, scale=0.5 / (k * H) ** 0.5), randn(L, 2 * H, scale=0.1), w_rs, b_rs)
+    H, L, k = 192, 4, 5
+
+    def wn_args(B, T):
+        w_rs, b_rs = randn(L, H, 2 * H, scale=0.5 / H ** 0.5), randn(L, 2 * H, scale=0.1)
+        w_rs[-1, :, :H], b_rs[-1, :H] = 0, 0
+        return (randn(B, T, H), torch.ones(B, T, 1, device=dev), None,
+                randn(L, k, H, 2 * H, scale=0.5 / (k * H) ** 0.5), randn(L, 2 * H, scale=0.1),
+                w_rs, b_rs)
+
+    with torch.no_grad():
+        for B, T in ((1, 1024), (8, 1024)):
+            args = wn_args(B, T)
+            err = max(float((o - r).abs().max())
+                      for o, r in zip(wn_stack.wn_group(*args), wn_stack.wn_group_plain(*args)))
+            t = cuda_ms(lambda: wn_stack.wn_group(*args))
+            print(f"wn_group B={B} T={T} H={H} L={L}: kernel {t:.4f} ms, max |kernel - plain| "
+                  f"{err:.2e} [{card}]", flush=True)
+            res[f"wn_group_B{B}_T{T}"] = t
+    B, T = 8, 1000
+    args = wn_args(B, T)
+    train_args = [a.requires_grad_() if a is not None and i != 1 else a for i, a in enumerate(args)]
+    with torch.enable_grad():
+        t = cuda_ms(lambda: wn_stack.wn_group(*train_args))
+    print(f"wn_group saving forward B={B} T={T} H={H} L={L}: kernel {t:.4f} ms [{card}]", flush=True)
+    res["wn_group_save_B8_T1000"] = t
     d_xo, d_sk = randn(B, T, H), randn(B, T, H)
     saved = wn_stack._forward_cuda(*args, save=True)[2]
     t = cuda_ms(lambda: wn_stack.wn_group_backward(*args, d_xo, d_sk, saved=saved))
     print(f"wn_group_backward B={B} T={T} H={H} L={L}: kernel {t:.3f} ms [{card}]", flush=True)
     res["wn_group_backward"] = t
+
+    B, T_y, T_x = 8, 1000, 192
+    t_ys = torch.randint(T_y // 2, T_y + 1, (B,), generator=g)
+    t_xs = torch.minimum(torch.randint(T_x // 2, T_x + 1, (B,), generator=g), t_ys)
+    t_ys[0], t_xs[0] = T_y, T_x
+    nc = randn(B, T_y, T_x, scale=3.0)
+    mask = ((torch.arange(T_y)[None, :, None] < t_ys[:, None, None])
+            & (torch.arange(T_x)[None, None, :] < t_xs[:, None, None])).float().to(dev)
+    t = cuda_ms(lambda: mas.maximum_path(nc, mask))
+    t_kernel = kernel_busy_ms(lambda: mas.maximum_path(nc, mask), "mas_kernel")
+    print(f"maximum_path B={B} T_y={T_y} T_x={T_x}: call {t:.4f} ms, kernel (device) "
+          f"{t_kernel:.4f} ms [{card}]", flush=True)
+    res["maximum_path_call"], res["maximum_path_kernel"] = t, t_kernel
     print(json.dumps(res))
 
 

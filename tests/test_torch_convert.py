@@ -36,6 +36,17 @@ TINY = dict(
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("use_sdp", [True, False])
 def test_converter_matches_export_and_loads_strictly(use_sdp):
     jcfg = jax_config.VITS2ModelConfig(use_sdp=use_sdp, **TINY)

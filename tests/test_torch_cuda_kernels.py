@@ -23,6 +23,7 @@ from torch_tts_tpu_torch.kernels import stft
 from torch_tts_tpu_torch.kernels import taco_step as ts
 from torch_tts_tpu_torch.kernels.mas import MAX_NEG, maximum_path, maximum_path_plain
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused, mrf_plain
+from torch_tts_tpu_torch.kernels import mas, wn_stack as wn
 from torch_tts_tpu_torch.kernels.wn_stack import (
     wn_group, wn_group_backward, wn_group_backward_plain, wn_group_plain, wn_stack)
 
@@ -117,6 +118,55 @@ def test_wn_stack_chains_groups(cuda_device):
     torch.testing.assert_close(skip, ref, rtol=RTOL, atol=ATOL)
 
 
+def _plain_layer_saves(x, mask, gl, w_in, b_in, w_rs, b_rs):
+    """Each layer's input [L, B, T, H] and pre-activation [L, B, T, 2H] of
+    the plain group, as the saving forward writes them."""
+    L, k, H = w_in.shape[0], w_in.shape[1], x.shape[-1]
+    xc, m = x.transpose(1, 2).contiguous(), mask.transpose(1, 2)
+    xs, x_ins = [], []
+    for i in range(L):
+        xs.append(xc.transpose(1, 2))
+        x_in = torch.nn.functional.conv1d(xc, w_in[i].permute(2, 1, 0), b_in[i], padding=(k - 1) // 2)
+        if gl is not None:
+            x_in = x_in + gl[:, i, :, None]
+        x_ins.append(x_in.transpose(1, 2))
+        acts = torch.tanh(x_in[:, :H]) * torch.sigmoid(x_in[:, H:])
+        rs = torch.nn.functional.conv1d(acts, w_rs[i].t()[:, :, None], b_rs[i])
+        xc = (xc + rs[:, :H]) * m
+    return torch.stack(xs), torch.stack(x_ins)
+
+
+WN_FORWARD_CASES = (
+    (2, 1000, 4, 5),  # ragged lengths, per-layer gl, the train shape's T
+    (3, 77, 4, 5),    # T not a multiple of the tile's 48 frames
+    (2, 5, 4, 5),     # T shorter than the halo (8 frames a side)
+    (2, 300, 4, 15),  # the widest kernel the contract takes
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,B,T,L,k", [
+    (cluster, *case) for cluster in wn.FORWARD_CLUSTERS for case in WN_FORWARD_CASES
+    if wn.forward_smem_bytes(cluster, case[3]) <= wn.SMEM_BYTES])
+def test_wn_forward_plans_with_gl_and_ragged_lengths(cuda_device, cluster, B, T, L, k):
+    """Each cluster size that fits, with per-layer conditioning and ragged
+    lengths, against the plain group; the saving variant's x_i and x_in
+    against the plain group's layer inputs and pre-activations."""
+    frames = wn.WINDOW - 2 * L * ((k - 1) // 2)
+    g = torch.Generator().manual_seed(B * T + k)
+    args = _wn_args(g, cuda_device, B, T, 192, L, k=k, with_gl=True)
+    want = wn_group_plain(*args)
+    want_x, want_xin = _plain_layer_saves(*args)
+    p = wn.ForwardPlan(cluster, frames, B * -(-T // frames))
+    for save in (False, True):
+        x_out, skip, saved = wn._forward_cuda(*args, save=save, plan=p)
+        torch.testing.assert_close(x_out, want[0], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(skip, want[1], rtol=RTOL, atol=ATOL)
+        if save:
+            torch.testing.assert_close(saved[0], want_x, rtol=RTOL, atol=ATOL)
+            torch.testing.assert_close(saved[1], want_xin, rtol=RTOL, atol=ATOL)
+
+
 def _assert_grad_close(name, got, want):
     err = float((got - want).abs().max())
     bound = 1e-4 * float(want.abs().max()) + 1e-5
@@ -202,6 +252,33 @@ def test_mas_kernel_equals_plain(cuda_device, B, T_y, T_x, ties):
     assert torch.equal(path, want)
     assert torch.equal(path.sum(dim=2), (torch.arange(T_y, device=nc.device)[None, :]
                                         < t_ys[:, None]).float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_y,T_x,ties", [
+    (2, 700, 512, True),    # the widest text the kernel takes
+    (3, 1000, 192, False),  # rows far past the three-slot, 96-row ring
+    (2, 1300, 511, True),   # T_x not a multiple of 4: four-byte copies
+])
+def test_mas_kernel_long_text_and_rows_past_the_ring(cuda_device, B, T_y, T_x, ties):
+    g = torch.Generator().manual_seed(T_y * T_x)
+    nc, mask, t_ys, t_xs = _mas_batch(g, cuda_device, B, T_y, T_x, ties)
+    masked = torch.where(mask > 0, nc, torch.full((), MAX_NEG, device=nc.device))
+    assert torch.equal(maximum_path(nc, mask), maximum_path_plain(masked, t_ys, t_xs) * mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,T_x", [(1000, 192), (77, 33)])
+def test_mas_chain_probe_walks_a_monotonic_path(cuda_device, n_rows, T_x):
+    """The chain probe runs the kernel's DP and backtrack steps: its path
+    starts at token 0, ends at the last one and advances by 0 or 1."""
+    g = torch.Generator().manual_seed(n_rows)
+    before = maximum_path.launches
+    rec = mas.chain_probe((torch.randn(32, T_x, generator=g) * 3).to(cuda_device), n_rows).long()
+    assert maximum_path.launches == before
+    steps = rec[1:] - rec[:-1]
+    assert int(rec[0]) == 0 and int(rec[-1]) == T_x - 1
+    assert bool(((steps == 0) | (steps == 1)).all())
 
 
 def _taco_inputs(g, device, B, L, H, ragged):

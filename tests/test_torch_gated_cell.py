@@ -32,6 +32,17 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5
 SHAPES = [(4, 6, 8), (16, 32, 128)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, I, H):
     rng = np.random.default_rng(B * 1000 + H)
     return [rng.standard_normal((B, I)).astype(np.float32),

@@ -46,6 +46,17 @@ from torch_tts_tpu_torch.ops.hifigan import Generator
 RTOL, ATOL = 1e-4, 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rand_blocks(rng, C, kernel_sizes=(3, 7), dil=(1, 3, 5)):
     """numpy blocks in mrf_fused's (offsets, w [k*C, C], b [C]) form, scaled
     so activations stay of order one through the bank."""
@@ -226,10 +237,20 @@ def generator_pair():
     rng = np.random.default_rng(2)
     jgen = JaxGenerator(resblock="1", fuse_mrf=True, pack_narrow=False, **GEN_KW)
     x = rng.standard_normal((2, 24, 8)).astype(np.float32)
-    params = jgen.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
-    params = jax.tree.map(
-        lambda p: np.asarray(p) + (0.05 * rng.standard_normal(p.shape)).astype(np.float32),
-        params)
+    # seeded weights of the init's shapes (running the init itself would
+    # take the Pallas kernel through interpret mode once more)
+    shapes = jax.eval_shape(lambda: jgen.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+
+    def fill(path, s):
+        n = rng.standard_normal(s.shape)
+        name = path[-1].key
+        if name == "g":
+            return (1 + 0.1 * n).astype(np.float32)
+        if name in ("kernel", "v"):
+            return (n / np.sqrt(np.prod(s.shape[:-1]))).astype(np.float32)
+        return (0.05 * n).astype(np.float32)
+
+    params = jax.tree_util.tree_map_with_path(fill, shapes)
     cfg = VITS2ModelConfig(use_transformer_flows=False, **GEN_KW)
     gen = Generator(8, "1", fuse_mrf=True, **GEN_KW)
     gen.load_state_dict(state_dict_from_jax_params(params, cfg), strict=True)

@@ -37,6 +37,17 @@ PLAIN_ATOL = 1e-4  # plain version vs the Pallas kernel in interpret mode
 RFFT_RTOL, RFFT_ATOL = 2e-3, 2e-4  # tests/test_kernels.py's kernel vs rfft tolerance
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def wave():
     return (np.random.default_rng(0).standard_normal((2, 4096)) * 0.3).astype(np.float32)

@@ -26,6 +26,17 @@ RTOL = ATOL = 1e-5
 B, L, DMEL, P, DC, H1, H2, R = 2, 12, 10, 8, 16, 96, 64, 2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed=0, B=B, ragged=False):
     rng = np.random.default_rng(seed)
     f = lambda *s: (rng.standard_normal(s) * 0.3).astype(np.float32)  # noqa: E731

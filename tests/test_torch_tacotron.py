@@ -53,6 +53,17 @@ STEPS = 20
 B, L_TEXT, LENGTHS = 3, 11, (11, 8, 5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(pkg, r):
     return pkg.TacotronConfig(
         audio=pkg.TacotronAudioConfig(num_mels=20, win_length=256, hop_length=64),

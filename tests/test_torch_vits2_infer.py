@@ -43,6 +43,17 @@ CFG_KW = dict(
 )
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_params(shapes, rng):
     """Seeded weights of a sensible scale for every leaf of a flax tree."""
     def fill(path, s):
@@ -99,27 +110,29 @@ def pair(request):
     noise = {k: v.astype(np.float32) for k, v in noise.items()}
     spec = rng.standard_normal((B, 30, SPEC_CH)).astype(np.float32)
 
-    def bundle(p, x, xl, y, yl):
-        v = {"params": p}
-        hx, m_p, logs_p, x_mask = jmodel.apply(v, x, xl, method=lambda m, a, b: m.enc_p(a, b))
+    # each JAX reference is compiled once: `infer` once per max_frames (its
+    # noise scales are arguments), the modules on their own
+    def apply(method):
+        return jax.jit(lambda p, *a: jmodel.apply({"params": p}, *a, method=method,
+                                                  rngs={"noise": jax.random.PRNGKey(0)}))
+
+    infer = jax.jit(lambda p, x, xl, ns, nsw, mf: jmodel.apply(
+        {"params": p}, x, xl, noise_scale=ns, noise_scale_w=nsw, max_frames=mf,
+        method=JaxSynth.infer, rngs={"noise": jax.random.PRNGKey(0)}), static_argnums=5)
+    x, xl = jnp.asarray(ids, jnp.int32), jnp.asarray(X_LENGTHS)
+    with injected_noise(noise):
+        hx, m_p, logs_p, x_mask = apply(lambda m, a, b: m.enc_p(a, b))(params, x, xl)
         if use_sdp:
-            logw = jmodel.apply(v, hx, x_mask, method=lambda m, a, b: m.dp(
-                a, b, reverse=True, noise_scale=0.8), rngs={"noise": jax.random.PRNGKey(0)})
+            logw = apply(lambda m, a, b: m.dp(a, b, reverse=True, noise_scale=0.8))(
+                params, hx, x_mask)
         else:
-            logw = jmodel.apply(v, hx, x_mask, method=lambda m, a, b: m.dp(a, b))
-        out = dict(enc=(hx, m_p, logs_p, x_mask), logw=logw)
+            logw = apply(lambda m, a, b: m.dp(a, b))(params, hx, x_mask)
+        ref = dict(enc=(hx, m_p, logs_p, x_mask), logw=logw)
         for name, ns, mf in (("noisy", 0.667, MF_HIGH), ("low", 0.0, MF_LOW),
                              ("high", 0.0, MF_HIGH)):
-            out[name] = jmodel.apply(v, x, xl, noise_scale=ns, noise_scale_w=0.8 * (ns > 0),
-                                     max_frames=mf, method=JaxSynth.infer,
-                                     rngs={"noise": jax.random.PRNGKey(0)})
-        out["enc_q"] = jmodel.apply(v, y, yl, method=lambda m, a, b: m.enc_q(a, b),
-                                    rngs={"noise": jax.random.PRNGKey(0)})
-        return out
-
-    with injected_noise(noise):
-        ref = jax.jit(bundle)(params, jnp.asarray(ids, jnp.int32), jnp.asarray(X_LENGTHS),
-                              jnp.asarray(spec), jnp.asarray([30, 21]))
+            ref[name] = infer(params, x, xl, ns, 0.8 * (ns > 0), mf)
+        ref["enc_q"] = apply(lambda m, a, b: m.enc_q(a, b))(params, jnp.asarray(spec),
+                                                             jnp.asarray([30, 21]))
     ref = jax.tree.map(np.asarray, ref)
     return dict(model=model, ids=ids, noise=noise, spec=spec, ref=ref, use_sdp=use_sdp)
 

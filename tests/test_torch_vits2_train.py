@@ -75,6 +75,17 @@ SEG = MODEL_KW["segment_size"] // HOP
 PERIODS = (2,)  # of the default (2, 3, 5, 7, 11): one code path; all five in test_mpd_names_*
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def random_params(shapes, rng):
     def fill(path, s):
         name = path[-1].key

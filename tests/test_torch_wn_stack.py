@@ -14,6 +14,9 @@ ops/wavenet.py) against the JAX package.
   `jax.vjp(wn_group_ref)`, with and without conditioning; a 16-layer
   `wn_stack` (four chained groups) gives JAX's gradients (rtol 1e-4,
   atol 1e-5).
+- The forward and backward kernels' products replayed in 3xTF32 on the
+  CPU stay within 1e-5 of the plain group, where 1xTF32 does not; the
+  forward's planner picks its window and cluster size as stated.
 - A CPU tensor takes the plain version and launches nothing (the kernels on
   a card: tests/test_torch_cuda_kernels.py).
 """
@@ -37,6 +40,17 @@ from torch_tts_tpu_torch.kernels.mrf_fused import split_tf32
 from torch_tts_tpu_torch.ops.wavenet import WN, fused_wn_default
 
 RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist a thread
+    per core in every worker oversubscribes the cores, which slowed the
+    port's tests about twofold and took CPU from the other workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _group_inputs(rng, B=2, T=57, H=8, L=3, k=5, with_gl=True):
@@ -187,13 +201,27 @@ def test_cpu_tensor_takes_plain_version():
         assert torch.equal(a, b)
 
 
-def test_pick_tile_fills_the_card():
-    from torch_tts_tpu_torch.kernels.wn_stack import pick_tile
+def test_plan_forward_splits_wider_when_one_wave_holds_the_grid():
+    """The forward's planner: 64-row windows (a halo share of at most 25%
+    at the flows' k=5, L=4); 4-CTA clusters when every tile fits in one
+    wave of them (the H100 holds 30 at once: B=1, T=1024 gives 88 CTAs),
+    3-CTA clusters over several waves, and 4-CTA clusters where the 3-CTA
+    CTA does not fit in shared memory; a halo that leaves no frames
+    raises."""
+    from torch_tts_tpu_torch.kernels.wn_stack import (SMEM_BYTES, forward_smem_bytes,
+                                                      plan_forward)
 
-    assert pick_tile(1, 1024, 132) == 16  # 64 CTAs: the most a 16-frame tile gives
-    assert pick_tile(8, 1024, 132) == 64  # 128 CTAs already fill half the SMs
-    assert pick_tile(4, 1024, 132) == 32
-    assert pick_tile(1, 5, 132) == 16
+    p = plan_forward(1, 1024, 5, 4, one_wave=30)
+    assert (p.cluster, p.frames, p.tiles, p.ctas) == (4, 48, 22, 88)
+    assert p.halo_share <= 0.25
+    assert plan_forward(1, 1024, 5, 4).cluster == 3  # no occupancy given: several waves
+    assert plan_forward(8, 1000, 5, 4, one_wave=30).ctas == 8 * 21 * 3
+    for k in (3, 5, 9, 11, 13, 15):
+        p = plan_forward(2, 300, k, 4)
+        assert p.frames == 64 - 8 * (k - 1) // 2 and forward_smem_bytes(p.cluster, k) <= SMEM_BYTES
+    assert plan_forward(2, 300, 13, 4).cluster == 4  # the 3-CTA CTA does not fit k=13
+    with pytest.raises(ValueError):
+        plan_forward(1, 100, 15, 5)  # 2 x 5 x 7 halo rows leave none of 64
 
 
 def _mm_3xtf32(a, b):
@@ -266,4 +294,38 @@ def test_backward_replay_in_3xtf32_matches_plain():
     for name, g, w in zip(GRAD_NAMES, got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
     one = _replay_backward(*args, d_xo, d_sk, lambda a, b: split_tf32(a)[0] @ split_tf32(b)[0])
+    assert max(float((g - w).abs().max()) for g, w in zip(one, want)) > 1e-4
+
+
+def _replay_forward(x, mask, gl, w_in, b_in, w_rs, b_rs, mm):
+    """The forward kernel's algorithm on the CPU: per layer the k-tap conv
+    as one product over the taps' shifted inputs and the 1x1 as another
+    (each through `mm`), the gate on the conv's columns; the skip half's
+    products summed over the layers before the summed biases and the mask."""
+    B, T, H = x.shape
+    L, k = w_in.shape[:2]
+    p = (k - 1) // 2
+    skip = torch.zeros(B * T, H)
+    for i in range(L):
+        a_conv = torch.cat([_shift(x, t - p) for t in range(k)], -1).reshape(-1, k * H)
+        x_in = mm(a_conv, w_in[i].reshape(k * H, 2 * H)) + b_in[i]
+        if gl is not None:
+            x_in = x_in + gl[:, i].repeat_interleave(T, 0)
+        acts = torch.tanh(x_in[:, :H]) * torch.sigmoid(x_in[:, H:])
+        rs = mm(acts, w_rs[i])
+        x = (x + (rs[:, :H] + b_rs[i, :H]).reshape(B, T, H)) * mask
+        skip = skip + rs[:, H:]
+    return x, (skip + b_rs[:, H:].sum(0)).reshape(B, T, H) * mask
+
+
+def test_forward_replay_in_3xtf32_matches_plain():
+    """The forward kernel's products replayed in 3xTF32 stay within 1e-5 of
+    the plain group, with conditioning and ragged lengths; with the hi parts
+    alone (1xTF32) they do not."""
+    args = tuple(map(_t, _group_inputs(np.random.default_rng(9), B=2, T=21, H=8, L=3)))
+    want = wn_group_plain(*args)
+    got = _replay_forward(*args, _mm_3xtf32)
+    for name, g, w in zip(("x_out", "skip"), got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
+    one = _replay_forward(*args, lambda a, b: split_tf32(a)[0] @ split_tf32(b)[0])
     assert max(float((g - w).abs().max()) for g, w in zip(one, want)) > 1e-4

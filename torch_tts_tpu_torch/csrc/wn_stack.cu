@@ -10,26 +10,58 @@
 //   x_in = conv_k(x) + b_in + gl;  acts = tanh(x_in[:H]) * sigmoid(x_in[H:])
 //   rs = acts @ w_rs + b_rs;  x = (x + rs[:H]) * mask;  skip += rs[H:]
 //
-// Bound on the H100: fp32 FMA issue (about 3.6 GFLOP per flow at B=1,
-// 1024 frames, H=192, k=5, L=4), and at B=1 the grid: 1024 frames in
-// 16-frame tiles is still only 64 CTAs for 132 SMs. The weights (about
-// 7 MB for four layers) stay in L2.
+// Bound on the H100: operations. A flow's group (H=192, k=5, L=4) is about
+// 3.6 GFLOP per 1024 frames: 0.022 ms at B=1 at 3xTF32's 165 TFLOP/s (the
+// rate that keeps fp32 accuracy on the tensor cores), 0.054 ms at fp32
+// SIMT's 67. Each time tile also recomputes a halo of L (k - 1) / 2 frames
+// a side.
 //
 // Design:
-// - A CTA owns T0 output frames and loads a window of T0 + 2*L*(k-1)/2
-//   rows of x and the mask; all L layers run on it, and each layer
-//   computes only the rows that later layers still read, so the computed
-//   range shrinks by (k-1)/2 per side per layer.
-// - Shared memory: x [W, H + 4], acts [W, H + 4], skip [T0, H], mask [W]. The
-//   conv's x_in never exists as a whole: each thread computes the tanh and
-//   sigmoid halves of the same 4 channels and writes the gated product.
-// - The 1x1 res/skip product updates x in place (each element is written
-//   by the thread that reads it) and accumulates skip on the tile's own
-//   rows only.
-// - Register tiling: each thread owns kTM rows x 4 channels in both halves;
-//   a warp owns 16 channels and 8 row groups, so each weight is read by one
-//   warp per pass. Rows of x and acts are padded to H + 4 floats so the 8
-//   rows a warp reads at once fall in distinct banks.
+// - Both products of a layer run on Hopper's warpgroup tensor cores in
+//   3xTF32 (wgmma_tf32.cuh, the route of mrf_fused.cu and the backward
+//   below): the k-tap conv as an implicit GEMM [64 rows x kH] @ [kH x 2H],
+//   the 1x1 as [64 rows x H] @ [H x 2H], K in chunks of 32. A comes from
+//   registers: the conv's from the x window, which shared memory holds
+//   already split into TF32 hi and lo parts (a tap's row shift is free),
+//   the 1x1's from acts, split as loaded; chunk s + 1's A loads while chunk
+//   s's products run.
+// - B, the weights: a first kernel splits w_in and w_rs into hi and lo
+//   once a call (split_weights_kernel, into the wrapper's workspace), laid
+//   out as the ring holds them; thread 0 then brings each chunk into a
+//   two-slot ring by one TMA bulk copy, two chunks ahead, completing on the
+//   slot's mbarrier. No thread loads, splits or stores a weight.
+// - A CTA of one warpgroup holds a window of 64 rows and owns the
+//   T0 = 64 - 2 L (k - 1) / 2 frames in its middle (48 at k=5, L=4: a halo
+//   share of 25%); all L layers run on it, so x never leaves the chip
+//   inside a group. Every layer computes all 64 rows: the rows a layer
+//   leaves wrong lie in the halo, which the next layers' results on the
+//   owned rows do not read. The x window has (k - 1) / 2 zero rows above
+//   and below, so the edge rows' tap reads stay in bounds.
+// - The 2H columns are split over a thread block cluster of C = H / NC
+//   CTAs, each owning NC channels: their tanh columns c and sigmoid
+//   columns c + H in the conv, their residual and skip columns in the 1x1.
+//   The B tile puts a channel's two columns in matched accumulator
+//   registers, so the gate forms in the accumulators with no exchange.
+//   Each CTA writes its acts, and after the 1x1 its updated x channels
+//   (split again), into every CTA of the cluster (distributed shared
+//   memory), and a cluster barrier follows: two a layer.
+// - Plans (`plan_forward` in the wrapper): C = 4 (NC = 48, 96-column
+//   products) when every tile's cluster fits in one wave on the card (B=1,
+//   T=1024: 22 tiles, 88 CTAs), else C = 3 (NC = 64, 128-column products,
+//   the more efficient over several waves); C = 4 also where C = 3 does not
+//   fit in shared memory (k >= 13). chip_smoke.py times both at the flows'
+//   B=1 and B=8 shapes. A 6-CTA split (132 CTAs at B=1, but fewer of its
+//   clusters fit on the card at once), two warpgroups a CTA splitting the
+//   columns, 128-row windows, a three-slot ring and products kept in
+//   flight across chunks (wgmma.wait_group 1) were each slower in
+//   throwaway A/B copies on the H100.
+// - The 1x1's skip columns are never zeroed: their accumulators sum the
+//   skip over the layers, and the epilogue adds the summed biases, masks
+//   and stores the owned rows. The last layer writes x_out from its
+//   registers.
+// - SAVE (the training forward) also writes each layer's input x_i (the
+//   window's hi + lo) and pre-activation x_in on the owned rows and
+//   channels, for the backward.
 // - Window positions outside [0, T) load as zero with mask 0, which
 //   reproduces the reference's zero padding.
 
@@ -41,260 +73,442 @@
 
 namespace {
 
-constexpr int kTM = 4;     // rows per thread per pass
-constexpr int kNRG = 8;    // row groups
-constexpr int kMaxTaps = 15;
-constexpr int kPad = 4;    // floats of padding per shared-memory row of x and acts
+using namespace tts_wgmma;
 
-template <int H>
-__host__ __device__ constexpr int wn_threads() { return (H / 4) * kNRG; }
+constexpr int kMaxTaps = 15;
+constexpr int kPad = 4;            // floats of padding per shared-memory row of x and acts
+constexpr int kFwdThreads = 128;  // one warpgroup
+constexpr int kWindow = 64;       // rows of x a forward CTA holds
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
-// SAVE (the training forward) also writes each layer's input and
-// pre-activation on the tile's own rows; a template flag, so the inference
-// variant compiles without those stores.
-template <int H, bool SAVE>
-__global__ void __launch_bounds__((H / 4) * kNRG)
-wn_group_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                const float* __restrict__ gl, const float* __restrict__ w_in,
-                const float* __restrict__ b_in, const float* __restrict__ w_rs,
-                const float* __restrict__ b_rs, float* __restrict__ x_out,
-                float* __restrict__ skip_out, float* __restrict__ save_x,
-                float* __restrict__ save_xin, int T, int L, int k, int T0) {
-  constexpr int NT = wn_threads<H>();
-  constexpr int NCG = H / 4;
-  constexpr int H4 = H / 4;
-  constexpr int ROWS = kNRG * kTM;
-  constexpr int H2 = 2 * H;
-  constexpr int HP = H + kPad;
-  constexpr int HP4 = HP / 4;
-  const int p = (k - 1) / 2;
-  const int halo = L * p;
-  const int W = T0 + 2 * halo;
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const int win_start = tile * T0 - halo;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [W, HP]
-  float* acts = xs + W * HP;                    // [W, HP]
-  float* skip = acts + W * HP;                  // [T0, H]
-  float* ms = skip + T0 * H;                    // [W]
+// distributed shared memory: this CTA's address p as seen in CTA `rank` of
+// the cluster, a float2 store there, and the cluster-wide barrier
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-  const float* xbat = x + (size_t)b * T * H;
-  for (int i = threadIdx.x; i < W * H4; i += NT) {
-    const int r = i / H4;
-    const int pos = win_start + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (pos >= 0 && pos < T)
-      v = __ldg(reinterpret_cast<const float4*>(xbat + (size_t)pos * H) + i % H4);
-    smem4[r * HP4 + i % H4] = v;
+struct WnFwdArgs {
+  const float* x;
+  const float* mask;
+  const float* gl;  // or null
+  const float* b_in;
+  const float* b_rs;
+  float* wsplit;  // the weights' chunks, split (split_weights_kernel)
+  float* x_out;
+  float* skip_out;
+  float* save_x;    // [L, B, T, H] or null
+  float* save_xin;  // [L, B, T, 2H] or null
+  int B, T, L, k, T0;
+};
+
+template <int H, int NC>
+struct FwdShape {
+  static constexpr int C = H / NC;        // CTAs a cluster
+  static constexpr int W = kWindow;       // window rows
+  static constexpr int NCTA = 2 * NC;     // columns of the CTA's products
+  static constexpr int KC = 32;           // K of a staged chunk
+  static constexpr int TILE = KC * NCTA;  // floats of a hi or lo tile
+  static constexpr int SLOTS = 2;         // ring slots
+  static size_t smem_bytes(int k) {
+    return ((size_t)2 * SLOTS * TILE + (size_t)2 * (W + k - 1) * (H + kPad) +
+            (size_t)W * (H + kPad) + W) * sizeof(float) + SLOTS * sizeof(uint64_t);
   }
-  for (int i = threadIdx.x; i < T0 * H4; i += NT)
-    reinterpret_cast<float4*>(skip)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int r = threadIdx.x; r < W; r += NT) {
-    const int pos = win_start + r;
-    ms[r] = (pos >= 0 && pos < T) ? __ldg(mask + (size_t)b * T + pos) : 0.f;
-  }
-  __syncthreads();
+};
 
-  // a warp owns 16 channels (4 groups of 4, lane & 3) in both halves and
-  // the 8 row groups (lane >> 2), so each weight is read by one warp
-  static_assert(NT / 32 == NCG / 4, "one warp per 16 channels");
-  const int lane = threadIdx.x & 31;
-  const int c0 = ((threadIdx.x >> 5) * 4 + (lane & 3)) * 4;
-  const int rg = lane >> 2;
-
-  const int B = gridDim.y;
-  for (int l = 0; l < L; ++l) {
-    const int lo = (l + 1) * p;
-    const int hi = W - (l + 1) * p;
-
-    // training forward: keep the layer's input on the tile's own rows
-    if (SAVE) {
-      float* sx = save_x + ((size_t)l * B + b) * T * H;
-      for (int i = threadIdx.x; i < T0 * H4; i += NT) {
-        const int pos = tile * T0 + i / H4;
-        if (pos < T)
-          reinterpret_cast<float4*>(sx + (size_t)pos * H)[i % H4] =
-              smem4[(halo + i / H4) * HP4 + i % H4];
-      }
+// The weights as the ring holds them: for chunk s (KC rows of w_in[l]
+// viewed as [k H, 2H], then of w_rs[l] [H, 2H], layer by layer) and CTA
+// rank r of the cluster, 2 TILE floats: the hi tile, then the lo tile, each
+// K-major (kmajor_offset<NCTA>) over the CTA's NCTA columns: column n is
+// the CTA's channel n % NC, in the tanh / residual half if n < NC, else in
+// the sigmoid / skip half (global column + H). One thread splits 4 rows of
+// one column.
+template <int H, int NC>
+__global__ void __launch_bounds__(256)
+split_weights_kernel(const float* __restrict__ w_in, const float* __restrict__ w_rs,
+                     float* __restrict__ out, int L, int k) {
+  using S = FwdShape<H, NC>;
+  constexpr int C = S::C, NCTA = S::NCTA, KC = S::KC, TILE = S::TILE;
+  constexpr int H2 = 2 * H, CPK = H / KC;
+  const int per_layer = (k + 1) * CPK, conv_chunks = k * CPK;
+  const long long total = (long long)L * per_layer * C * (KC / 4) * NCTA;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int n = (int)(i % NCTA), k4 = (int)(i / NCTA % (KC / 4));
+    const long long sr = i / NCTA / (KC / 4);  // s * C + r
+    const int r = (int)(sr % C), s = (int)(sr / C);
+    const int l = s / per_layer, c = s - l * per_layer;
+    const int col = n / NC * H + r * NC + n % NC;
+    const float* w = c < conv_chunks ? w_in + ((size_t)l * k * H + c * KC) * H2
+                                     : w_rs + ((size_t)l * H + (c - conv_chunks) * KC) * H2;
+    float* hi = out + sr * 2 * TILE + kmajor_offset<NCTA>(4 * k4, n);
+    float h[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = __ldg(w + (size_t)(4 * k4 + e) * H2 + col);
+      h[e] = __uint_as_float(tf32_rna(v));
+      lo[e] = __uint_as_float(tf32_rna(v - h[e]));
     }
-
-    // --- dilated-1 conv + bias + conditioning, gated into acts
-    {
-      const float4 ba = __ldg(reinterpret_cast<const float4*>(b_in + l * H2 + c0));
-      const float4 bb = __ldg(reinterpret_cast<const float4*>(b_in + l * H2 + H + c0));
-      float4 ga = make_float4(0.f, 0.f, 0.f, 0.f), gb = ga;
-      if (gl != nullptr) {
-        const float* g = gl + ((size_t)b * L + l) * H2;
-        ga = __ldg(reinterpret_cast<const float4*>(g + c0));
-        gb = __ldg(reinterpret_cast<const float4*>(g + H + c0));
-      }
-      for (int base = lo; base < hi; base += ROWS) {
-        int rows[kTM];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) rows[i] = min(base + rg + i * kNRG, hi - 1);
-        float aa[kTM][4], ab[kTM][4];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) { aa[i][j] = 0.f; ab[i][j] = 0.f; }
-
-        for (int t = 0; t < k; ++t) {
-          const float* wt = w_in + ((size_t)(l * k + t) * H) * H2 + c0;
-          int idx[kTM];
-#pragma unroll
-          for (int i = 0; i < kTM; ++i) idx[i] = (rows[i] + t - p) * HP;
-#pragma unroll 2
-          for (int ci = 0; ci < H; ci += 4) {
-            float4 wa[4], wb[4];
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              wa[q] = __ldg(reinterpret_cast<const float4*>(wt + (ci + q) * H2));
-              wb[q] = __ldg(reinterpret_cast<const float4*>(wt + (ci + q) * H2 + H));
-            }
-#pragma unroll
-            for (int i = 0; i < kTM; ++i) {
-              const float4 a = *reinterpret_cast<const float4*>(xs + idx[i] + ci);
-              const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                aa[i][0] = fmaf(av[q], wa[q].x, aa[i][0]);
-                aa[i][1] = fmaf(av[q], wa[q].y, aa[i][1]);
-                aa[i][2] = fmaf(av[q], wa[q].z, aa[i][2]);
-                aa[i][3] = fmaf(av[q], wa[q].w, aa[i][3]);
-                ab[i][0] = fmaf(av[q], wb[q].x, ab[i][0]);
-                ab[i][1] = fmaf(av[q], wb[q].y, ab[i][1]);
-                ab[i][2] = fmaf(av[q], wb[q].z, ab[i][2]);
-                ab[i][3] = fmaf(av[q], wb[q].w, ab[i][3]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const int r = base + rg + i * kNRG;
-          if (r >= hi) continue;
-          float4 xa, xb, o;
-          xa.x = aa[i][0] + ba.x + ga.x; xb.x = ab[i][0] + bb.x + gb.x;
-          xa.y = aa[i][1] + ba.y + ga.y; xb.y = ab[i][1] + bb.y + gb.y;
-          xa.z = aa[i][2] + ba.z + ga.z; xb.z = ab[i][2] + bb.z + gb.z;
-          xa.w = aa[i][3] + ba.w + ga.w; xb.w = ab[i][3] + bb.w + gb.w;
-          o.x = tanhf(xa.x) * sigmoidf_(xb.x);
-          o.y = tanhf(xa.y) * sigmoidf_(xb.y);
-          o.z = tanhf(xa.z) * sigmoidf_(xb.z);
-          o.w = tanhf(xa.w) * sigmoidf_(xb.w);
-          *reinterpret_cast<float4*>(acts + r * HP + c0) = o;
-          const int pos = win_start + r;
-          if (SAVE && r >= halo && r < halo + T0 && pos < T) {
-            float* si = save_xin + (((size_t)l * B + b) * T + pos) * H2;
-            *reinterpret_cast<float4*>(si + c0) = xa;
-            *reinterpret_cast<float4*>(si + H + c0) = xb;
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // --- 1x1 res/skip: x = (x + rs[:H]) * mask, skip += rs[H:]
-    {
-      const float4 br = __ldg(reinterpret_cast<const float4*>(b_rs + l * H2 + c0));
-      const float4 bs = __ldg(reinterpret_cast<const float4*>(b_rs + l * H2 + H + c0));
-      const float* wl = w_rs + (size_t)l * H * H2 + c0;
-      for (int base = lo; base < hi; base += ROWS) {
-        int rows[kTM];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) rows[i] = min(base + rg + i * kNRG, hi - 1);
-        float ar[kTM][4], as[kTM][4];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) { ar[i][j] = 0.f; as[i][j] = 0.f; }
-#pragma unroll 2
-        for (int ci = 0; ci < H; ci += 4) {
-          float4 wr[4], ws[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            wr[q] = __ldg(reinterpret_cast<const float4*>(wl + (ci + q) * H2));
-            ws[q] = __ldg(reinterpret_cast<const float4*>(wl + (ci + q) * H2 + H));
-          }
-#pragma unroll
-          for (int i = 0; i < kTM; ++i) {
-            const float4 a = *reinterpret_cast<const float4*>(acts + rows[i] * HP + ci);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              ar[i][0] = fmaf(av[q], wr[q].x, ar[i][0]);
-              ar[i][1] = fmaf(av[q], wr[q].y, ar[i][1]);
-              ar[i][2] = fmaf(av[q], wr[q].z, ar[i][2]);
-              ar[i][3] = fmaf(av[q], wr[q].w, ar[i][3]);
-              as[i][0] = fmaf(av[q], ws[q].x, as[i][0]);
-              as[i][1] = fmaf(av[q], ws[q].y, as[i][1]);
-              as[i][2] = fmaf(av[q], ws[q].z, as[i][2]);
-              as[i][3] = fmaf(av[q], ws[q].w, as[i][3]);
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const int r = base + rg + i * kNRG;
-          if (r >= hi) continue;
-          const float m = ms[r];
-          float4* xr = reinterpret_cast<float4*>(xs + r * HP + c0);
-          float4 xv = *xr;
-          xv.x = (xv.x + (ar[i][0] + br.x)) * m;
-          xv.y = (xv.y + (ar[i][1] + br.y)) * m;
-          xv.z = (xv.z + (ar[i][2] + br.z)) * m;
-          xv.w = (xv.w + (ar[i][3] + br.w)) * m;
-          *xr = xv;
-          if (r >= halo && r < halo + T0) {
-            float4* sr = reinterpret_cast<float4*>(skip + (r - halo) * H + c0);
-            float4 sv = *sr;
-            sv.x += as[i][0] + bs.x;
-            sv.y += as[i][1] + bs.y;
-            sv.z += as[i][2] + bs.z;
-            sv.w += as[i][3] + bs.w;
-            *sr = sv;
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* xo = x_out + (size_t)b * T * H;
-  float* so = skip_out + (size_t)b * T * H;
-  for (int i = threadIdx.x; i < T0 * H4; i += NT) {
-    const int r = i / H4;
-    const int pos = tile * T0 + r;
-    if (pos >= T) continue;
-    const float m = ms[halo + r];
-    const float4 xv = smem4[(halo + r) * HP4 + i % H4];
-    float4 sv = reinterpret_cast<const float4*>(skip)[i];
-    sv.x *= m; sv.y *= m; sv.z *= m; sv.w *= m;
-    reinterpret_cast<float4*>(xo + (size_t)pos * H)[i % H4] = xv;
-    reinterpret_cast<float4*>(so + (size_t)pos * H)[i % H4] = sv;
+    *reinterpret_cast<float4*>(hi) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(hi + TILE) = make_float4(lo[0], lo[1], lo[2], lo[3]);
   }
 }
 
-template <int H>
-cudaError_t launch_group(const float* x, const float* mask, const float* gl,
-                         const float* w_in, const float* b_in, const float* w_rs,
-                         const float* b_rs, float* x_out, float* skip_out, float* save_x,
-                         float* save_xin, int B, int T, int L, int k, int T0,
-                         cudaStream_t stream) {
-  const int W = T0 + 2 * L * ((k - 1) / 2);
-  const size_t smem = ((size_t)2 * W * (H + kPad) + (size_t)T0 * H + W) * sizeof(float);
-  const auto kernel = save_x != nullptr ? wn_group_kernel<H, true> : wn_group_kernel<H, false>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// one thread: copy `bytes` from global src to shared dst, completing on bar
+__device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+template <int H, int NC, bool SAVE>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
+  using S = FwdShape<H, NC>;
+  constexpr int C = S::C, W = S::W, NCTA = S::NCTA, KC = S::KC, TILE = S::TILE;
+  constexpr int SLOTS = S::SLOTS;
+  constexpr int NR = NCTA / 2;   // accumulator registers a thread
+  constexpr int J2 = NC / 8;     // n8 groups of one half (tanh / residual)
+  constexpr int HP = H + kPad, H2 = 2 * H, H4 = H / 4, HP4 = HP / 4;
+  constexpr int CPK = H / KC;    // chunks of one tap, or of the 1x1
+  static_assert(C * NC == H && H % KC == 0 && NC % 16 == 0, "column split");
+
+  const int rank = blockIdx.x, tile = blockIdx.y, b = blockIdx.z;
+  const int T = a.T, L = a.L, k = a.k, T0 = a.T0, B = a.B;
+  const int p = (k - 1) / 2, halo = L * p;
+  const int win_start = tile * T0 - halo;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int m0 = warp * 16;       // the warp's first window row
+  const int ch0 = rank * NC;      // the CTA's first channel
+
+  extern __shared__ __align__(128) float smem[];
+  float* ring = smem;                              // SLOTS x (hi, lo) x TILE
+  uint32_t* xh = reinterpret_cast<uint32_t*>(ring + 2 * SLOTS * TILE);  // [W + 2p, HP] tf32 hi
+  uint32_t* xl = xh + (W + 2 * p) * HP;            // ... and lo; row i holds window row i - p
+  float* acts = reinterpret_cast<float*>(xl + (W + 2 * p) * HP);  // [W, HP]
+  float* ms = acts + W * HP;                       // [W]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ms + W);  // [SLOTS]
+
+  // --- weight chunks come into the ring by TMA bulk copies from wsplit,
+  // issued by thread 0 two chunks ahead
+  const int per_layer = (k + 1) * CPK, conv_chunks = k * CPK, total = L * per_layer;
+  auto issue = [&](int s) {
+    bulk_load(ring + (s % SLOTS) * 2 * TILE, a.wsplit + ((size_t)s * C + rank) * 2 * TILE,
+              2 * TILE * sizeof(float), full + s % SLOTS);
+  };
+  if (tid == 0) {
+    for (int i = 0; i < SLOTS; ++i) mbar_init(full + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < SLOTS && s < total; ++s) issue(s);
+  }
+
+  // --- the x window, split into TF32 hi and lo (zero outside [0, T) and in
+  // the pad rows), and the mask
+  {
+    const float* xb = a.x + (size_t)b * T * H;
+    for (int i = tid; i < (W + 2 * p) * H4; i += kFwdThreads) {
+      const int row = i / H4, pos = win_start + row - p;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row >= p && row < W + p && pos >= 0 && pos < T)
+        v = __ldg(reinterpret_cast<const float4*>(xb + (size_t)pos * H) + i % H4);
+      uint4 h, l;
+      split_tf32(v.x, h.x, l.x);
+      split_tf32(v.y, h.y, l.y);
+      split_tf32(v.z, h.z, l.z);
+      split_tf32(v.w, h.w, l.w);
+      reinterpret_cast<uint4*>(xh)[row * HP4 + i % H4] = h;
+      reinterpret_cast<uint4*>(xl)[row * HP4 + i % H4] = l;
+    }
+    for (int r = tid; r < W; r += kFwdThreads) {
+      const int pos = win_start + r;
+      ms[r] = (pos >= 0 && pos < T) ? __ldg(a.mask + (size_t)b * T + pos) : 0.f;
+    }
+  }
+
+  // --- A fragments: the conv's from the split x window shifted by the tap,
+  // the 1x1's from acts, split as loaded. Two sets, so chunk s + 1's load
+  // while chunk s's products run.
+  using Frag = uint32_t[KC / 8][4];
+  Frag ah0, al0, ah1, al1;
+  auto fetch_a = [&](int s, Frag& h, Frag& l) {
+    const int c = s % per_layer;
+    if (c < conv_chunks) {
+      const int o = (m0 + g + c / CPK) * HP + (c % CPK) * KC + t4;  // row r + tap
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const int q = o + 8 * kk;
+        h[kk][0] = xh[q]; h[kk][1] = xh[q + 8 * HP]; h[kk][2] = xh[q + 4]; h[kk][3] = xh[q + 8 * HP + 4];
+        l[kk][0] = xl[q]; l[kk][1] = xl[q + 8 * HP]; l[kk][2] = xl[q + 4]; l[kk][3] = xl[q + 8 * HP + 4];
+      }
+    } else {
+      const float* a0 = acts + (m0 + g) * HP + (c - conv_chunks) * KC + t4;
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        split_tf32(a0[8 * kk], h[kk][0], l[kk][0]);
+        split_tf32(a0[8 * kk + 8 * HP], h[kk][1], l[kk][1]);
+        split_tf32(a0[8 * kk + 4], h[kk][2], l[kk][2]);
+        split_tf32(a0[8 * kk + 8 * HP + 4], h[kk][3], l[kk][3]);
+      }
+    }
+  };
+
+  // Chunk s of a product into acc, its A in (h, l); `more`: chunk s + 1
+  // belongs to the same product, its A goes to (nh, nl) while chunk s's
+  // products run. After the block barrier that follows them, thread 0
+  // refills the slot with chunk s + SLOTS.
+  auto step = [&](float (&acc)[NR], int s, bool more, Frag& h, Frag& l, Frag& nh, Frag& nl) {
+    const float* b_hi = ring + (s % SLOTS) * 2 * TILE;
+    mbar_wait(full + s % SLOTS, (s / SLOTS) & 1);
+#pragma unroll
+    for (int e = 0; e < NR; ++e) keep(acc[e]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      const uint64_t dh = kmajor_desc<NCTA>(b_hi, kk), dl = kmajor_desc<NCTA>(b_hi + TILE, kk);
+      wgmma_tf32<NCTA>(acc, l[kk], dh);
+      wgmma_tf32<NCTA>(acc, h[kk], dl);
+      wgmma_tf32<NCTA>(acc, h[kk], dh);
+    }
+    wgmma_commit();
+    if (more) fetch_a(s + 1, nh, nl);
+    wgmma_wait0();
+#pragma unroll
+    for (int e = 0; e < NR; ++e) keep(acc[e]);
+#pragma unroll
+    for (int kk = 0; kk < KC / 8; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) { keep(h[kk][e]); keep(l[kk][e]); }
+    __syncthreads();  // no warpgroup reads slot s % SLOTS any more
+    if (tid == 0 && s + SLOTS < total) issue(s + SLOTS);
+  };
+  // chunks s0 .. s0 + n - 1 of one product into acc
+  auto run = [&](float (&acc)[NR], int s0, int n) {
+    fetch_a(s0, ah0, al0);
+    for (int c = 0; c < n; c += 2) {
+      step(acc, s0 + c, c + 1 < n, ah0, al0, ah1, al1);
+      if (c + 1 < n) step(acc, s0 + c + 1, c + 2 < n, ah1, al1, ah0, al0);
+    }
+  };
+
+  // every CTA's buffers as seen from this one
+  uint32_t acts_at[C], xh_at[C], xl_at[C];
+#pragma unroll
+  for (int r = 0; r < C; ++r) {
+    acts_at[r] = cluster_addr(acts, r);
+    xh_at[r] = cluster_addr(xh, r);
+    xl_at[r] = cluster_addr(xl, r);
+  }
+  cluster_sync();  // the window and the barriers are in place, and every CTA of the cluster runs
+
+  // acc[4 j + {0, 1}] at (g, 8 j + 2 t4 + {0, 1}), acc[4 j + {2, 3}] at
+  // (g + 8, ...): n8 group j < J2 is a channel's tanh / residual column,
+  // j + J2 its sigmoid / skip column
+  float acc_c[NR], acc_r[NR];
+#pragma unroll
+  for (int e = 0; e < NR; ++e) acc_r[e] = 0.f;
+
+  for (int l = 0; l < L; ++l) {
+    const int s0 = l * per_layer;
+    if (SAVE) {  // the layer's input (hi + lo) on the owned rows and the CTA's channels
+      float* sx = a.save_x + ((size_t)l * B + b) * T * H;
+      for (int i = tid; i < T0 * (NC / 4); i += kFwdThreads) {
+        const int r = i / (NC / 4), pos = tile * T0 + r, c4 = rank * (NC / 4) + i % (NC / 4);
+        if (pos < T) {
+          const uint4 h = reinterpret_cast<const uint4*>(xh + (halo + r + p) * HP)[c4];
+          const uint4 lo = reinterpret_cast<const uint4*>(xl + (halo + r + p) * HP)[c4];
+          reinterpret_cast<float4*>(sx + (size_t)pos * H)[c4] = make_float4(
+              __uint_as_float(h.x) + __uint_as_float(lo.x), __uint_as_float(h.y) + __uint_as_float(lo.y),
+              __uint_as_float(h.z) + __uint_as_float(lo.z), __uint_as_float(h.w) + __uint_as_float(lo.w));
+        }
+      }
+    }
+
+    // --- the k-tap conv, gated into acts (every CTA's copy)
+#pragma unroll
+    for (int e = 0; e < NR; ++e) acc_c[e] = 0.f;
+    run(acc_c, s0, conv_chunks);
+    {
+      const float* bl = a.b_in + l * H2;
+      const float* gll = a.gl != nullptr ? a.gl + ((size_t)b * L + l) * H2 : nullptr;
+#pragma unroll
+      for (int j = 0; j < J2; ++j) {
+        const int ch = ch0 + 8 * j + 2 * t4;
+        float2 bt = __ldg(reinterpret_cast<const float2*>(bl + ch));
+        float2 bs = __ldg(reinterpret_cast<const float2*>(bl + H + ch));
+        if (gll != nullptr) {
+          const float2 gt = __ldg(reinterpret_cast<const float2*>(gll + ch));
+          const float2 gs = __ldg(reinterpret_cast<const float2*>(gll + H + ch));
+          bt.x += gt.x; bt.y += gt.y; bs.x += gs.x; bs.y += gs.y;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + g + 8 * h;
+          const float2 pt = make_float2(acc_c[4 * j + 2 * h] + bt.x, acc_c[4 * j + 2 * h + 1] + bt.y);
+          const float2 ps = make_float2(acc_c[4 * (j + J2) + 2 * h] + bs.x,
+                                        acc_c[4 * (j + J2) + 2 * h + 1] + bs.y);
+          const float2 v = make_float2(tanhf(pt.x) * sigmoidf_(ps.x), tanhf(pt.y) * sigmoidf_(ps.y));
+          const uint32_t off = (uint32_t)(r * HP + ch) * 4u;
+#pragma unroll
+          for (int q = 0; q < C; ++q) st_cluster(acts_at[q] + off, v);
+          const int pos = win_start + r;
+          if (SAVE && r >= halo && r < halo + T0 && pos < T) {
+            float* si = a.save_xin + (((size_t)l * B + b) * T + pos) * H2;
+            *reinterpret_cast<float2*>(si + ch) = pt;
+            *reinterpret_cast<float2*>(si + H + ch) = ps;
+          }
+        }
+      }
+    }
+    cluster_sync();  // every CTA holds the layer's acts
+
+    // --- the 1x1: x = (x + rs[:H]) * mask on every CTA; the skip half sums on
+#pragma unroll
+    for (int j = 0; j < J2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_r[4 * j + e] = 0.f;
+    run(acc_r, s0 + conv_chunks, CPK);
+    {
+      const bool last = l == L - 1;
+      const float* br = a.b_rs + l * H2;
+#pragma unroll
+      for (int j = 0; j < J2; ++j) {
+        const int ch = ch0 + 8 * j + 2 * t4;
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(br + ch));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = m0 + g + 8 * h;
+          const float m = ms[r];
+          const int o = (r + p) * HP + ch;
+          const uint2 xhv = *reinterpret_cast<const uint2*>(xh + o);
+          const uint2 xlv = *reinterpret_cast<const uint2*>(xl + o);
+          const float2 v = make_float2(
+              (__uint_as_float(xhv.x) + __uint_as_float(xlv.x) + (acc_r[4 * j + 2 * h] + bias.x)) * m,
+              (__uint_as_float(xhv.y) + __uint_as_float(xlv.y) + (acc_r[4 * j + 2 * h + 1] + bias.y)) * m);
+          if (last) {
+            const int pos = win_start + r;
+            if (r >= halo && r < halo + T0 && pos < T)
+              *reinterpret_cast<float2*>(a.x_out + ((size_t)b * T + pos) * H + ch) = v;
+          } else {
+            uint32_t h0, l0, h1, l1;
+            split_tf32(v.x, h0, l0);
+            split_tf32(v.y, h1, l1);
+            const float2 vh = make_float2(__uint_as_float(h0), __uint_as_float(h1));
+            const float2 vl = make_float2(__uint_as_float(l0), __uint_as_float(l1));
+#pragma unroll
+            for (int q = 0; q < C; ++q) {
+              st_cluster(xh_at[q] + o * 4u, vh);
+              st_cluster(xl_at[q] + o * 4u, vl);
+            }
+          }
+        }
+      }
+    }
+    if (l + 1 < L) cluster_sync();  // every CTA holds the updated x
+  }
+
+  // --- skip * mask on the owned rows: the summed products plus the summed biases
+#pragma unroll
+  for (int j = 0; j < J2; ++j) {
+    const int ch = ch0 + 8 * j + 2 * t4;
+    float2 bias = make_float2(0.f, 0.f);
+    for (int l = 0; l < L; ++l) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(a.b_rs + l * H2 + H + ch));
+      bias.x += v.x;
+      bias.y += v.y;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + g + 8 * h, pos = win_start + r;
+      if (r < halo || r >= halo + T0 || pos >= T) continue;
+      const float m = ms[r];
+      *reinterpret_cast<float2*>(a.skip_out + ((size_t)b * T + pos) * H + ch) =
+          make_float2((acc_r[4 * (j + J2) + 2 * h] + bias.x) * m,
+                      (acc_r[4 * (j + J2) + 2 * h + 1] + bias.y) * m);
+    }
+  }
+}
+
+template <int H, int NC>
+cudaLaunchConfig_t fwd_config(const WnFwdArgs& a, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  using S = FwdShape<H, NC>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S::C, (a.T + a.T0 - 1) / a.T0, a.B);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = S::smem_bytes(a.k);
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S::C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// splits the weights into a.wsplit, then launches the forward (max_clusters
+// null); or writes how many of its clusters the card can hold at once
+// (cudaOccupancyMaxActiveClusters)
+template <int H, int NC, bool SAVE>
+cudaError_t launch_fwd(const WnFwdArgs& a, const float* w_in, const float* w_rs,
+                       cudaStream_t stream, int* max_clusters) {
+  const auto kernel = wn_fwd_kernel<H, NC, SAVE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)FwdShape<H, NC>::smem_bytes(a.k));
   if (err != cudaSuccess) return err;
-  dim3 grid((T + T0 - 1) / T0, B);
-  kernel<<<grid, wn_threads<H>(), smem, stream>>>(x, mask, gl, w_in, b_in, w_rs, b_rs, x_out,
-                                                  skip_out, save_x, save_xin, T, L, k, T0);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = fwd_config<H, NC>(a, stream, attr);
+  if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+  split_weights_kernel<H, NC><<<4 * 132, 256, 0, stream>>>(w_in, w_rs, a.wsplit, a.L, a.k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <int NC>
+cudaError_t launch_fwd_plan(const WnFwdArgs& a, const float* w_in, const float* w_rs, bool save,
+                            cudaStream_t stream, int* max_clusters) {
+  return save ? launch_fwd<192, NC, true>(a, w_in, w_rs, stream, max_clusters)
+              : launch_fwd<192, NC, false>(a, w_in, w_rs, stream, max_clusters);
+}
+
+// the cluster sizes the wrapper may pick
+cudaError_t launch_forward(const WnFwdArgs& a, const float* w_in, const float* w_rs, int cluster,
+                           bool save, cudaStream_t stream, int* max_clusters) {
+  if (cluster == 3) return launch_fwd_plan<64>(a, w_in, w_rs, save, stream, max_clusters);
+  if (cluster == 4) return launch_fwd_plan<48>(a, w_in, w_rs, save, stream, max_clusters);
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -348,7 +562,6 @@ cudaError_t launch_group(const float* x, const float* mask, const float* gl,
 //   WeightRsGrad together (one grid, CTAs assigned to problems by index);
 //   the two reductions together. 3 per layer, 12 per group of 4 layers.
 
-using namespace tts_wgmma;
 
 constexpr int kBwdThreads = 256;  // two warpgroups
 constexpr int kBM = 128;          // rows a CTA, 64 a warpgroup
@@ -670,21 +883,37 @@ __global__ void reduce_parts_kernel(const Reduce ra, const Reduce rb, int Z, int
 
 // One WN layer group on `stream`; gl may be null (no conditioning). With
 // save_x / save_xin (both or neither) it also writes each layer's input
-// [L, B, T, H] and pre-activation [L, B, T, 2H] for the backward. Returns
-// the launch's CUDA error (0 on success).
+// [L, B, T, H] and pre-activation [L, B, T, 2H] for the backward. wsplit
+// holds 2 L (k + 1) H 2H floats (the wrapper's `split_weights_floats`);
+// `cluster` (3 or 4: the CTAs that split the 2H columns) is the wrapper's
+// plan. Each CTA owns 64 - 2 L (k - 1) / 2 frames. Returns the first CUDA
+// error (0 on success).
 extern "C" int tts_wn_group_forward(const float* x, const float* mask, const float* gl,
                                     const float* w_in, const float* b_in,
                                     const float* w_rs, const float* b_rs, float* x_out,
-                                    float* skip_out, float* save_x, float* save_xin, int B,
-                                    int T, int H, int L, int k, int tile, void* stream) {
-  if (B < 1 || T < 1 || L < 1 || tile < 1 || k < 1 || k % 2 == 0 || k > kMaxTaps)
+                                    float* skip_out, float* save_x, float* save_xin,
+                                    float* wsplit, int B, int T, int H, int L, int k,
+                                    int cluster, void* stream) {
+  // every shipped config has hidden_channels 192
+  if (B < 1 || T < 1 || L < 1 || k < 1 || k % 2 == 0 || k > kMaxTaps || H != 192)
     return (int)cudaErrorInvalidValue;
   if ((save_x == nullptr) != (save_xin == nullptr)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  // every shipped config has hidden_channels 192
-  if (H != 192) return (int)cudaErrorInvalidValue;
-  return (int)launch_group<192>(x, mask, gl, w_in, b_in, w_rs, b_rs, x_out, skip_out, save_x,
-                                save_xin, B, T, L, k, tile, s);
+  const int T0 = kWindow - 2 * L * ((k - 1) / 2);
+  if (T0 < 1) return (int)cudaErrorInvalidValue;
+  const WnFwdArgs a{x, mask, gl, b_in, b_rs, wsplit, x_out, skip_out, save_x, save_xin,
+                    B, T, L, k, T0};
+  return (int)launch_forward(a, w_in, w_rs, cluster, save_x != nullptr,
+                             reinterpret_cast<cudaStream_t>(stream), nullptr);
+}
+
+// How many clusters of `cluster` CTAs of the forward for k taps the card
+// holds at once -> *out. Returns the CUDA error (0 on success).
+extern "C" int tts_wn_forward_max_clusters(int cluster, int k, int* out) {
+  if (k < 1 || k % 2 == 0 || k > kMaxTaps || out == nullptr) return (int)cudaErrorInvalidValue;
+  WnFwdArgs a{};
+  a.B = a.T = a.T0 = a.L = 1;
+  a.k = k;
+  return (int)launch_forward(a, nullptr, nullptr, cluster, false, nullptr, out);
 }
 
 // Backward of one group on `stream`, from the forward's save_x / save_xin

@@ -34,13 +34,17 @@ _SIGNATURES = {
     # w_ptrs, b_ptrs (host int64), stream
     "tts_mrf_fused_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # x, mask, gl, w_in, b_in, w_rs, b_rs, x_out, skip_out, save_x, save_xin,
-    # B, T, H, L, k, tile, stream
-    "tts_wn_group_forward": (_P,) * 11 + (_I,) * 6 + (_P,),
+    # wsplit, B, T, H, L, k, cluster, stream
+    "tts_wn_group_forward": (_P,) * 12 + (_I,) * 6 + (_P,),
+    # cluster, k, out (host int32)
+    "tts_wn_forward_max_clusters": (_I,) * 2 + (_P,),
     # mask, w_in, w_rs, save_x, save_xin, d_xo, d_sk, d_x, d_gl, d_w_in, d_b_in,
     # d_w_rs, d_b_rs, work, B, T, H, L, k, stream
     "tts_wn_group_backward": (_P,) * 14 + (_I,) * 5 + (_P,),
     # neg_cent, t_ys, t_xs, path, bits, B, T_y, T_x, stream
     "tts_mas_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # rows, bits, rec, n_rows, T_x, stream
+    "tts_mas_chain_probe": (_P,) * 3 + (_I,) * 2 + (_P,),
     # ptrs (host int64, 35 device pointers), scalars (host float32 p_zoneout,
     # keep), B, L, D_mel, P, Dc, H1, H2, r, weights_bf16, tile_major,
     # counters (device uint32), epoch (the launch count's low 32 bits), stream

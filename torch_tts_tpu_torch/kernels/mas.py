@@ -13,8 +13,11 @@ the backtrack as loops over rows, vectorised over the batch. The kernel
 gives the same path bit for bit: the same fp32 operations in the same
 order, and the same strict comparison at ties.
 
-On the H100 the kernel is bound by its two chains of T_y dependent row
-steps, not by bytes or operations (see the header of the .cu file).
+On the H100 the kernel is bound by its two chains of T_y dependent steps
+(the DP's rows, the backtrack's), not by bytes or operations: one warp runs
+the DP over rows that another warp streams into shared memory ahead of it;
+see the header of the .cu file. `chain_probe` launches the same steps over
+rows already in shared memory, which times the chains' floor.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. `maximum_path_via_plain` takes the plain version on any
@@ -32,13 +35,21 @@ MAX_NEG = -1e9
 MAX_TEXT = 512  # columns the kernel takes (16 per lane)
 SMEM_BYTES = 232448  # per-block dynamic shared memory limit on Hopper
 _WORDS = (1, 2, 4, 6, 8, 12, 16)  # columns per lane the kernel is built for
+BLOCK = 32  # rows of a ring slot and of a move-bit word
 
 
 def cols_per_lane(T_x: int) -> int:
     """Columns each of the 32 lanes owns for T_x text positions; also the
-    32-bit words of move bits per row."""
+    32-bit words of move bits per lane and 32 rows."""
     words = -(-T_x // 32)
     return next(w for w in _WORDS if w >= words)
+
+
+def smem_parts(T_y: int, T_x: int):
+    """Bytes of the kernel's shared memory -> (two-slot ring of 32-row
+    blocks with the slots' barriers, row index of the path, move bits)."""
+    cpl = cols_per_lane(T_x)
+    return (64 + 2 * BLOCK * 32 * cpl * 4, T_y * 4, -(-T_y // BLOCK) * cpl * 32 * 4)
 
 
 def maximum_path_plain(neg_cent: torch.Tensor, t_ys: torch.Tensor,
@@ -78,12 +89,12 @@ def _maximum_path_cuda(nc: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor)
     B, T_y, T_x = nc.shape
     if T_x > MAX_TEXT:
         raise ValueError(f"maximum_path: T_x={T_x} above the kernel's {MAX_TEXT}")
-    cpl = cols_per_lane(T_x)
-    if T_y * 4 > SMEM_BYTES:
+    ring, rec, bits_bytes = smem_parts(T_y, T_x)
+    if ring + rec > SMEM_BYTES:
         raise ValueError(f"maximum_path: T_y={T_y} too long for the row index in shared memory")
     bits = None
-    if T_y * 4 * (1 + cpl) > SMEM_BYTES:
-        bits = torch.empty(B, T_y, cpl, dtype=torch.int32, device=nc.device)
+    if ring + rec + bits_bytes > SMEM_BYTES:  # the move bits go to global memory
+        bits = torch.empty(B, bits_bytes // 4, dtype=torch.int32, device=nc.device)
     path = torch.empty_like(nc)
     t_ys = t_ys.to(torch.int32).contiguous()
     t_xs = t_xs.to(torch.int32).contiguous()
@@ -96,6 +107,27 @@ def _maximum_path_cuda(nc: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor)
     build.check_cuda_error(code, "maximum_path")
     maximum_path.launches += 1
     return path
+
+
+def chain_probe(rows: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The kernel's chains alone: one warp runs the DP's row steps over
+    n_rows rows taken from the 32-row block rows [32, T_x] (fp32, on the
+    card), already in shared memory, then the backtrack over their move bits
+    -> the path's index per row [n_rows] (int32). Not counted in
+    `maximum_path.launches`."""
+    if rows.device.type != "cuda" or rows.dtype != torch.float32 or rows.shape[0] != BLOCK:
+        raise ValueError("chain_probe: rows must be a [32, T_x] fp32 tensor on the card")
+    rows = rows.contiguous()
+    T_x = rows.shape[1]
+    bits = torch.empty(-(-n_rows // BLOCK) * cols_per_lane(T_x) * 32, dtype=torch.int32,
+                       device=rows.device)
+    rec = torch.empty(n_rows, dtype=torch.int32, device=rows.device)
+    lib = build.load_library()
+    with torch.cuda.device(rows.device):
+        code = lib.tts_mas_chain_probe(rows.data_ptr(), bits.data_ptr(), rec.data_ptr(), n_rows,
+                                       T_x, torch.cuda.current_stream(rows.device).cuda_stream)
+    build.check_cuda_error(code, "maximum_path (chain probe)")
+    return rec
 
 
 def _masked_inputs(neg_cent: torch.Tensor, mask: torch.Tensor):

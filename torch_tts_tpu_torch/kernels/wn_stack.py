@@ -19,20 +19,27 @@ version of the backward is autograd through `wn_group_plain`
 a mask that requires one raises.
 
 On the H100 a flow's WN (H=192, k=5, L=4, 1024 frames) is about 3.6 GFLOP
-per batch item forward and twice that backward. The forward runs all layers
-of a group on one time tile in shared memory, in fp32 FMAs; `pick_tile`
-trades halo recompute against filling the SMs. The backward's four
-products per layer run on the tensor cores in 3xTF32 (fp32-level error,
-`mrf_fused.split_tf32` is the split), deterministic split-K by batch item;
-see the .cu file.
+per batch item forward and twice that backward. Both run their products
+on the tensor cores in 3xTF32 (fp32-level error; `mrf_fused.split_tf32`
+is the split). The forward runs all layers of a group on a 64-row time
+tile in shared memory, its 2H columns split over a cluster of CTAs that
+trade each layer's acts and x through distributed shared memory, the
+weights split into hi and lo once a call (a workspace of
+`split_weights_floats`) and brought in by TMA; `plan_forward` picks the
+cluster size from the grid and the card's cluster occupancy. The backward is split-K by batch item, deterministic; see
+the .cu file.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. `wn_group.launches` and `wn_group_backward.launches`
-count kernel launches (one per wrapper call).
+count the calls that launch their kernels (one per wrapper call; the
+forward's launches the weights' split and the group kernel).
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,17 +48,50 @@ import torch.nn.functional as F
 from torch_tts_tpu_torch.kernels import build
 
 SUPPORTED_HIDDEN = (192,)  # every shipped config
-TILES = (64, 32, 16)
+SMEM_BYTES = 232448  # per-block dynamic shared memory limit on Hopper
+WINDOW = 64  # rows of x a forward CTA holds: one m64 tile of the products
+FORWARD_CLUSTERS = (3, 4)  # the forward's cluster sizes: CTAs that split the 2H columns
 
 
-def pick_tile(B: int, T: int, n_sm: int) -> int:
-    """The largest tile that still gives at least half as many CTAs as the
-    card has SMs (fewer, larger tiles recompute less halo; too few leave
-    SMs idle); the smallest tile when none does."""
-    for tile in TILES:
-        if B * -(-T // tile) >= n_sm // 2:
-            return tile
-    return TILES[-1]
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+    cluster: int  # CTAs that split the 2H columns
+    frames: int   # frames a tile owns: WINDOW - 2 L (k - 1) / 2, the rest is halo
+    tiles: int    # time tiles over the batch
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.cluster
+
+    @property
+    def halo_share(self) -> float:
+        return 1.0 - self.frames / WINDOW
+
+
+def forward_smem_bytes(cluster: int, k: int, H: int = 192) -> int:
+    """Shared memory of the forward kernel's CTA (csrc/wn_stack.cu
+    FwdShape::smem_bytes): a two-slot ring of 32-deep hi / lo weight
+    chunks, the x window's hi and lo parts with (k - 1) / 2 pad rows a side,
+    acts, the mask and the ring's two barriers."""
+    return 4 * (2 * 2 * 32 * (2 * H // cluster) + 2 * (WINDOW + k - 1) * (H + 4)
+                + WINDOW * (H + 4) + WINDOW) + 16
+
+
+def plan_forward(B: int, T: int, k: int, L: int, H: int = 192, one_wave: int = 0) -> ForwardPlan:
+    """The forward's time tiles and cluster size. `one_wave`: how many
+    4-CTA clusters the card holds at once (`clusters_at_once`). When every
+    tile fits in that one wave, the 4-CTA split is taken (each CTA does 3/4
+    of a 3-CTA CTA's products); over several waves the 3-CTA split, whose
+    wider products are the more efficient; on the H100 each was the faster
+    on its side (chip_smoke.py times both). Where the 3-CTA CTA does not
+    fit in shared memory (k >= 13) the 4-CTA one is taken."""
+    frames = WINDOW - 2 * L * ((k - 1) // 2)
+    if frames < 1:
+        raise ValueError(f"wn_group: a halo of L (k - 1) / 2 = {L * ((k - 1) // 2)} frames a "
+                         f"side leaves no frames in a {WINDOW}-row window")
+    tiles = B * -(-T // frames)
+    narrow = tiles <= one_wave or forward_smem_bytes(3, k, H) > SMEM_BYTES
+    return ForwardPlan(4 if narrow else 3, frames, tiles)
 
 
 def wn_group_plain(x, mask, gl, w_in, b_in, w_rs, b_rs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -109,16 +149,38 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool):
-    """Forward kernel -> (x_out, skip, saved); saved is (x_i [L, B, T, H],
-    x_in [L, B, T, 2H]) when `save`, else None."""
+@functools.lru_cache(maxsize=None)
+def clusters_at_once(cluster: int, k: int, device_index: int) -> int:
+    """How many clusters of `cluster` forward CTAs for k taps the card
+    `device_index` holds at once (cudaOccupancyMaxActiveClusters)."""
+    lib = build.load_library()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        build.check_cuda_error(lib.tts_wn_forward_max_clusters(cluster, k, ctypes.byref(n)),
+                               "wn_group (cluster occupancy)")
+    return n.value
+
+
+def split_weights_floats(L: int, k: int, H: int) -> int:
+    """Floats of the forward's workspace: w_in and w_rs split into TF32 hi
+    and lo parts, in the order the kernel's ring takes them."""
+    return 2 * L * (k + 1) * H * 2 * H
+
+
+def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool, plan: Optional[ForwardPlan] = None):
+    """Forward kernels (the weights' split, the group) -> (x_out, skip,
+    saved); saved is (x_i [L, B, T, H], x_in [L, B, T, 2H]) when `save`,
+    else None. `plan` defaults to `plan_forward`'s for this card."""
     B, T, H = x.shape
     L, k = w_in.shape[:2]
-    tile = pick_tile(B, T, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    if plan is None:
+        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        plan = plan_forward(B, T, k, L, H, one_wave=clusters_at_once(4, k, index))
     x_out, skip = torch.empty_like(x), torch.empty_like(x)
     saved = None
     if save:
         saved = (x.new_empty(L, B, T, H), x.new_empty(L, B, T, 2 * H))
+    wsplit = x.new_empty(split_weights_floats(L, k, H))
     lib = build.load_library()
     with torch.cuda.device(x.device):
         code = lib.tts_wn_group_forward(
@@ -126,8 +188,8 @@ def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool):
             w_in.data_ptr(), b_in.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
             x_out.data_ptr(), skip.data_ptr(),
             None if saved is None else saved[0].data_ptr(),
-            None if saved is None else saved[1].data_ptr(),
-            B, T, H, L, k, tile, _stream(x))
+            None if saved is None else saved[1].data_ptr(), wsplit.data_ptr(),
+            B, T, H, L, k, plan.cluster, _stream(x))
     build.check_cuda_error(code, "wn_group")
     wn_group.launches += 1
     return x_out, skip, saved
@@ -200,7 +262,8 @@ class _WNGroupFunction(torch.autograd.Function):
 
 def wn_group(x, mask, gl, w_in, b_in, w_rs, b_rs):
     """One WN layer group -> (x_out [B, T, H], skip * mask [B, T, H]), in
-    time tiles that `pick_tile` chooses for the card; differentiable."""
+    the time tiles and clusters that `plan_forward` chooses for the card;
+    differentiable."""
     if x.device.type == "cpu":
         return wn_group_plain(x, mask, gl, w_in, b_in, w_rs, b_rs)
     if x.device.type != "cuda":
