@@ -36,11 +36,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
    torch.stft mel's time between CUDA events is its host's. Then a dense
    U(0, 1) mel basis (every bin weighted), and the kernel against the
    torch.stft mel at 8 clips of MEL_AUTO_LENGTHS samples, the measurement
-   behind `mel_spectrogram_auto`'s threshold. The LLTM cell forward at the
-   PyTorch extension tutorial's size (B=16, I=32, H=128). Bounds: the MRF
-   bank and the WN group forward and backward at 3xTF32's 165 TFLOP/s (the
-   fp32 SIMT bound logged beside), the rest at fp32's 67 TFLOP/s or HBM3's
-   3.35 TB/s.
+   behind `mel_spectrogram_auto`'s threshold. The LLTM cell forward within
+   LLTM_ATOL of its plain version at the PyTorch extension tutorial's size
+   (B=16, I=32, H=128) and at LLTM_LARGE (B=512, I=32, H=128 and B=64,
+   I=256, H=1024), through bf16 inputs and a strided x (fp32 outputs), the
+   same bits on a repeat run; its device time per launch read two ways,
+   by torch.profiler and by CUDA events around replays of a CUDA graph of
+   LLTM_GRAPH launches, beside an empty kernel launched the same way (the
+   launch floor) and the gate product alone by `torch.addmm`. Bounds: the
+   MRF bank, the WN group forward and backward and the LLTM gate product
+   at 3xTF32's 165 TFLOP/s (the fp32 SIMT bound logged beside), the rest
+   at fp32's 67 TFLOP/s or HBM3's 3.35 TB/s.
 4. Inference: full-width LJSpeech SynthesizerTrn from the config defaults
    with seeded random weights and the port's kernel defaults (`fuse_mrf`
    on, `TTS_FUSED_WN` unset). Launch
@@ -80,12 +86,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    must launch the kernel once; log-mel [8, 861, 80], finite, within
    MEL_ATOL of the plain version and within the JAX kernel test's tolerance
    of the torch.stft mel; audio seconds per second of both paths, in turns.
-8. LLTM: the extension tutorial's loop at B=16, I=32, H=128, forward then
+8. LLTM: the extension tutorial's loop at B=16, I=32, H=128, x a strided
+   view x_seq[:, t] of a [B, T, I] sequence, forward then
    (new_h.sum() + new_c.sum()).backward(), through `lltm` (the kernel and
    the analytic backward) and `lltm_ref` (autograd): outputs within
    LLTM_ATOL, the five gradients within GRAD_REL; one launch per kernel
    step; times of both, in turns.
-9. Prints the kernels' JSON line, then the device line last.
+9. Prints each phase's seconds, the kernels' JSON line, then the device
+   line last.
 """
 
 from __future__ import annotations
@@ -138,13 +146,18 @@ MEL_ARGS = (1024, 80, 22050, 256, 1024)
 MEL_SHAPES = ((8, 8192), (8, 220500))
 MEL_ATOL = 1e-3
 MEL_STFT_RTOL, MEL_STFT_ATOL = 2e-3, 2e-4
-# the LLTM cell at the PyTorch extension tutorial's size; outputs kernel vs plain
+# the LLTM cell at the PyTorch extension tutorial's size, and two large
+# shapes (a batch of many row groups; a wide cell whose weights stream);
+# outputs kernel vs plain; launches in the CUDA graph that times it
 LLTM_B, LLTM_I, LLTM_H = 16, 32, 128
+LLTM_LARGE = ((512, 32, 128), (64, 256, 1024))
 LLTM_ATOL = 1e-5
+LLTM_GRAPH = 100
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3;
 # and the rate that keeps fp32 accuracy on the tensor cores, 3xTF32 (three
 # TF32 products a fp32 product) at a third of the 495 TFLOP/s TF32 peak,
-# the bound of the product-bound kernels (MRF bank, WN forward and backward)
+# the bound of the kernels built on products (MRF bank, WN forward and
+# backward, the LLTM gate product)
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # mel_spectrogram_auto's threshold sweep: 8 clips of these many samples
@@ -627,12 +640,11 @@ def lltm_inputs(g, device, B, I, H):
 
 
 def frontend_kernel_phase(device, card: str):
-    """The STFT+mel kernel at the train step's and the bulk shape, and the
-    LLTM cell's forward kernel, against their plain versions."""
+    """The STFT+mel kernel at the train step's and the bulk shape against
+    its plain version."""
     import torch
 
     from torch_tts_tpu_torch.audio import mel as melmod
-    from torch_tts_tpu_torch.kernels import gated_cell as gc
     from torch_tts_tpu_torch.kernels import stft
 
     g = torch.Generator().manual_seed(4)
@@ -676,27 +688,104 @@ def frontend_kernel_phase(device, card: str):
                         stft._log_mel_plain(y, n_fft, hop, basis.t()), atol=MEL_ATOL, rtol=0.0))
     mel_auto_sweep(device, card)
     res["mel_spectrogram_fused"]["max_abs_err"] = max(errs)
+    return res
+
+
+def graph_ms(fn, n: int = LLTM_GRAPH, replays: int = 5) -> float:
+    """Device time per call of fn() in ms: CUDA events around replays of a
+    CUDA graph that holds n calls (no host between launches); the median
+    of `replays` replays. Used for measurement only."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return statistics.median(times)
+
+
+def lltm_bound(B: int, I: int, H: int, card: str):
+    """The cell's bound: the gate product at 3xTF32's rate; x, the weights,
+    bias, h and c read once, new_h, new_c and the gates written once."""
+    K = H + I
+    return product_bound(f"lltm B={B} I={I} H={H}", 2.0 * B * K * 3 * H,
+                         4.0 * (B * I + 3 * H * K + 3 * H + 2 * B * H + 2 * B * H + B * 3 * H), card)
+
+
+def lltm_kernel_phase(device, card: str):
+    """The LLTM forward kernel against its plain version: the tutorial's
+    shape, LLTM_LARGE, bf16 and strided inputs, a repeat run's bits; device
+    time by the profiler and over a CUDA graph, beside the launch floor
+    and the gate product alone."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import gated_cell as gc
+
+    g = torch.Generator().manual_seed(4)
+
+    def check(what, args):
+        got = gc._lltm_forward_cuda(*args)
+        if any(t.dtype != torch.float32 for t in got):
+            raise RuntimeError(f"lltm {what}: outputs are not fp32")
+        errs = [compare(f"lltm {what} {n}", a, b, atol=LLTM_ATOL, rtol=0.0) for n, a, b in zip(
+            ("new_h", "new_cell", "gates"), got, gc.lltm_forward_plain(*(t.float() for t in args)))]
+        if not all(torch.equal(a, b) for a, b in zip(got, gc._lltm_forward_cuda(*args))):
+            raise RuntimeError(f"lltm {what}: a repeat run gave other bits")
+        return max(errs)
+
+    def device_ms(fn):
+        """(profiler busy ms, CUDA graph ms) per call."""
+        return profile_busy_ms(lambda: [fn() for _ in range(20)]) / 20, graph_ms(fn)
+
+    def measure(B, I, H):
+        """Check and time the kernel at one shape -> (its inputs, stats)."""
+        args = lltm_inputs(g, device, B, I, H)
+        err = check(f"B={B} I={I} H={H}", args)
+        k_prof, k_graph = device_ms(lambda: gc._lltm_forward_cuda(*args))
+        p_prof = profile_busy_ms(lambda: [gc.lltm_ref(*args) for _ in range(20)]) / 20
+        b_ms, b_by = lltm_bound(B, I, H, card)
+        log(f"  lltm B={B} I={I} H={H}: device time per launch: kernel profiler {k_prof:.5f} "
+            f"ms, CUDA graph of {LLTM_GRAPH} {k_graph:.5f} ms; plain profiler {p_prof:.5f} "
+            f"ms; bound {b_ms:.5f} ms ({b_by}); same bits on a repeat run [{card}]")
+        return args, dict(max_abs_err=err, ms=k_prof, plain_ms=p_prof, bound=(b_ms, b_by))
 
     B, I, H = LLTM_B, LLTM_I, LLTM_H
-    args = lltm_inputs(g, device, B, I, H)
     with torch.no_grad():
-        got = gc._lltm_forward_cuda(*args)
-        max_abs = max(compare(f"lltm B={B} I={I} H={H} {n}", a, b) for n, a, b in zip(
-            ("new_h", "new_cell", "gates"), got, gc.lltm_forward_plain(*args)))
-        # launch-bound: the kernels' device time from the profiler, and the
-        # time per call with the host between CUDA events
-        t_k = profile_busy_ms(lambda: [gc._lltm_forward_cuda(*args) for _ in range(20)]) / 20
-        t_p = profile_busy_ms(lambda: [gc.lltm_ref(*args) for _ in range(20)]) / 20
+        args, res = measure(B, I, H)
+        for shape in LLTM_LARGE:
+            measure(*shape)
+        # what the TPU kernel takes: bf16 inputs, and x a strided view of a sequence
+        seq = torch.randn(B, 3, I, generator=g).to(device)
+        res["max_abs_err"] = max(res["max_abs_err"], check("bf16 inputs", [seq[:, 1].bfloat16()] + [
+            a.bfloat16() for a in args[1:]]), check("strided x", [seq[:, 1]] + list(args[1:])))
+        # yardsticks: an empty kernel launched the same way, and the gate product alone
+        f_prof, f_graph = device_ms(lambda: gc.launch_floor(B, I, H, device))
+        X = torch.cat([args[3], args[0]], dim=1)
+        a_prof, a_graph = device_ms(lambda: torch.addmm(args[2], X, args[1].t()))
         call_k = cuda_ms(lambda: gc.lltm(*args), warmup=3, reps=20)
         call_p = cuda_ms(lambda: gc.lltm_ref(*args), warmup=3, reps=20)
-    K = H + I
-    b_ms, b_by = bound(2.0 * B * K * 3 * H,
-                       4.0 * (B * I + 3 * H * K + 3 * H + 2 * B * H + 2 * B * H + B * 3 * H))
-    log(f"  lltm B={B} I={I} H={H}: device time kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-        f"{b_ms:.5f} ms ({b_by}); per call with the host: kernel {call_k:.4f} ms, plain "
-        f"{call_p:.4f} ms [{card}]")
-    res["lltm"] = dict(max_abs_err=max_abs, ms=t_k, plain_ms=t_p, bound=(b_ms, b_by))
-    return res
+    log(f"  lltm B={B} I={I} H={H} yardsticks per launch: empty kernel launched the same way "
+        f"profiler {f_prof:.5f} ms, CUDA graph {f_graph:.5f} ms; the gate product alone "
+        f"(torch.addmm) profiler {a_prof:.5f} ms, CUDA graph {a_graph:.5f} ms; per call with "
+        f"the host: kernel {call_k:.4f} ms, plain {call_p:.4f} ms [{card}]")
+    return {"lltm": res}
 
 
 def mel_frontend_phase(device, card: str):
@@ -754,14 +843,19 @@ def lltm_phase(device, card: str):
     from torch_tts_tpu_torch.kernels import gated_cell as gc
 
     B, I, H = LLTM_B, LLTM_I, LLTM_H
-    args = lltm_inputs(torch.Generator().manual_seed(6), device, B, I, H)
+    g = torch.Generator().manual_seed(6)
+    args = lltm_inputs(g, device, B, I, H)
+    seq = torch.randn(B, 3, I, generator=g).to(device)
     kernel_steps = 0
 
     def step(path):
+        """x = x_seq[:, 1], a strided view, as the tutorial's loop passes it."""
         nonlocal kernel_steps
-        leaves = [a.detach().clone().requires_grad_() for a in args]
+        leaves = [seq.clone().requires_grad_()] + [a.detach().clone().requires_grad_()
+                                                   for a in args[1:]]
         kernel_steps += path == "kernel"
-        new_h, new_c = (gc.lltm if path == "kernel" else gc.lltm_ref)(*leaves)
+        fn = gc.lltm if path == "kernel" else gc.lltm_ref
+        new_h, new_c = fn(leaves[0][:, 1], *leaves[1:])
         (new_h.sum() + new_c.sum()).backward()
         return new_h, new_c, [a.grad for a in leaves]
 
@@ -776,7 +870,7 @@ def lltm_phase(device, card: str):
         log(f"  lltm {name}: max |kernel - plain| {err:.3e} (bound {LLTM_ATOL:g})")
         if not err <= LLTM_ATOL:
             raise RuntimeError(f"lltm: {name} disagrees with the plain path")
-    for name, a, b in zip(("d_input", "d_weights", "d_bias", "d_old_h", "d_old_cell"),
+    for name, a, b in zip(("d_x_seq", "d_weights", "d_bias", "d_old_h", "d_old_cell"),
                           kgrads, pgrads):
         grad_compare(f"lltm {name}", a, b)
     times = {}
@@ -1224,15 +1318,25 @@ def main():
             elif "registers" in line or "spill" in line:
                 log(f"  ptxas {entry}: {line.strip()}")
 
-    stats = kernel_phase(device, card)
-    stats.update(taco_kernel_phase(device, card))
-    stats.update(frontend_kernel_phase(device, card))
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    stats = timed("kernels", kernel_phase, device, card)
+    stats.update(timed("taco kernels", taco_kernel_phase, device, card))
+    stats.update(timed("frontend kernels", frontend_kernel_phase, device, card))
+    stats.update(timed("lltm kernels", lltm_kernel_phase, device, card))
     with tempfile.TemporaryDirectory() as tmp:
-        launches = slice_phase(device, card, tmp)
-        launches.update(tacotron_phase(device, card, tmp))
-    launches.update(train_phase(device, card))  # wn_group: its count on the train path
-    launches.update(mel_frontend_phase(device, card))
-    launches.update(lltm_phase(device, card))
+        launches = timed("inference", slice_phase, device, card, tmp)
+        launches.update(timed("tacotron", tacotron_phase, device, card, tmp))
+    # wn_group: its count on the train path
+    launches.update(timed("training", train_phase, device, card))
+    launches.update(timed("mel frontend", mel_frontend_phase, device, card))
+    launches.update(timed("lltm", lltm_phase, device, card))
     # the fused step is on no model path: its count is the kernel phase's
     launches["taco_step_fused"] = stats["taco_step_fused"]["launches"]
 
@@ -1260,6 +1364,8 @@ def main():
                     plain_ms=stats[n]["plain_ms"], bound_ms=stats[n]["bound"][0],
                     bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"))
                for n, (src, rep) in sources.items()]
+    log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
+        + f"; total {time.perf_counter() - t0:.1f} s with the build")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,11 @@ path (or, off any path, its bench or test) gives it: the operations and
 bytes of the function (each input read once, each output written once) and
 the larger of operations / peak and bytes / 3.35 TB/s (HBM3), from
 NVIDIA's data sheet. The peak is 67 TFLOP/s (fp32 outside the tensor cores)
-for most rows; for the product-bound rows (1-3: the MRF bank, the WN group
-forward and backward) it is the rate that keeps fp32 accuracy on the tensor
-cores, 3xTF32 at a third of the 495 TFLOP/s TF32 peak (165 TFLOP/s), and
-their fp32 SIMT bound is printed beside it. Pure arithmetic on shapes: runs
+for most rows; for the rows built on matrix products (1-3: the MRF bank, the
+WN group forward and backward; 8: the LLTM gate product) it is the rate that
+keeps fp32 accuracy on the tensor cores, 3xTF32 at a third of the 495
+TFLOP/s TF32 peak (165 TFLOP/s), and their fp32 SIMT bound is printed
+beside it. Pure arithmetic on shapes: runs
 anywhere, needs no card. chip_smoke.py computes the same bound for the
 ported kernels from its own run's inputs.
 
@@ -98,7 +99,9 @@ ROWS = (
     ("5 mel_spectrogram_fused, 8 x 10 s at 22.05 kHz", stft_mel(8, 220500), False),
     ("6 taco_step_fused, B=1, dim_rnn 320 (the largest that fits)", taco_step(H1=320, H2=320), False),
     ("7 taco_step_streamed, B=1, LJSpeech dim_rnn 1024", taco_step(), False),
-    ("8 _lltm_fwd_pallas, B=16 I=32 H=128 (the extension tutorial's LLTM)", lltm(), False),
+    ("8 _lltm_fwd_pallas, B=16 I=32 H=128 (the extension tutorial's LLTM)", lltm(), True),
+    ("8 _lltm_fwd_pallas, B=512 I=32 H=128", lltm(512, 32, 128), True),
+    ("8 _lltm_fwd_pallas, B=64 I=256 H=1024", lltm(64, 256, 1024), True),
 )
 
 

@@ -508,9 +508,11 @@ def _lltm_inputs(g, device, B, I, H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,I,H", [(16, 32, 128), (5, 7, 13), (40, 3, 1), (1, 1, 33)])
+@pytest.mark.parametrize("B,I,H", [(16, 32, 128), (5, 7, 13), (40, 3, 1), (1, 1, 33),
+                                   (512, 32, 128), (64, 256, 1024), (16, 0, 128), (3, 0, 5)])
 def test_lltm_kernel_matches_plain(cuda_device, B, I, H):
-    """The tutorial's shape, odd H, more rows than a warp has lanes."""
+    """The tutorial's shape, odd H, more rows than a warp has lanes, the
+    two large shapes (many row groups; K over many ring slots), I = 0."""
     g = torch.Generator().manual_seed(B * 100 + H)
     args = _lltm_inputs(g, cuda_device, B, I, H)
     before = gc.lltm.launches
@@ -528,4 +530,48 @@ def test_lltm_kernel_matches_plain(cuda_device, B, I, H):
     torch.testing.assert_close(new_h, ref_h, rtol=0, atol=1e-5)
     torch.testing.assert_close(new_c, ref_c, rtol=0, atol=1e-5)
     for i, (a, b) in enumerate(zip(leaves, refs)):
-        _assert_grad_close(f"lltm grad {i}", a.grad, b.grad)
+        assert a.grad.shape == b.grad.shape
+        if b.grad.numel():  # x [B, 0] at I = 0
+            _assert_grad_close(f"lltm grad {i}", a.grad, b.grad)
+
+
+@pytest.mark.cuda
+def test_lltm_takes_bf16_and_strided_inputs(cuda_device):
+    """What the TPU kernel takes: bf16 inputs and x a strided view of a
+    [B, T, I] sequence give fp32 outputs equal to the plain forward on the
+    inputs cast to fp32, one launch a call, and gradients in each leaf's
+    dtype (within bf16's rounding of the fp32 plain gradients)."""
+    g = torch.Generator().manual_seed(11)
+    B, I, H = 16, 32, 128
+    args = _lltm_inputs(g, cuda_device, B, I, H)
+    seq = _randn(g, cuda_device, B, 3, I)
+    half = [seq[:, 1].bfloat16()] + [a.bfloat16() for a in args[1:]]
+    strided = [seq[:, 1]] + args[1:]
+    assert not strided[0].is_contiguous()
+    for inputs in (half, strided):
+        before = gc.lltm.launches
+        got = gc._lltm_forward_cuda(*inputs)
+        assert gc.lltm.launches == before + 1
+        assert all(t.dtype == torch.float32 for t in got)
+        for a, b in zip(got, gc.lltm_forward_plain(*(t.float() for t in inputs))):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    leaves = [t.detach().clone().requires_grad_() for t in half]
+    new_h, new_c = gc.lltm(*leaves)
+    assert new_h.dtype == new_c.dtype == torch.float32
+    (new_h.sum() + new_c.sum()).backward()
+    refs = [t.detach().float().requires_grad_() for t in half]
+    ref_h, ref_c = gc.lltm_ref(*refs)
+    (ref_h.sum() + ref_c.sum()).backward()
+    for leaf, ref in zip(leaves, refs):
+        assert leaf.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(leaf.grad, ref.grad.bfloat16(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,I,H", [(16, 32, 128), (64, 256, 1024)])
+def test_lltm_kernel_repeats_its_bits(cuda_device, B, I, H):
+    """K is split over a cluster and summed in a fixed order: the same
+    inputs give the same bits twice."""
+    args = _lltm_inputs(torch.Generator().manual_seed(B + H), cuda_device, B, I, H)
+    for a, b in zip(gc._lltm_forward_cuda(*args), gc._lltm_forward_cuda(*args)):
+        assert torch.equal(a, b)

@@ -53,6 +53,8 @@ _SIGNATURES = {
     "tts_stft_mel_forward": (_P,) * 6 + (_I,) * 6 + (_P,),
     # x, w, bias, h, c, new_h, new_c, gates, B, I, H, stream
     "tts_lltm_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # B, I, H, stream
+    "tts_lltm_launch_floor": (_I,) * 3 + (_P,),
 }
 
 

@@ -3,9 +3,10 @@
 Replaces the TPU kernel `torch_tts_tpu/kernels/gated_cell.py`
 (`_lltm_fwd_pallas` -> `_fwd_kernel`) with the CUDA kernel
 `torch_tts_tpu_torch/csrc/gated_cell.cu`, keeping its contract: x [B, I],
-weights [3H, H + I], bias [3H], old_h and old_cell [B, H], fp32 ->
-(new_h, new_cell) [B, H]; the kernel also writes the raw gates [B, 3H],
-which the backward reads. The cell is the twin of the PyTorch extension
+weights [3H, H + I], bias [3H], old_h and old_cell [B, H], of any real
+dtype, each cast to fp32 as the JAX wrapper casts (`kernel_args`) ->
+fp32 (new_h, new_cell) [B, H]; the kernel also writes the raw gates
+[B, 3H], which the backward reads. The cell is the twin of the PyTorch extension
 tutorial's LLTM: the gate product, then sigmoid input and output gates, an
 ELU candidate (exp(min(z, 0)) - 1, as the TPU kernel writes it), the cell
 update and tanh.
@@ -17,7 +18,8 @@ package's analytic chain (`_lltm_vjp_bwd`) in torch ops; that chain runs
 outside any Pallas kernel in JAX, so its products go to torch.matmul here.
 
 On the H100 the cell at the tutorial's size (B=16, I=32, H=128) is about
-2 MFLOP and 0.3 MB: the kernel is launch-bound (see the .cu file).
+2 MFLOP and 0.3 MB: the kernel is bound by its launch and one round trip
+to memory (see the .cu file).
 
 Dispatch: a CPU tensor takes the plain forward; a CUDA tensor launches the
 kernel or raises. `lltm.launches` counts kernel launches.
@@ -56,20 +58,29 @@ def lltm_ref(x, weights, bias, old_h, old_cell) -> Tuple[torch.Tensor, torch.Ten
     return lltm_forward_plain(x, weights, bias, old_h, old_cell)[:2]
 
 
-def _check_cuda_args(x, weights, bias, old_h, old_cell):
+def kernel_args(x, weights, bias, old_h, old_cell):
+    """The kernel's checks on its arguments, then the tensors it takes: each
+    input cast to a contiguous fp32 tensor (any real dtype, as the JAX
+    wrapper casts every input to fp32 before its kernel; a copy only where
+    needed); raises ValueError on complex input, a device other than x's or
+    a wrong shape."""
+    args = (x, weights, bias, old_h, old_cell)
+    if any(t.is_complex() or t.dtype == torch.bool for t in args):
+        raise ValueError("lltm: the kernel takes real inputs")
+    if x.dim() != 2 or old_h.dim() != 2:
+        raise ValueError("lltm: x [B, I] and old_h [B, H]")
     B, I = x.shape
     H = old_h.shape[1]
-    shapes = ((x, (B, I)), (weights, (3 * H, H + I)), (bias, (3 * H,)), (old_h, (B, H)),
-              (old_cell, (B, H)))
-    for t, shape in shapes:
-        if (t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"lltm: inputs must be contiguous fp32 tensors on {x.device}, "
-                             f"x [B, I], weights [3H, H+I], bias [3H], old_h and old_cell [B, H]")
+    shapes = ((B, I), (3 * H, H + I), (3 * H,), (B, H), (B, H))
+    for t, shape in zip(args, shapes):
+        if t.device != x.device or tuple(t.shape) != shape:
+            raise ValueError(f"lltm: inputs on {x.device}, x [B, I], weights [3H, H+I], "
+                             f"bias [3H], old_h and old_cell [B, H]")
+    return tuple(t.to(torch.float32).contiguous() for t in args)
 
 
-def _lltm_forward_cuda(x, weights, bias, old_h, old_cell):
-    _check_cuda_args(x, weights, bias, old_h, old_cell)
+def _launch(x, weights, bias, old_h, old_cell):
+    """The kernel on the tensors of `kernel_args` -> (new_h, new_cell, gates)."""
     B, I = x.shape
     H = old_h.shape[1]
     new_h, new_cell, gates = torch.empty_like(old_h), torch.empty_like(old_h), x.new_empty(B, 3 * H)
@@ -84,14 +95,35 @@ def _lltm_forward_cuda(x, weights, bias, old_h, old_cell):
     return new_h, new_cell, gates
 
 
+def _lltm_forward_cuda(x, weights, bias, old_h, old_cell):
+    """The kernel on any real inputs on the card -> fp32 (new_h, new_cell,
+    gates), as the TPU kernel gives."""
+    return _launch(*kernel_args(x, weights, bias, old_h, old_cell))
+
+
+def launch_floor(B: int, I: int, H: int, device) -> None:
+    """An empty kernel launched as the LLTM kernel is at this shape (grid,
+    cluster, block and shared memory): the least device time of a launch,
+    a yardstick for the kernel's; it does not count as a launch."""
+    lib = build.load_library()
+    device = torch.device(device)
+    with torch.cuda.device(device):
+        code = lib.tts_lltm_launch_floor(B, I, H, torch.cuda.current_stream(device).cuda_stream)
+    build.check_cuda_error(code, "lltm launch floor")
+
+
 class _LLTMFunction(torch.autograd.Function):
     """The forward kernel (plain forward on the CPU) and the analytic
-    backward of `_lltm_vjp_bwd`."""
+    backward of `_lltm_vjp_bwd`. Autograd casts each gradient to its
+    input's dtype, as the JAX `custom_vjp` returns them."""
 
     @staticmethod
     def forward(ctx, x, weights, bias, old_h, old_cell):
-        fwd = lltm_forward_plain if x.device.type == "cpu" else _lltm_forward_cuda
-        new_h, new_cell, gates = fwd(x, weights, bias, old_h, old_cell)
+        if x.device.type == "cpu":
+            new_h, new_cell, gates = lltm_forward_plain(x, weights, bias, old_h, old_cell)
+        else:  # the backward runs on what the kernel took, in fp32
+            x, weights, bias, old_h, old_cell = kernel_args(x, weights, bias, old_h, old_cell)
+            new_h, new_cell, gates = _launch(x, weights, bias, old_h, old_cell)
         ctx.save_for_backward(torch.cat([old_h, x], dim=1), gates, new_cell, weights)
         return new_h, new_cell
 
