@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (VITS2 inference and training step, Tacotron-2
-inference, the bulk mel frontend, the LLTM cell) on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
+Tacotron-2 inference, the bulk mel frontend, the LLTM cell) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -22,6 +22,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
    conditioning on ragged lengths, its plan, and its saving variant timed
    at the train shape; the WN group backward is held against autograd
    through the plain group, and two runs of it must give the same bits.
+   At the trainer's shapes (B=8, the buckets' 300 and 400 frames, text
+   padded to TRAINER_TX = 381 ids): MAS equal to its plain version, with
+   and without ties, and the WN group's saving forward and its backward
+   through autograd against the plain group.
    The Taco2Prod step: the fused entry point with fp32
    matrices and the streamed one with fp32 and bf16 LSTM matrices (the
    plain step given the same bf16-rounded matrices in fp32), each at
@@ -78,22 +82,45 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and WN backward launched; then a valid monotonic MAS path. From one
    fresh state, one step on the kernel path and one on the plain path
    (layerwise WN, MAS's plain version) with the same noise: the loss terms
-   must agree; the largest gradient difference is printed. Then step times,
-   plain and kernel in turns.
-7. Mel frontend: the JAX benchmark's "mel frontend throughput" config
+   must agree; the largest gradient difference is printed. The same for
+   one `ddp` step with the duration discriminator V1 (every loss term,
+   `loss/dur_disc` included). Then step times, plain and kernel in turns.
+7. Trainer: a synthetic LJSpeech-layout corpus (TRAINER_CLIPS seeded clips
+   of TRAINER_SECONDS, 16-bit PCM at 22,050 Hz, the text from SENTENCES;
+   the (32, 300] and (300, 400] frame buckets) and the shipped LJSpeech
+   config at full width as JSON (no PyYAML on the card), logging every
+   step and evaluating and checkpointing once an epoch, through the train
+   CLI's `main` with an in-process recorder for its writers (no
+   tensorboardX on the card). Run 1, the shipped recipe (`ddp`): one
+   epoch, then a second invocation resumes for a second epoch; the saved
+   checkpoint must hold the state, and the restored step, parameters and
+   optimizer moments must equal it bit for bit. Run 2: `lightning`,
+   `dur_disc_2`, grad_accum 2, one epoch: every optimizer's parameters
+   move, its update count is half the micro-steps, and no D or duration
+   discriminator tensor moves more than that many Adam updates can; then
+   a second epoch of run 2 with two steps traced by torch.profiler
+   (`profile_steps`): kernels, device busy and idle share a step, and the
+   host's time waiting on the card in synchronising calls. Every logged
+   loss finite, no step skipped; MAS, the WN forward and
+   backward and the MRF bank (evaluate()'s inference) must launch. Prints
+   steps/s, step ms by bucket, batch loading ms, evaluate()'s seconds,
+   the checkpoint's bytes and its host copy and write seconds, launches a
+   step.
+8. Mel frontend: the JAX benchmark's "mel frontend throughput" config
    (8 clips x 10 s at 22.05 kHz, noise of std 0.3 from numpy seed 0)
    through `mel_spectrogram_auto` on the card. Counter zeroed; every call
    must launch the kernel once; log-mel [8, 861, 80], finite, within
    MEL_ATOL of the plain version and within the JAX kernel test's tolerance
    of the torch.stft mel; audio seconds per second of both paths, in turns.
-8. LLTM: the extension tutorial's loop at B=16, I=32, H=128, x a strided
+9. LLTM: the extension tutorial's loop at B=16, I=32, H=128, x a strided
    view x_seq[:, t] of a [B, T, I] sequence, forward then
    (new_h.sum() + new_c.sum()).backward(), through `lltm` (the kernel and
    the analytic backward) and `lltm_ref` (autograd): outputs within
    LLTM_ATOL, the five gradients within GRAD_REL; one launch per kernel
    step; times of both, in turns.
-9. Prints each phase's seconds, the kernels' JSON line, then the device
-   line last.
+10. Prints each phase's seconds, the kernels' JSON line (launches: the
+   main paths' and the trainer's; launches_by_path: each path's own), then
+   the device line last.
 """
 
 from __future__ import annotations
@@ -102,6 +129,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -130,6 +158,12 @@ WN_SHAPE = dict(H=192, L=4, k=5, T=MAX_FRAMES)
 # the train step: the JAX package's train bench batch (scripts/bench_train.py)
 TRAIN_B, TRAIN_TX, TRAIN_TY = 8, 192, 1000
 TRAIN_STEPS = 3
+# the trainer: a synthetic LJSpeech-layout corpus of this many clips of
+# these lengths in seconds, which fill the (32, 300] and (300, 400] frame
+# buckets; its batches' shapes: text padded to max_text_len * 2 + 1 ids
+# (add_blank), frames to each bucket's upper boundary
+TRAINER_CLIPS, TRAINER_SECONDS = 40, (1.5, 4.5)
+TRAINER_TX, TRAINER_FRAMES = 2 * 190 + 1, (300, 400)
 # Tacotron: the LJSpeech decode length of the JAX CLI, memory length of the
 # kernel phase (characters of a long LJSpeech sentence), the rollout, and
 # the tolerance of the whole-decode comparison with the kernel path's frames
@@ -247,12 +281,14 @@ def grad_compare(name: str, out, ref) -> float:
 
 
 def mas_inputs(g, device, B, T_y, T_x, ties):
-    """Random lengths (item 0 full), neg_cent ~ 3 N(0, 1), rounded for ties."""
+    """Random lengths, neg_cent ~ 3 N(0, 1), rounded for ties. Item 0 has
+    T_y frames and min(T_x, T_y) ids; no item has more ids than frames."""
     import torch
 
+    x_max = min(T_x, T_y)
     t_ys = torch.randint(T_y // 2, T_y + 1, (B,), generator=g)
-    t_xs = torch.minimum(torch.randint(T_x // 2, T_x + 1, (B,), generator=g), t_ys)
-    t_ys[0], t_xs[0] = T_y, T_x
+    t_xs = torch.minimum(torch.randint(x_max // 2, x_max + 1, (B,), generator=g), t_ys)
+    t_ys[0], t_xs[0] = T_y, x_max
     nc = torch.randn(B, T_y, T_x, generator=g) * 3
     if ties:
         nc = torch.round(nc)
@@ -392,6 +428,40 @@ def kernel_phase(device, card: str):
             f"-> {'ok' if same else 'FAIL'}")
         if not same:
             raise RuntimeError("maximum_path: kernel path differs from the plain version")
+    # the trainer's shapes: B=8 at the buckets' padded frames, text padded
+    # to TRAINER_TX ids (not a multiple of 4: the kernel streams rows by
+    # 4-byte copies); MAS exactly, and the WN group's saving forward and
+    # its backward through autograd, as the train step runs them
+    names = ("d_x", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs")
+    for T in TRAINER_FRAMES:
+        for ties in (False, True):
+            nc_t, mask_t, ty_t, tx_t = mas_inputs(g, device, B, T, TRAINER_TX, ties)
+            masked_t = torch.where(mask_t > 0, nc_t, torch.full((), mas.MAX_NEG, device=device))
+            same = torch.equal(mas.maximum_path(nc_t, mask_t),
+                               mas.maximum_path_plain(masked_t, ty_t, tx_t) * mask_t)
+            log(f"  maximum_path B={B} T_y={T} T_x={TRAINER_TX} ties={ties} (the trainer's "
+                f"shape): kernel == plain -> {'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError(f"maximum_path: kernel differs from the plain version at the "
+                                   f"trainer's shape T_y={T}, T_x={TRAINER_TX}")
+        lengths = torch.tensor([T - (T // 16) * i for i in range(B)])
+        args = wn_args(B, T, lengths)
+        d_xo, d_sk = randn(B, T, H), randn(B, T, H)
+        with torch.enable_grad():
+            ins = [a.detach().requires_grad_() for a in (args[0], *args[3:])]
+            out = wn_group(ins[0], args[1], None, *ins[1:])
+            got = torch.autograd.grad(out, ins, (d_xo, d_sk))
+        out, want = [o.detach() for o in out], wn_group_plain(*args)
+        res["wn_group"]["max_abs_err"] = max(
+            [res["wn_group"]["max_abs_err"]]
+            + [compare(f"wn_group saving forward B={B} T={T} (the trainer's shape) {n}", o, r)
+               for n, o, r in zip(("x_out", "skip"), out, want)])
+        want = wn_stack.wn_group_backward_plain(*args, d_xo, d_sk)
+        res["wn_group_backward"]["max_abs_err"] = max(
+            [res["wn_group_backward"]["max_abs_err"]]
+            + [grad_compare(f"wn_group_backward B={B} T={T} (the trainer's shape, autograd) {n}",
+                            a, b) for n, a, b in zip(names, got, want[:1] + want[2:])])
+
     # device time (the call's host work exceeds the kernel's), and per call with the host
     t32 = (t_ys.int(), t_xs.int())
     t_k = profile_busy_ms(lambda: [mas._maximum_path_cuda(masked, *t32) for _ in range(20)]) / 20
@@ -1158,7 +1228,8 @@ def train_phase(device, card: str):
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
     from torch_tts_tpu_torch.models.vits2 import model as model_module
     from torch_tts_tpu_torch.text import symbols
-    from torch_tts_tpu_torch.train.vits2_train import build_mpd, create_train_state, train_step
+    from torch_tts_tpu_torch.train.vits2_train import (build_dur_disc, build_mpd,
+                                                       create_train_state, train_step)
 
     cfg = VITS2Config()
     hop = cfg.audio.hop_length
@@ -1171,15 +1242,16 @@ def train_phase(device, card: str):
              "wav": torch.randn(B, T_y * hop, 1, generator=g) * 0.1}
     batch = {k: v.to(device) for k, v in batch.items()}
 
-    def fresh_state():
-        model = build_synthesizer(cfg, len(symbols), seed=0, device=device)
+    def fresh_state(c=cfg):
+        model = build_synthesizer(c, len(symbols), seed=0, device=device)
         # as in the inference phase: the flows' zero-initialised output convs
         # would give their WN stacks no gradient; small seeded weights instead
         gp = torch.Generator().manual_seed(1)
         with torch.no_grad():
             for flow in model.flow.flows[::2]:
                 flow.post.weight.copy_(torch.randn(flow.post.weight.shape, generator=gp) * 0.02)
-        return create_train_state(cfg, model, build_mpd(cfg, seed=1, device=device))
+        return create_train_state(c, model, build_mpd(c, seed=1, device=device),
+                                  dur_disc=build_dur_disc(c, seed=2, device=device))
 
     def gen(seed):
         return torch.Generator(device=device).manual_seed(seed)
@@ -1274,6 +1346,26 @@ def train_phase(device, card: str):
             + "; ".join(f"{n} {r:.3e} (|g_plain| {nb:.3e})" for r, nb, n in rel[:3]))
     del results, gk, gp, gp2
 
+    # --- the duration discriminator's term (dur_disc_1, the ddp order): one
+    # step from one fresh state on each path, the same noise
+    dcfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_duration_discriminator=True, duration_discriminator_type="dur_disc_1"))
+    dres = {}
+    for path in ("kernel", "plain"):
+        use_path(path)
+        st = fresh_state(dcfg)
+        dres[path] = train_step(dcfg, st, batch, generator=gen(101))
+        del st
+    for key in dres["kernel"]:
+        mk, mp = dres["kernel"][key], dres["plain"][key]
+        d = abs(mk - mp)
+        log(f"  dur_disc_1 step {key}: kernel {mk:.6f} plain {mp:.6f} |d|={d:.3e}")
+        if not (math.isfinite(mk) and math.isfinite(mp)) or (
+                key.startswith("loss") and d > LOSS_RTOL * abs(mp) + LOSS_ATOL):
+            raise RuntimeError(f"dur_disc_1 step {key}: kernel path and plain path disagree")
+    if "loss/dur_disc" not in dres["kernel"]:
+        raise RuntimeError("the dur_disc_1 step reported no loss/dur_disc")
+
     # --- step time, plain and kernel in turns
     state = fresh_state()
     times = {}
@@ -1287,6 +1379,281 @@ def train_phase(device, card: str):
     use_path("kernel")
     del state
     torch.cuda.empty_cache()
+    return launches
+
+
+def write_corpus(root: str, n: int, sr: int, seed: int = 0):
+    """An LJSpeech-layout corpus: metadata.csv and wavs/*.wav, 16-bit PCM at
+    `sr`, n seeded clips of TRAINER_SECONDS (a tone with two harmonics and
+    noise), the text from SENTENCES in turn."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "wavs"))
+    lines = []
+    for i in range(n):
+        t = np.arange(int(rng.uniform(*TRAINER_SECONDS) * sr)) / sr
+        f0 = rng.uniform(90, 260)
+        wav = sum(0.2 / k * np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6.3))
+                  for k in (1, 2, 3)) + 0.02 * rng.standard_normal(t.size)
+        wavfile.write(os.path.join(root, "wavs", f"LJ{i:03d}.wav"), sr,
+                      np.round(np.clip(wav, -1, 1) * 32767).astype(np.int16))
+        text = SENTENCES[i % len(SENTENCES)]
+        lines.append(f"LJ{i:03d}|{text}|{text}")
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def tree_mismatches(a: dict, b: dict, prefix: str = "") -> list:
+    """Keys of two checkpoint dicts whose values are not equal bit for bit."""
+    import torch
+
+    bad = [prefix + k for k in set(a) ^ set(b)]
+    for k in set(a) & set(b):
+        va, vb = a[k], b[k]
+        if isinstance(va, dict) and isinstance(vb, dict):
+            bad += tree_mismatches(va, vb, f"{prefix}{k}/")
+        elif isinstance(va, torch.Tensor) and isinstance(vb, torch.Tensor):
+            if va.shape != vb.shape or not torch.equal(va.cpu(), vb.cpu()):
+                bad.append(prefix + k)
+        elif va != vb:
+            bad.append(prefix + k)
+    return bad
+
+
+def adam_change_bound(opt, p_abs: float) -> float:
+    """The most `opt.count` AdamW updates can move an element of size at
+    most p_abs: per update t, lr_t (|m_t| / sqrt(v_t) + weight_decay p_abs)
+    with the bias corrections, and by Cauchy-Schwarz |m_t| / sqrt(v_t) <=
+    (1 - b1) / sqrt(1 - b2) * sqrt(sum_{j<t} (b1^2 / b2)^j)."""
+    b1, b2, total = opt.b1, opt.b2, 0.0
+    for t in range(1, opt.count + 1):
+        lr = opt.learning_rate * opt.lr_decay ** ((t - 1) // opt.steps_per_epoch)
+        ratio = ((1 - b1) / math.sqrt(1 - b2) * math.sqrt(sum((b1 * b1 / b2) ** j for j in range(t)))
+                 * math.sqrt(1 - b2 ** t) / (1 - b1 ** t))
+        total += lr * (ratio + opt.weight_decay * p_abs)
+    return total
+
+
+def trainer_phase(device, card: str, tmp: str):
+    """The shipped recipe through the train CLI on a synthetic corpus: one
+    epoch, then a resume for a second; then the other options for one
+    epoch. Returns the trainer path's launch counts."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.cli import vits2_train as cli
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.data.dataset import TextAudioDataset
+    from torch_tts_tpu_torch.data.sampler import DistributedBucketSampler
+    from torch_tts_tpu_torch.kernels import mas
+    from torch_tts_tpu_torch.kernels.mrf_fused import mrf_fused
+    from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_backward
+    from torch_tts_tpu_torch.models.vits2 import model as model_module
+    from torch_tts_tpu_torch.train import checkpoint
+    from torch_tts_tpu_torch.train.vits2_trainer import BUCKET_BOUNDARIES, build_models
+    from torch_tts_tpu_torch.utils.logging_utils import Recorder
+
+    # the port's defaults: TTS_FUSED_WN unset, MAS through its kernel
+    os.environ.pop("TTS_FUSED_WN", None)
+    model_module.maximum_path = mas.maximum_path
+    counters = {"maximum_path": mas.maximum_path, "wn_group": wn_group,
+                "wn_group_backward": wn_group_backward, "mrf_fused": mrf_fused}
+    base = VITS2Config()
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
+    corpus = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    write_corpus(corpus, TRAINER_CLIPS, cfg.audio.sampling_rate)
+    full = TextAudioDataset.from_ljspeech(corpus, cfg.audio, cfg.data)
+    train_items, eval_items = cli.split_train_val(full.items, 100, 1234)
+    lengths = TextAudioDataset(train_items, cfg.audio, cfg.data).lengths
+    spe = len(DistributedBucketSampler(lengths, cfg.train.batch_size, BUCKET_BOUNDARIES))
+    buckets = {b: sum(lo < n <= b for n in lengths)
+               for lo, b in zip(BUCKET_BOUNDARIES, BUCKET_BOUNDARIES[1:])}
+    log(f"trainer phase: {TRAINER_CLIPS} clips of {TRAINER_SECONDS[0]}-{TRAINER_SECONDS[1]} s "
+        f"written in {time.perf_counter() - t0:.1f} s; {len(train_items)} train, "
+        f"{len(eval_items)} eval; train items per bucket {dict((b, n) for b, n in buckets.items() if n)}; "
+        f"{spe} steps an epoch at batch {cfg.train.batch_size}")
+    if spe < 2 or tuple(b for b, n in buckets.items() if n) != TRAINER_FRAMES:
+        raise RuntimeError(f"the corpus does not fill the buckets {TRAINER_FRAMES}, whose shapes "
+                           f"the kernel phase checks")
+
+    def write_config(name, **changes):
+        train = {**dataclasses.asdict(cfg.train), "log_interval": 1, "eval_interval": spe,
+                 **changes.pop("train", {})}
+        raw = {"model": {**dataclasses.asdict(cfg.model), **changes.pop("model", {})},
+               "data": {**dataclasses.asdict(cfg.data), **dataclasses.asdict(cfg.audio)},
+               "train": train}
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            json.dump(raw, f)
+        return path
+
+    writers = []
+
+    def recorder(log_dir):
+        writers.append(Recorder())
+        return writers[-1]
+
+    def run(config, run_dir, epochs):
+        writers.clear()
+        for c in counters.values():
+            c.launches = 0
+        tr = cli.main(["-c", config, "-m", run_dir, "--data-root", corpus, "--epochs",
+                       str(epochs), "--device", str(device)], make_writer=recorder)
+        torch.cuda.synchronize()
+        counts = {n: c.launches for n, c in counters.items()}
+        logged = [(tag, s, v) for w in writers for tag, vals in w.scalars.items()
+                  for s, v in vals]
+        bad = [x for x in logged if not math.isfinite(x[2])
+               or (x[0] in ("nonfinite", "perf/nonfinite_skipped") and x[2] != 0.0)]
+        if bad or not logged:
+            raise RuntimeError(f"non-finite or skipped steps in the log: {bad[:5]}")
+        return tr, counts, writers[0].scalars
+
+    def report(counts, scalars, what, steps):
+        # log_interval 1: each logged window is one step
+        by_bucket = {int(tag.rsplit("/", 1)[1]): [v for _, v in vals]
+                     for tag, vals in scalars.items() if tag.startswith("perf/step_ms/")}
+        load_ms = [v for _, v in scalars["perf/load_ms"]]
+        sps = [v for _, v in scalars["perf/steps_per_s"]]
+        log(f"  {what}: {steps} steps; launches {counts} "
+            f"({', '.join(f'{n} {c / steps:.1f}' for n, c in counts.items())} a step); "
+            f"steps/s median {statistics.median(sps):.3f} (each logged step {', '.join(f'{v:.2f}' for v in sps)}); "
+            f"step ms median by bucket "
+            + ", ".join(f"{pad} frames {statistics.median(v):.1f} (n={len(v)})"
+                        for pad, v in sorted(by_bucket.items()))
+            + f"; batch loading ms median {statistics.median(load_ms):.1f} [{card}]")
+        last = {k: v[-1][1] for k, v in scalars.items()}
+        log("    last logged: " + ", ".join(f"{k}={v:.4f}" for k, v in last.items()))
+
+    # --- run 1: the shipped recipe, one epoch, then a resume for a second
+    cfg1 = write_config("recipe.json")
+    run1 = os.path.join(tmp, "run_recipe")
+    t0 = time.perf_counter()
+    tr, counts, scalars = run(cfg1, run1, 1)
+    log(f"  run 1, epoch 1: {time.perf_counter() - t0:.1f} s with the data's first pass, "
+        f"evaluate() and the checkpoint")
+    if tr.state.step != spe:
+        raise RuntimeError(f"epoch 1 ended at step {tr.state.step}, not {spe}")
+    if tr.pad_text != TRAINER_TX:
+        raise RuntimeError(f"the trainer pads text to {tr.pad_text} ids, not the {TRAINER_TX} "
+                           f"that the kernel phase checks")
+    launches = dict(counts)
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel of the trainer path did not launch: {launches}")
+    report(counts, scalars, "run 1, epoch 1", spe)
+    eval_scalars = {k: v[-1][1] for k, v in writers[1].scalars.items()}
+    log(f"  evaluate(): {tr.eval_s:.2f} s (eval_step on {len(eval_items)} items, then infer at "
+        f"max_frames {tr.eval_max_frames}): {eval_scalars}; audio "
+        f"{[a[0][1].shape for a in writers[1].audios.values()]} [{card}]")
+    path = checkpoint.latest_checkpoint(run1)
+    saved = checkpoint.load_file(path)
+    bad = tree_mismatches(saved, checkpoint.state_tree(tr.state))
+    if bad or not path.endswith(f"ckpt_{spe}.pt"):
+        raise RuntimeError(f"the checkpoint {path} does not hold the state: {bad[:5]}")
+    log(f"  checkpoint {os.path.basename(path)}: {tr.ckpt.last_bytes} bytes; host copy "
+        f"{tr.ckpt.last_copy_s:.3f} s, then the write {tr.ckpt.last_write_s:.3f} s (background) "
+        f"[{card}]")
+    del tr, saved
+    torch.cuda.empty_cache()
+
+    restore = checkpoint.restore_checkpoint
+    restored = {}
+
+    def checked_restore(path, state, lenient=True):
+        out = restore(path, state, lenient)
+        restored["step"] = state.step
+        restored["mismatches"] = tree_mismatches(checkpoint.state_tree(state),
+                                                 checkpoint.load_file(path))
+        return out
+
+    checkpoint.restore_checkpoint = checked_restore
+    try:
+        t0 = time.perf_counter()
+        tr, counts, scalars = run(cfg1, run1, 2)
+    finally:
+        checkpoint.restore_checkpoint = restore
+    if restored.get("step") != spe or restored["mismatches"]:
+        raise RuntimeError(f"the resume did not restore the saved state: {restored}")
+    log(f"  run 1, resume: step {restored['step']}, parameters and the three optimizers' "
+        f"moments and counts equal to the checkpoint bit for bit -> ok")
+    if tr.state.step != 2 * spe:
+        raise RuntimeError(f"epoch 2 ended at step {tr.state.step}, not {2 * spe}")
+    report(counts, scalars, "run 1, epoch 2 (resumed)", spe)
+    for n, c in counts.items():
+        launches[n] += c
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(run1)
+
+    # --- run 2: lightning, dur_disc_2, grad_accum 2, one epoch
+    cfg2 = write_config("options.json", train={"step_order": "lightning", "grad_accum": 2},
+                        model={"use_duration_discriminator": True,
+                               "duration_discriminator_type": "dur_disc_2"})
+    run2 = os.path.join(tmp, "run_options")
+    tr, counts, scalars = run(cfg2, run2, 1)
+    report(counts, scalars, "run 2 (lightning, dur_disc_2, grad_accum 2)", spe)
+    for n, c in counts.items():
+        launches[n] += c
+    for key in ("loss/dur_disc", "grad_norm_dur_disc"):
+        if key not in scalars:
+            raise RuntimeError(f"run 2 logged no {key}")
+    init = build_models(tr.cfg, device=device)
+    for name, opt, module in (("G", tr.state.opt_g, init[0]), ("D", tr.state.opt_d, init[1]),
+                              ("dur_disc", tr.state.opt_dur, init[2])):
+        before = dict(module.named_parameters())
+        if (opt.count, opt.mini_step) != (spe // 2, spe % 2):
+            raise RuntimeError(f"{name}: {opt.count} updates and {opt.mini_step} micro-steps open "
+                               f"after {spe} micro-steps at grad_accum 2")
+        moved, worst = 0, 0.0
+        for n, p in zip(opt.names, opt.params):
+            q = before[n].detach()
+            d = float((p.detach() - q).abs().max())
+            moved += d > 0
+            if name != "G" and d > 0:
+                p_abs = max(float(q.abs().max()), float(p.detach().abs().max()))
+                # fp32 rounding of each update's sum: a relative 1e-5 and an ulp
+                lim = adam_change_bound(opt, p_abs) * (1 + 1e-5) + 2.0 ** -23 * p_abs
+                worst = max(worst, d / lim)
+                if d > lim:
+                    raise RuntimeError(f"{name} {n}: changed by {d:.3e}, more than {opt.count} "
+                                       f"Adam updates can make ({lim:.3e})")
+        log(f"  run 2 {name}: {moved} of {len(opt.params)} tensors moved, {opt.count} updates"
+            + (f"; largest change / the {opt.count}-update Adam bound {worst:.3f}" if name != "G"
+               else ""))
+        if moved < 0.9 * len(opt.params):
+            raise RuntimeError(f"run 2 left most {name} parameters where they were")
+    del init
+
+    # --- a second epoch of run 2 with two steps traced (profile_steps):
+    # device busy, kernels and the host's waits on the card a step
+    first, n_prof = spe + 2, 2
+    tr.train(epochs=2, profile_steps=(first, first + n_prof))
+    with open(os.path.join(run2, "profile", "trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    waits = [e for e in events if e.get("cat") == "cuda_runtime" and e.get("name") in
+             ("cudaStreamSynchronize", "cudaMemcpyAsync", "cudaDeviceSynchronize")]
+    step_ms = statistics.mean(v for tag, vals in tr.writer.scalars.items()
+                              if tag.startswith("perf/step_ms/")
+                              for s, v in vals if first < s <= first + n_prof)
+    busy = sum(e["dur"] for e in kernels) / 1e3 / n_prof
+    wait = sum(e["dur"] for e in waits) / 1e3 / n_prof
+    log(f"  run 2 traced steps {first + 1}-{first + n_prof} (profile_steps): {step_ms:.1f} ms a "
+        f"step on the host clock (the profiler's cost included), {len(kernels) / n_prof:.0f} "
+        f"kernels a step, device busy {busy:.1f} ms a step (idle share {1 - busy / step_ms:.2f}), "
+        f"the host waiting on the card in copies to the host and synchronisations "
+        f"{wait:.1f} ms a step ({len(waits) / n_prof:.0f} calls) [{card}]")
+    if not kernels or busy <= 0:
+        raise RuntimeError("the trace of the trainer's steps holds no kernel")
+    del tr
+    torch.cuda.empty_cache()
+    shutil.rmtree(run2)
+    log(f"  launch counts on the trainer path (4 epochs, 3 evaluate() calls; run 2's traced "
+        f"epoch not counted): {launches}")
     return launches
 
 
@@ -1330,15 +1697,25 @@ def main():
     stats.update(timed("taco kernels", taco_kernel_phase, device, card))
     stats.update(timed("frontend kernels", frontend_kernel_phase, device, card))
     stats.update(timed("lltm kernels", lltm_kernel_phase, device, card))
+    by_path = {}  # each main path's own launch counts
     with tempfile.TemporaryDirectory() as tmp:
-        launches = timed("inference", slice_phase, device, card, tmp)
-        launches.update(timed("tacotron", tacotron_phase, device, card, tmp))
-    # wn_group: its count on the train path
-    launches.update(timed("training", train_phase, device, card))
-    launches.update(timed("mel frontend", mel_frontend_phase, device, card))
-    launches.update(timed("lltm", lltm_phase, device, card))
+        by_path["inference"] = timed("inference", slice_phase, device, card, tmp)
+        by_path["tacotron"] = timed("tacotron", tacotron_phase, device, card, tmp)
+    by_path["training"] = timed("training", train_phase, device, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["trainer"] = timed("trainer", trainer_phase, device, card, tmp)
+    by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
+    by_path["lltm"] = timed("lltm", lltm_phase, device, card)
+    # launches: the last of these paths that runs the kernel (wn_group: the
+    # train step's), plus the trainer path's
+    launches = {}
+    for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
+        launches.update(by_path[p])
+    for n, c in by_path["trainer"].items():
+        launches[n] += c
     # the fused step is on no model path: its count is the kernel phase's
     launches["taco_step_fused"] = stats["taco_step_fused"]["launches"]
+    by_path["kernel phase"] = {"taco_step_fused": launches["taco_step_fused"]}
 
     sources = {"mrf_fused": ("torch_tts_tpu_torch/csrc/mrf_fused.cu",
                              "torch_tts_tpu/kernels/mrf_fused.py:150"),
@@ -1360,6 +1737,7 @@ def main():
     # kernel (whose ms and plain_ms are device busy times too); no single
     # PyTorch call computes any of the other functions
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
+                    launches_by_path={p: c[n] for p, c in by_path.items() if n in c},
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],
                     plain_ms=stats[n]["plain_ms"], bound_ms=stats[n]["bound"][0],
                     bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"))

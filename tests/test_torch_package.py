@@ -4,8 +4,9 @@
   (checked in a fresh interpreter), and no module of the package, nor
   chip_smoke.py, imports the JAX package `torch_tts_tpu` (an AST scan).
 - Entry points default to the card: `build_synthesizer`, `build_mpd`,
-  `build_tacotron`, `AudioFrontend` and the CLIs take device="cuda" unless
-  told otherwise.
+  `build_dur_disc`, `build_models`, `VITS2Trainer`, `build_tacotron`,
+  `AudioFrontend` and the CLIs (the train CLI's --device too) take
+  device="cuda" unless told otherwise.
 - Kernel wrappers take their plain version only for CPU tensors: another
   device raises, and a missing nvcc raises instead of falling back;
   `mrf_fused`, which has no backward, raises under autograd instead of
@@ -53,7 +54,7 @@ def test_package_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 15
+    assert len(modules) >= 25
 
 
 def _imported_modules(path: pathlib.Path):
@@ -69,7 +70,7 @@ def test_port_never_imports_the_jax_package():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("torch_tts_tpu", "jax", "jaxlib", "flax", "optax")]
     assert not bad, bad
-    assert len(files) >= 25
+    assert len(files) >= 35
 
 
 def test_entry_points_default_to_the_card():
@@ -77,11 +78,14 @@ def test_entry_points_default_to_the_card():
     from torch_tts_tpu_torch.cli import tacotron_infer, vits2_infer
     from torch_tts_tpu_torch.models.tacotron import build_tacotron
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
-    from torch_tts_tpu_torch.train.vits2_train import build_mpd
+    from torch_tts_tpu_torch.cli import vits2_train
+    from torch_tts_tpu_torch.train.vits2_train import build_dur_disc, build_mpd
+    from torch_tts_tpu_torch.train.vits2_trainer import VITS2Trainer, build_models
 
-    for fn in (build_synthesizer, build_mpd, build_tacotron, AudioFrontend):
+    for fn in (build_synthesizer, build_mpd, build_dur_disc, build_models, VITS2Trainer,
+               build_tacotron, AudioFrontend):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for cli in (vits2_infer, tacotron_infer):
+    for cli in (vits2_infer, tacotron_infer, vits2_train):
         assert "default='cuda'" in inspect.getsource(cli.main) or \
             'default="cuda"' in inspect.getsource(cli.main)
     # the mel frontend and the LLTM cell run where their input lies

@@ -497,13 +497,20 @@ def test_nonfinite_step_keeps_parameters_bit_identical(setup):
 
 
 def test_deferred_options_raise():
+    """bf16, spectral norm and multi-speaker training are not ported; the
+    step orders, grad_accum and the duration discriminators are
+    (tests/test_torch_vits2_train_options.py)."""
     cfg = _configs(True)[1]
-    for train_kw, model_kw in ((dict(step_order="lightning"), {}), (dict(grad_accum=2), {}),
-                               (dict(use_bf16=True), {}),
-                               ({}, dict(use_duration_discriminator=True))):
+    for train_kw, model_kw in ((dict(use_bf16=True), {}), ({}, dict(use_spectral_norm=True)),
+                               ({}, dict(n_speakers=4))):
         c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_kw),
                                 model=dataclasses.replace(cfg.model, **model_kw))
         with pytest.raises(NotImplementedError):
             vits2_train.check_supported(c)
+    for train_kw, model_kw in ((dict(step_order="lightning"), {}), (dict(grad_accum=2), {}),
+                               ({}, dict(use_duration_discriminator=True))):
+        vits2_train.check_supported(dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, **train_kw),
+            model=dataclasses.replace(cfg.model, **model_kw)))
     with pytest.raises(NotImplementedError, match="spectral norm"):
         MultiPeriodDiscriminator(use_spectral_norm=True)

@@ -13,7 +13,9 @@ numpy arrays) loads into this package's `SynthesizerTrn` with
   ElementwiseAffine m/logs [C] -> [C, 1]; `resblock_i_j` -> `resblocks.{i*nk+j}`.
 
 `mpd_state_dict_from_jax_params` does the same for the multi-period
-discriminator (the JAX `export_mpd_torch_state_dict`).
+discriminator (the JAX `export_mpd_torch_state_dict`), and
+`dur_disc_state_dict_from_jax_params` for the duration discriminators
+(the JAX `export_dur_disc_torch_state_dict`, extended to V2's norms).
 """
 
 from __future__ import annotations
@@ -145,4 +147,31 @@ def mpd_state_dict_from_jax_params(params: Dict[str, Any],
         for j in range(5):
             emit(f"discriminators.{i}.convs.{j}", d[f"conv_{j}"], is2d=True)
         emit(f"discriminators.{i}.conv_post", d["conv_post"], is2d=True)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def dur_disc_state_dict_from_jax_params(params: Dict[str, Any],
+                                        kind: str = "dur_disc_1") -> Dict[str, torch.Tensor]:
+    """Flax DurationDiscriminatorV1 ("dur_disc_1") or V2 params -> the
+    reference's torch names, for `load_state_dict(..., strict=True)`: conv
+    kernels [k, in, out] -> weight [out, in, k]; the output Dense [in, 1]
+    -> `output_layer.0.weight` [1, in]; LayerNorm scale/bias -> gamma/beta.
+    V1's `pre_out_norm_1/2`, which the reference declares and never runs
+    and the flax module lacks, come out as the identity (ones, zeros)."""
+    out: Dict[str, np.ndarray] = {}
+    for name in ("conv_1", "conv_2", "dur_proj", "pre_out_conv_1", "pre_out_conv_2"):
+        out[f"{name}.weight"] = np.asarray(params[name]["kernel"]).transpose(2, 1, 0)
+        out[f"{name}.bias"] = np.asarray(params[name]["bias"])
+    out["output_layer.0.weight"] = np.asarray(params["output_layer"]["kernel"]).T
+    out["output_layer.0.bias"] = np.asarray(params["output_layer"]["bias"])
+    f = out["conv_1.bias"].shape[0]
+    norms = ("pre_out_norm_1", "pre_out_norm_2")
+    if kind != "dur_disc_1":
+        norms = ("norm_1", "norm_2") + norms
+    for name in norms:
+        if kind == "dur_disc_1":
+            out[f"{name}.gamma"], out[f"{name}.beta"] = np.ones(f, np.float32), np.zeros(f, np.float32)
+        else:
+            out[f"{name}.gamma"] = np.asarray(params[name]["scale"])
+            out[f"{name}.beta"] = np.asarray(params[name]["bias"])
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}

@@ -6,19 +6,27 @@
 Parameter names are the reference's (`discriminators.{i}.convs.{j}`,
 `discriminators.{i}.conv_post`, weight-normed), as the JAX package's
 `export_mpd_torch_state_dict` emits them. `use_spectral_norm=True`
-raises (it is False in every shipped config). The duration discriminators
-are not ported yet.
+raises (it is False in every shipped config).
+
+`DurationDiscriminatorV1` and `V2` (`torch_tts_tpu/models/vits2/
+discriminators.py:125,158`) take the text encoder's hidden states, the
+mask and two log-durations in [B, C, T] and return [prob_r, prob_g],
+each [B, T, 1]. Their names are the reference's
+torch names (`output_layer.0.*` of an `nn.Sequential(Linear, Sigmoid)`);
+V1 also holds the reference's `pre_out_norm_1/2`, which its forward never
+uses (`trained_parameters` leaves them out of the optimizer).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import math
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.layers import Conv1d, Conv2d, leaky_relu
+from torch_tts_tpu_torch.ops.layers import Conv1d, Conv2d, LayerNorm, _uniform_, leaky_relu
 
 
 def _get_padding(k: int, d: int = 1) -> int:
@@ -64,7 +72,7 @@ class DiscriminatorS(nn.Module):
         self.convs = nn.ModuleList(
             Conv1d(cin, ch, k, padding=p, groups=g, stride=s, weight_norm=True)
             for cin, (ch, k, s, p, g) in zip(cins, self.SPECS))
-        self.conv_post = Conv1d(1024, 1, 3, padding=1, weight_norm=True)
+        self.conv_post = Conv1d(self.SPECS[-1][0], 1, 3, padding=1, weight_norm=True)
 
     def forward(self, x: torch.Tensor):
         fmap = []
@@ -97,3 +105,80 @@ class MultiPeriodDiscriminator(nn.Module):
             fmap_rs.append(fm_r)
             fmap_gs.append(fm_g)
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs
+
+
+class _Linear(nn.Linear):
+    """nn.Linear whose initial weights come from an explicit generator
+    (torch's default bounds, 1 / sqrt(in_features))."""
+
+    def reset_parameters_(self, generator: torch.Generator):
+        bound = 1.0 / math.sqrt(self.in_features)
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+
+class _DurationDiscriminator(nn.Module):
+    """The layers both versions share; `normed` adds V2's ReLU + LayerNorm
+    after each conv."""
+
+    normed = False
+
+    def __init__(self, in_channels: int, filter_channels: int, kernel_size: int = 3):
+        super().__init__()
+        k, f = kernel_size, filter_channels
+        self.conv_1 = Conv1d(in_channels, f, k, padding=k // 2)
+        self.norm_1 = LayerNorm(f)
+        self.conv_2 = Conv1d(f, f, k, padding=k // 2)
+        self.norm_2 = LayerNorm(f)
+        self.dur_proj = Conv1d(1, f, 1)
+        self.pre_out_conv_1 = Conv1d(2 * f, f, k, padding=k // 2)
+        self.pre_out_norm_1 = LayerNorm(f)
+        self.pre_out_conv_2 = Conv1d(f, f, k, padding=k // 2)
+        self.pre_out_norm_2 = LayerNorm(f)
+        self.output_layer = nn.Sequential(_Linear(f, 1), nn.Sigmoid())
+
+    def _act(self, y: torch.Tensor, norm: str) -> torch.Tensor:
+        return getattr(self, norm)(torch.relu(y)) if self.normed else y
+
+    def _prob(self, x, x_mask, dur):
+        y = torch.cat([x, self.dur_proj(dur)], dim=1)
+        y = self._act(self.pre_out_conv_1(y * x_mask), "pre_out_norm_1")
+        y = self._act(self.pre_out_conv_2(y * x_mask), "pre_out_norm_2")
+        return self.output_layer((y * x_mask).transpose(1, 2))
+
+    def forward(self, x, x_mask, dur_r, dur_hat) -> List[torch.Tensor]:
+        """x [B, in, T] (detached here, as the JAX stop_gradient), x_mask
+        [B, 1, T], dur_r and dur_hat [B, 1, T] -> [prob_r, prob_g] [B, T, 1]."""
+        x = x.detach()
+        x = self._act(self.conv_1(x * x_mask), "norm_1")
+        x = self._act(self.conv_2(x * x_mask), "norm_2")
+        return [self._prob(x, x_mask, d) for d in (dur_r, dur_hat)]
+
+    def trained_parameters(self) -> List[nn.Parameter]:
+        return list(self.parameters())
+
+
+class DurationDiscriminatorV1(_DurationDiscriminator):
+    """VITS2 duration discriminator v1: convs without norms. The reference
+    declares the LayerNorms but its forward skips them; they are kept for
+    its state dict, and left out of training."""
+
+    def __init__(self, in_channels: int, filter_channels: int, kernel_size: int = 3):
+        super().__init__(in_channels, filter_channels, kernel_size)
+        del self.norm_1, self.norm_2
+
+    def trained_parameters(self) -> List[nn.Parameter]:
+        return [p for n, p in self.named_parameters() if not n.startswith("pre_out_norm_")]
+
+
+class DurationDiscriminatorV2(_DurationDiscriminator):
+    """VITS2 duration discriminator v2: ReLU + LayerNorm after every conv."""
+
+    normed = True
+
+
+def build_duration_discriminator(kind: str, hidden_channels: int) -> _DurationDiscriminator:
+    """`duration_discriminator_type` "dur_disc_1" -> V1, anything else -> V2
+    (the JAX `build_models`), filter channels = in channels = hidden."""
+    cls = DurationDiscriminatorV1 if kind == "dur_disc_1" else DurationDiscriminatorV2
+    return cls(hidden_channels, hidden_channels)
