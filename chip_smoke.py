@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
-Tacotron-2 inference, the bulk mel frontend, the LLTM cell) on one NVIDIA GPU.
+multi-speaker VITS2, Tacotron-2 inference, the bulk mel frontend, the LLTM
+cell) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -106,25 +107,46 @@ Phases, each of which raises on failure (exit code 1, no result line):
    steps/s, step ms by bucket, batch loading ms, evaluate()'s seconds,
    the checkpoint's bytes and its host copy and write seconds, launches a
    step.
-8. Mel frontend: the JAX benchmark's "mel frontend throughput" config
+8. Multi-speaker: configs/vits2-multispeaker.yaml at full width
+   (`multispeaker_config`: 109 speakers, gin_channels 256, the
+   speaker-conditioned text encoder), seeded. `infer` at the bench shapes
+   with distinct speaker ids (B=1 and B=8): every `wn_group` launch takes
+   a per-layer gl (counted around `wn_stack._forward_cuda`), `mrf_fused`
+   launches, the audio within AUDIO_ATOL of the plain path's with equal
+   durations, and another speaker's audio differs by more than ten times
+   that; `voice_conversion` at B=MS_VC_B, T_y=MS_VC_TY (full lengths, so an
+   unmasked decode) against the plain path; three `ddp` steps at the train
+   phase's batch with eight speaker ids (MAS, the WN forward with gl and
+   the backward with its d_gl launched), the first of them against one
+   step on the plain path from the same fresh state and noise: the loss
+   terms within LOSS_RTOL / LOSS_ATOL, emb_g's gradient only on the
+   batch's rows and within GRAD_REL of the plain path's; the trainer through the CLI on a synthetic corpus of
+   MS_TRAINER_SPEAKERS speakers as an `audio|sid|text` filelist, one epoch
+   and a resume checked bit for bit (emb_g included). Then fault 1's card
+   check: a NARROW VITS2 (hidden 128, upsample_initial_channel 256) runs
+   `infer` and one train step on the card's defaults (no WN launch, MRF on
+   the stages it takes, MAS on its kernel) and matches the plain path.
+   Host and device-busy times of each, the paths in turns.
+9. Mel frontend: the JAX benchmark's "mel frontend throughput" config
    (8 clips x 10 s at 22.05 kHz, noise of std 0.3 from numpy seed 0)
    through `mel_spectrogram_auto` on the card. Counter zeroed; every call
    must launch the kernel once; log-mel [8, 861, 80], finite, within
    MEL_ATOL of the plain version and within the JAX kernel test's tolerance
    of the torch.stft mel; audio seconds per second of both paths, in turns.
-9. LLTM: the extension tutorial's loop at B=16, I=32, H=128, x a strided
+10. LLTM: the extension tutorial's loop at B=16, I=32, H=128, x a strided
    view x_seq[:, t] of a [B, T, I] sequence, forward then
    (new_h.sum() + new_c.sum()).backward(), through `lltm` (the kernel and
    the analytic backward) and `lltm_ref` (autograd): outputs within
    LLTM_ATOL, the five gradients within GRAD_REL; one launch per kernel
    step; times of both, in turns.
-10. Prints each phase's seconds, the kernels' JSON line (launches: the
-   main paths' and the trainer's; launches_by_path: each path's own), then
-   the device line last.
+11. Prints each phase's seconds, the kernels' JSON line (launches: the
+   main paths', the trainer's and the multi-speaker path's;
+   launches_by_path: each path's own), then the device line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -187,6 +209,15 @@ LLTM_B, LLTM_I, LLTM_H = 16, 32, 128
 LLTM_LARGE = ((512, 32, 128), (64, 256, 1024))
 LLTM_ATOL = 1e-5
 LLTM_GRAPH = 100
+# the multi-speaker model: configs/vits2-multispeaker.yaml's changes to the
+# LJSpeech defaults; its voice conversion shape; the trainer's synthetic
+# corpus of that many clips over that many speakers
+MULTISPEAKER = dict(n_speakers=109, gin_channels=256, use_spk_conditioned_encoder=True)
+MS_VC_B, MS_VC_TY = 2, 400
+MS_TRAINER_CLIPS, MS_TRAINER_SPEAKERS = 16, 4
+# fault 1's card check: widths no shipped config has, which the WN kernels
+# (hidden 128) and the MRF kernel (a 16-channel last stage) do not take
+NARROW = dict(hidden_channels=128, upsample_initial_channel=256)
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3;
 # and the rate that keeps fp32 accuracy on the tensor cores, 3xTF32 (three
 # TF32 products a fp32 product) at a third of the 495 TFLOP/s TF32 peak,
@@ -295,6 +326,21 @@ def mas_inputs(g, device, B, T_y, T_x, ties):
     mask = ((torch.arange(T_y)[None, :, None] < t_ys[:, None, None])
             & (torch.arange(T_x)[None, None, :] < t_xs[:, None, None])).float()
     return nc.to(device), mask.to(device), t_ys.to(device), t_xs.to(device)
+
+
+def check_audio(audio, y_lengths, hop: int, what: str, max_frames: int = MAX_FRAMES):
+    """Finite audio, 0 < y_lengths <= max_frames, and silence past each
+    item's y_lengths * hop samples."""
+    import torch
+
+    if not torch.isfinite(audio).all():
+        raise RuntimeError(f"{what}: non-finite audio")
+    if not bool(((y_lengths > 0) & (y_lengths <= max_frames)).all()):
+        raise RuntimeError(f"{what}: y_lengths {y_lengths.tolist()} outside (0, {max_frames}]")
+    pos = torch.arange(audio.shape[1], device=audio.device)[None, :]
+    tail = audio[:, :, 0] * (pos >= (y_lengths.to(torch.int64) * hop)[:, None])
+    if bool(tail.abs().max() > 0):
+        raise RuntimeError(f"{what}: audio past y_lengths*hop is not zero")
 
 
 def kernel_phase(device, card: str):
@@ -963,7 +1009,6 @@ def slice_phase(device, card: str, tmp: str):
     from torch_tts_tpu_torch.core.config import VITS2Config
     from torch_tts_tpu_torch.kernels.mrf_fused import mrf_fused
     from torch_tts_tpu_torch.kernels.wn_stack import wn_group
-    from torch_tts_tpu_torch.models.vits2 import build_synthesizer
 
     # the port's defaults: fuse_mrf on, TTS_FUSED_WN unset (fused on the card)
     base = VITS2Config()
@@ -973,13 +1018,7 @@ def slice_phase(device, card: str, tmp: str):
     if not cfg.model.fuse_mrf:
         raise RuntimeError("the port's default config has fuse_mrf off")
     t0 = time.perf_counter()
-    model = build_synthesizer(cfg, len(symbols), seed=0, device=device)
-    # the flows' zero-initialised output convs would make the WN stacks'
-    # outputs irrelevant to the audio; give them small seeded weights
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for flow in model.flow.flows[::2]:
-            flow.post.weight.copy_(torch.randn(flow.post.weight.shape, generator=g) * 0.02)
+    model = seeded_synthesizer(cfg, device)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"slice phase: SynthesizerTrn {n_params} params, seeded init "
         f"{time.perf_counter() - t0:.1f} s")
@@ -991,29 +1030,11 @@ def slice_phase(device, card: str, tmp: str):
                    "data": {**dataclasses.asdict(cfg.data), **dataclasses.asdict(cfg.audio)}}, f)
     hop, sr = cfg.audio.hop_length, cfg.audio.sampling_rate
 
-    def check(audio, y_lengths, what):
-        if not torch.isfinite(audio).all():
-            raise RuntimeError(f"{what}: non-finite audio")
-        if not bool(((y_lengths > 0) & (y_lengths <= MAX_FRAMES)).all()):
-            raise RuntimeError(f"{what}: y_lengths {y_lengths.tolist()} outside (0, {MAX_FRAMES}]")
-        pos = torch.arange(audio.shape[1], device=audio.device)[None, :]
-        tail = audio[:, :, 0] * (pos >= (y_lengths.to(torch.int64) * hop)[:, None])
-        if bool(tail.abs().max() > 0):
-            raise RuntimeError(f"{what}: audio past y_lengths*hop is not zero")
-
     def bench_inputs(B):
         g = torch.Generator().manual_seed(100 + B)
         x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
         lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
         return x, lengths
-
-    def use_infer_path(path):
-        """The kernel path is the defaults; the plain path is named."""
-        model.dec.fuse_mrf = path == "kernel"
-        if path == "kernel":
-            os.environ.pop("TTS_FUSED_WN", None)
-        else:
-            os.environ["TTS_FUSED_WN"] = "0"
 
     def run(B, seed):
         x, lengths = bench_inputs(B)
@@ -1036,7 +1057,7 @@ def slice_phase(device, card: str, tmp: str):
     outs = {}
     for B in (1, 8):
         audio, attn, y_mask, aux, y_lengths = run(B, seed=B)
-        check(audio, y_lengths, f"bench B={B}")
+        check_audio(audio, y_lengths, hop, f"bench B={B}")
         outs[B] = (audio, y_lengths)
         log(f"  bench B={B}: audio {tuple(audio.shape)}, y_lengths {y_lengths.tolist()}")
     torch.cuda.synchronize()
@@ -1046,10 +1067,10 @@ def slice_phase(device, card: str, tmp: str):
         raise RuntimeError(f"a kernel of the main path did not launch: {launches}")
 
     # --- same inputs and noise through the plain path
-    use_infer_path("plain")
+    use_model_path(model, "plain")
     for B in (1, 8):
         audio, attn, y_mask, aux, y_lengths = run(B, seed=B)
-        check(audio, y_lengths, f"plain B={B}")
+        check_audio(audio, y_lengths, hop, f"plain B={B}")
         if not torch.equal(y_lengths, outs[B][1]):
             raise RuntimeError("plain path gave other durations")
         diff = float((audio - outs[B][0]).abs().max())
@@ -1064,15 +1085,15 @@ def slice_phase(device, card: str, tmp: str):
     for B in (1, 8):
         times = {}
         for path in ("plain", "kernel", "kernel", "plain"):
-            use_infer_path(path)
+            use_model_path(model, path)
             times.setdefault(path, []).append(wall_ms(lambda: run(B, seed=B)))
         for path, ts in times.items():
             ms = statistics.median(ts)
-            use_infer_path(path)
+            use_model_path(model, path)
             busy = profile_busy_ms(lambda: run(B, seed=B))
             log(f"  infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: {ms:.2f} ms/call, "
                 f"{B * audio_s / (ms / 1e3):.1f}x real time; device busy {busy:.2f} ms/call [{card}]")
-    use_infer_path("kernel")
+    use_model_path(model, "kernel")
     return launches
 
 
@@ -1225,7 +1246,6 @@ def train_phase(device, card: str):
     from torch_tts_tpu_torch.core.config import VITS2Config
     from torch_tts_tpu_torch.kernels import mas
     from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_backward
-    from torch_tts_tpu_torch.models.vits2 import build_synthesizer
     from torch_tts_tpu_torch.models.vits2 import model as model_module
     from torch_tts_tpu_torch.text import symbols
     from torch_tts_tpu_torch.train.vits2_train import (build_dur_disc, build_mpd,
@@ -1243,13 +1263,7 @@ def train_phase(device, card: str):
     batch = {k: v.to(device) for k, v in batch.items()}
 
     def fresh_state(c=cfg):
-        model = build_synthesizer(c, len(symbols), seed=0, device=device)
-        # as in the inference phase: the flows' zero-initialised output convs
-        # would give their WN stacks no gradient; small seeded weights instead
-        gp = torch.Generator().manual_seed(1)
-        with torch.no_grad():
-            for flow in model.flow.flows[::2]:
-                flow.post.weight.copy_(torch.randn(flow.post.weight.shape, generator=gp) * 0.02)
+        model = seeded_synthesizer(c, device)
         return create_train_state(c, model, build_mpd(c, seed=1, device=device),
                                   dur_disc=build_dur_disc(c, seed=2, device=device))
 
@@ -1448,8 +1462,6 @@ def trainer_phase(device, card: str, tmp: str):
     from torch_tts_tpu_torch.data.dataset import TextAudioDataset
     from torch_tts_tpu_torch.data.sampler import DistributedBucketSampler
     from torch_tts_tpu_torch.kernels import mas
-    from torch_tts_tpu_torch.kernels.mrf_fused import mrf_fused
-    from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_backward
     from torch_tts_tpu_torch.models.vits2 import model as model_module
     from torch_tts_tpu_torch.train import checkpoint
     from torch_tts_tpu_torch.train.vits2_trainer import BUCKET_BOUNDARIES, build_models
@@ -1458,8 +1470,7 @@ def trainer_phase(device, card: str, tmp: str):
     # the port's defaults: TTS_FUSED_WN unset, MAS through its kernel
     os.environ.pop("TTS_FUSED_WN", None)
     model_module.maximum_path = mas.maximum_path
-    counters = {"maximum_path": mas.maximum_path, "wn_group": wn_group,
-                "wn_group_backward": wn_group_backward, "mrf_fused": mrf_fused}
+    counters = kernel_counters()
     base = VITS2Config()
     cfg = dataclasses.replace(
         base, data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
@@ -1657,6 +1668,470 @@ def trainer_phase(device, card: str, tmp: str):
     return launches
 
 
+def multispeaker_config():
+    """configs/vits2-multispeaker.yaml as a VITS2Config, built from the
+    dataclass defaults (the card has no PyYAML; a CPU test holds the two
+    equal)."""
+    from torch_tts_tpu_torch.core.config import VITS2Config
+
+    base = VITS2Config()
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, **MULTISPEAKER),
+        data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",),
+                                 n_speakers=MULTISPEAKER["n_speakers"]))
+
+
+def seeded_synthesizer(cfg, device, seed: int = 0):
+    """build_synthesizer's seeded model, with small seeded weights in the
+    flows' zero-initialised output convs, which would otherwise make the
+    flows' WN stacks irrelevant to the audio and give them no gradient."""
+    import torch
+
+    from torch_tts_tpu_torch.models.vits2 import build_synthesizer
+    from torch_tts_tpu_torch.text import symbols
+
+    model = build_synthesizer(cfg, len(symbols), seed=seed, device=device)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for flow in model.flow.flows[::2]:
+            flow.post.weight.copy_(torch.randn(flow.post.weight.shape, generator=g) * 0.02)
+    return model
+
+
+@contextlib.contextmanager
+def conditioned_wn_forwards():
+    """Counts, while open, the WN forward kernel's launches that take a
+    per-layer conditioning gl ("gl"), and of those the saving ones, each of
+    which the backward kernel follows with its d_gl ("gl_saving"). Wraps
+    `wn_stack._forward_cuda`, the one function that launches the forward
+    kernel."""
+    from torch_tts_tpu_torch.kernels import wn_stack
+
+    real, counts = wn_stack._forward_cuda, {"gl": 0, "gl_saving": 0}
+
+    def counting(*args, **kw):
+        if args[2] is not None:
+            counts["gl"] += 1
+            counts["gl_saving"] += bool(kw.get("save", False))
+        return real(*args, **kw)
+
+    wn_stack._forward_cuda = counting
+    try:
+        yield counts
+    finally:
+        wn_stack._forward_cuda = real
+
+
+def use_model_path(model, path: str):
+    """The kernel path is the port's defaults (fuse_mrf on, TTS_FUSED_WN
+    unset, MAS through its kernel); the plain path is named (fuse_mrf off,
+    TTS_FUSED_WN=0, MAS's plain version)."""
+    from torch_tts_tpu_torch.kernels import mas
+    from torch_tts_tpu_torch.models.vits2 import model as model_module
+
+    model.dec.fuse_mrf = path == "kernel"
+    if path == "kernel":
+        os.environ.pop("TTS_FUSED_WN", None)
+    else:
+        os.environ["TTS_FUSED_WN"] = "0"
+    model_module.maximum_path = (mas.maximum_path if path == "kernel"
+                                 else mas.maximum_path_via_plain)
+
+
+def times_in_turns(what: str, fn, model, card: str):
+    """Host ms of fn() and its device busy ms on the plain and the kernel
+    path, in turns plain, kernel, kernel, plain."""
+    times = {}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        use_model_path(model, path)
+        times.setdefault(path, []).append(wall_ms(fn, warmup=1, reps=3))
+    for path, ts in times.items():
+        use_model_path(model, path)
+        log(f"  {what} {path}: {statistics.median(ts):.2f} ms on the host clock "
+            f"(turns {', '.join(f'{t:.2f}' for t in ts)}); device busy "
+            f"{profile_busy_ms(fn):.2f} ms [{card}]")
+    use_model_path(model, "kernel")
+
+
+def kernel_counters():
+    from torch_tts_tpu_torch.kernels import mas
+    from torch_tts_tpu_torch.kernels.mrf_fused import mrf_fused
+    from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_backward
+
+    return {"maximum_path": mas.maximum_path, "wn_group": wn_group,
+            "wn_group_backward": wn_group_backward, "mrf_fused": mrf_fused}
+
+
+def counted(fn):
+    """fn() with every kernel counter set to 0 just before -> (its result,
+    the counts just after)."""
+    import torch
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: c.launches for n, c in counters.items()}
+
+
+def ms_infer(model, cfg, device, card: str):
+    """`infer` with speaker ids at the bench shapes, on the defaults and on
+    the plain path; two speakers give different audio."""
+    import torch
+
+    from torch_tts_tpu_torch.text import symbols
+
+    hop = cfg.audio.hop_length
+    sids = {1: [5], 8: [13 * i for i in range(8)]}
+
+    def run(B, sid=None, seed=None):
+        g = torch.Generator().manual_seed(100 + B)
+        x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
+        lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
+        sid = torch.tensor(sids[B] if sid is None else sid, device=device)
+        gen = torch.Generator(device=device).manual_seed(B if seed is None else seed)
+        return model.infer(x, lengths, sid=sid, noise_scale=0.667, noise_scale_w=0.8,
+                           max_frames=MAX_FRAMES, generator=gen)
+
+    use_model_path(model, "kernel")
+    with conditioned_wn_forwards() as gl:
+        outs, launches = counted(lambda: {B: run(B) for B in (1, 8)})
+    launches = {n: c for n, c in launches.items() if n in ("mrf_fused", "wn_group")}
+    log(f"  infer with sids {sids}: launches {launches}, of which wn_group with a per-layer "
+        f"gl {gl['gl']}")
+    if not all(launches.values()) or gl["gl"] != launches["wn_group"]:
+        raise RuntimeError(f"infer with speakers did not launch its kernels, or a WN forward "
+                           f"without gl: {launches}, {gl}")
+    use_model_path(model, "plain")
+    diffs = {}
+    for B in (1, 8):
+        audio, _, _, _, y_lengths = run(B)
+        check_audio(audio, y_lengths, hop, f"multi-speaker plain B={B}")
+        check_audio(outs[B][0], outs[B][4], hop, f"multi-speaker B={B}")
+        if not torch.equal(y_lengths, outs[B][4]):
+            raise RuntimeError("the plain path gave other durations")
+        diff = diffs[B] = float((audio - outs[B][0]).abs().max())
+        log(f"  infer B={B}: max |audio_kernel - audio_plain| = {diff:.3e} (bound {AUDIO_ATOL:g}),"
+            f" durations equal")
+        if diff > AUDIO_ATOL:
+            raise RuntimeError("multi-speaker infer: kernel path and plain path disagree")
+    use_model_path(model, "kernel")
+    other = run(1, sid=[77], seed=1)[0]
+    n = min(other.shape[1], outs[1][0].shape[1])
+    moved = float((other[:, :n] - outs[1][0][:, :n]).abs().max())
+    log(f"  infer B=1, speaker 77 against speaker 5 (the same text and noise): max |d audio| "
+        f"{moved:.3e}, against {diffs[1]:.3e} between the kernel and the plain path")
+    if not moved > 10 * diffs[1]:
+        raise RuntimeError("two speakers gave the same audio, within ten times the kernel path's "
+                           "difference from the plain path")
+    for B in (1, 8):
+        times_in_turns(f"multi-speaker infer B={B} T_x={T_X} max_frames={MAX_FRAMES}",
+                       lambda B=B: run(B), model, card)
+    return launches
+
+
+def ms_voice_conversion(model, cfg, device, card: str):
+    """`voice_conversion` at B=MS_VC_B, T_y=MS_VC_TY (full lengths: the
+    decode runs unmasked, through the MRF kernel) on both paths."""
+    import torch
+
+    g = torch.Generator().manual_seed(7)
+    y = (torch.randn(MS_VC_B, MS_VC_TY, cfg.posterior_channels, generator=g) - 4).to(device)
+    yl = torch.full((MS_VC_B,), MS_VC_TY, device=device)
+    src, tgt = torch.tensor([3, 40], device=device), torch.tensor([90, 7], device=device)
+
+    def run():
+        return model.voice_conversion(y, yl, src, tgt,
+                                      generator=torch.Generator(device=device).manual_seed(3))
+
+    use_model_path(model, "kernel")
+    with conditioned_wn_forwards() as gl:
+        out, launches = counted(run)
+    launches = {n: c for n, c in launches.items() if n in ("mrf_fused", "wn_group")}
+    log(f"  voice_conversion B={MS_VC_B} T_y={MS_VC_TY}: o_hat {tuple(out[0].shape)}; launches "
+        f"{launches}, of which wn_group with a per-layer gl {gl['gl']}")
+    if not all(launches.values()) or gl["gl"] != launches["wn_group"]:
+        raise RuntimeError(f"voice conversion did not launch its kernels with gl: {launches}")
+    use_model_path(model, "plain")
+    ref = run()
+    use_model_path(model, "kernel")
+    for name, a, b in (("o_hat", out[0], ref[0]), ("z_hat", out[2][2], ref[2][2]),
+                       ("z_p", out[2][1], ref[2][1])):
+        diff = float((a - b).abs().max())
+        log(f"  voice_conversion {name}: max |kernel - plain| = {diff:.3e} (bound {AUDIO_ATOL:g})")
+        if not bool(torch.isfinite(a).all()) or diff > AUDIO_ATOL:
+            raise RuntimeError(f"voice conversion {name}: kernel path and plain path disagree")
+    times_in_turns(f"voice_conversion B={MS_VC_B} T_y={MS_VC_TY}", run, model, card)
+    return launches
+
+
+def ms_train(cfg, device, card: str):
+    """Three full-width `ddp` steps with speaker ids on the kernel path; the
+    first of them against one step on the plain path from the same fresh
+    state and noise; then step times on both paths."""
+    import torch
+
+    from torch_tts_tpu_torch.text import symbols
+    from torch_tts_tpu_torch.train.vits2_train import build_mpd, create_train_state, train_step
+
+    hop = cfg.audio.hop_length
+    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
+    g = torch.Generator().manual_seed(0)
+    batch = {"x": torch.randint(1, len(symbols), (B, T_x), generator=g),
+             "x_lengths": torch.full((B,), T_x),
+             "spec": torch.randn(B, T_y, cfg.posterior_channels, generator=g),
+             "spec_lengths": torch.full((B,), T_y),
+             "wav": torch.randn(B, T_y * hop, 1, generator=g) * 0.1,
+             "sid": torch.tensor([0, 5, 17, 33, 50, 64, 81, 108])}
+    batch = {k: v.to(device) for k, v in batch.items()}
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def fresh_state(path):
+        """A fresh state on `path` whose G optimizer keeps the gradients of
+        its first step."""
+        st = create_train_state(cfg, seeded_synthesizer(cfg, device),
+                                build_mpd(cfg, seed=1, device=device))
+        use_model_path(st.model, path)
+        grads, step_fn = {}, st.opt_g.step
+
+        def record(gr, apply=True):
+            if not grads:
+                grads.update(zip(st.opt_g.names, (x.clone() for x in gr)))
+            return step_fn(gr, apply)
+
+        st.opt_g.step = record
+        return st, grads
+
+    state, gk = fresh_state("kernel")
+    with conditioned_wn_forwards() as gl:
+        history, launches = counted(lambda: [train_step(cfg, state, batch, generator=gen(i))
+                                             for i in range(TRAIN_STEPS)])
+    launches = {n: c for n, c in launches.items() if n != "mrf_fused"}
+    log(f"  {TRAIN_STEPS} ddp steps B={B} T_x={T_x} T_y={T_y}, sids "
+        f"{batch['sid'].tolist()}: launches {launches}; saving WN forwards with gl "
+        f"{gl['gl_saving']} (each followed by the backward kernel's d_gl)")
+    for i, m in enumerate(history):
+        log(f"  step {i}: " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
+        if m["nonfinite"] or not all(map(math.isfinite, m.values())):
+            raise RuntimeError(f"multi-speaker step {i}: non-finite loss or gradient")
+    if not all(launches.values()) or gl["gl_saving"] != launches["wn_group_backward"]:
+        raise RuntimeError(f"the multi-speaker step did not run its kernels with gl: {launches}, "
+                           f"{gl}")
+
+    plain, gp = fresh_state("plain")
+    mp, mk = train_step(cfg, plain, batch, generator=gen(0)), history[0]
+    del plain
+    for key in mk:
+        d = abs(mk[key] - mp[key])
+        log(f"  step 0 {key}: kernel {mk[key]:.6f} plain {mp[key]:.6f} |d|={d:.3e}")
+        if key.startswith("loss") and d > LOSS_RTOL * abs(mp[key]) + LOSS_ATOL:
+            raise RuntimeError(f"multi-speaker {key}: kernel path and plain path disagree")
+    rows = (gk["emb_g.weight"].abs().sum(1) > 0).nonzero().flatten().tolist()
+    log(f"  emb_g rows with a gradient: {rows}")
+    if rows != sorted(batch["sid"].tolist()):
+        raise RuntimeError("emb_g's gradient is not on the rows of the batch's speakers")
+    grad_compare("emb_g gradient, kernel vs plain", gk["emb_g.weight"], gp["emb_g.weight"])
+    for n in ("enc_p.encoder.spk_emb_linear.weight", "dec.cond.weight",
+              "enc_q.enc.cond_layer.weight_v", "flow.flows.0.enc.cond_layer.weight_v"):
+        d, ref = float((gk[n] - gp[n]).abs().max()), float(gp[n].abs().max())
+        log(f"  {n} gradient: max |kernel - plain| {d:.3e}, max |plain| {ref:.3e}")
+    del gk, gp
+    times = {}
+    for path in ("plain", "kernel", "kernel", "plain"):
+        use_model_path(state.model, path)
+        times.setdefault(path, []).append(
+            wall_ms(lambda: train_step(cfg, state, batch, generator=gen(7)), warmup=0, reps=1))
+    use_model_path(state.model, "kernel")
+    busy = profile_busy_ms(lambda: train_step(cfg, state, batch, generator=gen(7)))
+    for path, ts in times.items():
+        log(f"  multi-speaker train step B={B} T_y={T_y} {path}: {statistics.median(ts):.1f} "
+            f"ms/step on the host clock (turns {', '.join(f'{t:.1f}' for t in ts)})"
+            + (f"; device busy {busy:.1f} ms/step" if path == "kernel" else "") + f" [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ms_trainer(cfg, device, card: str, tmp: str):
+    """The multi-speaker recipe through the train CLI on a synthetic corpus
+    of MS_TRAINER_SPEAKERS speakers in the `audio|sid|text` filelist form:
+    one epoch, then a resume for a second, checked bit for bit."""
+    import torch
+
+    from torch_tts_tpu_torch.cli import vits2_train as cli
+    from torch_tts_tpu_torch.data.dataset import TextAudioDataset
+    from torch_tts_tpu_torch.data.sampler import DistributedBucketSampler
+    from torch_tts_tpu_torch.train import checkpoint
+    from torch_tts_tpu_torch.train.vits2_trainer import BUCKET_BOUNDARIES
+    from torch_tts_tpu_torch.utils.logging_utils import Recorder
+
+    corpus = os.path.join(tmp, "ms_corpus")
+    write_corpus(corpus, MS_TRAINER_CLIPS, cfg.audio.sampling_rate, seed=1)
+    with open(os.path.join(corpus, "metadata.csv")) as f:
+        rows = [line.split("|") for line in f.read().splitlines()]
+    filelist = os.path.join(corpus, "filelist.txt")
+    with open(filelist, "w") as f:
+        f.write("\n".join(f"{os.path.join(corpus, 'wavs', r[0] + '.wav')}|"
+                          f"{i % MS_TRAINER_SPEAKERS}|{r[1]}" for i, r in enumerate(rows)))
+    # one evaluate() and checkpoint an epoch: the CLI's split, the sampler's steps
+    full = TextAudioDataset.from_filelist(filelist, cfg.audio, cfg.data)
+    train_items, _ = cli.split_train_val(full.items, 100, 1234)
+    spe = len(DistributedBucketSampler(TextAudioDataset(train_items, cfg.audio, cfg.data).lengths,
+                                       cfg.train.batch_size, BUCKET_BOUNDARIES))
+    config = os.path.join(tmp, "multispeaker.json")
+    with open(config, "w") as f:
+        json.dump({"model": dataclasses.asdict(cfg.model),
+                   "data": {**dataclasses.asdict(cfg.data), **dataclasses.asdict(cfg.audio)},
+                   "train": {**dataclasses.asdict(cfg.train), "log_interval": 1,
+                             "eval_interval": spe}}, f)
+    run_dir = os.path.join(tmp, "run_ms")
+    writers = []
+
+    def recorder(log_dir):
+        writers.append(Recorder())
+        return writers[-1]
+
+    def run(epochs):
+        writers.clear()
+        tr, counts = counted(lambda: cli.main(
+            ["-c", config, "-m", run_dir, "--filelist", filelist, "--epochs", str(epochs),
+             "--device", str(device)], make_writer=recorder))
+        logged = [(t, v) for t, vals in writers[0].scalars.items() for _, v in vals]
+        if not logged or not all(math.isfinite(v) for _, v in logged):
+            raise RuntimeError("non-finite losses in the multi-speaker trainer's log")
+        sps = [v for _, v in writers[0].scalars["perf/steps_per_s"]]
+        log(f"  trainer to epoch {epochs} ({spe} steps an epoch, step {tr.state.step}): launches "
+            f"{counts}; steps/s {', '.join(f'{v:.2f}' for v in sps)}; evaluate() "
+            f"{tr.eval_s:.2f} s [{card}]")
+        return tr, counts
+
+    t0 = time.perf_counter()
+    tr, launches = run(1)
+    if tr.state.step != spe or spe < 1 or tr.cfg.model.n_speakers != MULTISPEAKER["n_speakers"]:
+        raise RuntimeError(f"the multi-speaker trainer took {tr.state.step} steps, not {spe}")
+    path = checkpoint.latest_checkpoint(run_dir)
+    saved = checkpoint.load_file(path)
+    if "emb_g.weight" not in saved["model"] or tree_mismatches(
+            saved, checkpoint.state_tree(tr.state)):
+        raise RuntimeError(f"the checkpoint {path} does not hold the multi-speaker state")
+    del tr, saved
+    restore, restored = checkpoint.restore_checkpoint, {}
+
+    def checked_restore(p, state, lenient=True):
+        out = restore(p, state, lenient)
+        restored["step"] = state.step
+        restored["mismatches"] = tree_mismatches(checkpoint.state_tree(state),
+                                                 checkpoint.load_file(p))
+        return out
+
+    checkpoint.restore_checkpoint = checked_restore
+    try:
+        tr, counts = run(2)
+    finally:
+        checkpoint.restore_checkpoint = restore
+    if restored.get("step") != spe or restored["mismatches"] or tr.state.step != 2 * spe:
+        raise RuntimeError(f"the multi-speaker resume did not restore the saved state: {restored}")
+    log(f"  trainer resume at step {spe}: parameters (emb_g included) and moments equal to the "
+        f"checkpoint bit for bit -> ok; {time.perf_counter() - t0:.1f} s for both runs")
+    for n, c in counts.items():
+        launches[n] += c
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel of the multi-speaker trainer did not launch: {launches}")
+    del tr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def narrow_defaults(device, card: str):
+    """Fault 1's card check: a VITS2 narrower than the kernels take in
+    places (hidden 128: no WN kernel; upsample_initial_channel 256: a
+    16-channel decoder stage) runs `infer` and one train step on the card's
+    defaults, and matches the plain path."""
+    import torch
+
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.text import symbols
+    from torch_tts_tpu_torch.train.vits2_train import build_mpd, create_train_state, train_step
+
+    base = VITS2Config()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, **NARROW))
+    model = seeded_synthesizer(cfg, device)
+    g = torch.Generator().manual_seed(5)
+    x = torch.randint(1, len(symbols), (2, 128), generator=g).to(device)
+    xl = torch.tensor([128, 97], device=device)
+
+    def infer():
+        return model.infer(x, xl, noise_scale=0.667, noise_scale_w=0.8, max_frames=512,
+                           generator=torch.Generator(device=device).manual_seed(0))
+
+    use_model_path(model, "kernel")
+    out, launches = counted(infer)
+    use_model_path(model, "plain")
+    ref = infer()
+    use_model_path(model, "kernel")
+    diff = float((out[0] - ref[0]).abs().max())
+    log(f"  narrow VITS2 {NARROW}, infer B=2 on the defaults: launches {launches}; max "
+        f"|audio_defaults - audio_plain| {diff:.3e} (bound {AUDIO_ATOL:g})")
+    if (not torch.equal(out[4], ref[4]) or diff > AUDIO_ATOL or launches["mrf_fused"] == 0
+            or launches["wn_group"]):
+        raise RuntimeError("the narrow model's defaults did not take the kernels the gates allow, "
+                           "or disagree with the plain path")
+    del model
+    B, T_x, T_y = 4, 96, 400
+    batch = {"x": torch.randint(1, len(symbols), (B, T_x), generator=g),
+             "x_lengths": torch.tensor([96, 90, 80, 70]),
+             "spec": torch.randn(B, T_y, cfg.posterior_channels, generator=g),
+             "spec_lengths": torch.tensor([400, 380, 350, 300]),
+             "wav": torch.randn(B, T_y * cfg.audio.hop_length, 1, generator=g) * 0.1}
+    res = {}
+    for path in ("kernel", "plain"):
+        model = seeded_synthesizer(cfg, device)
+        use_model_path(model, path)
+        st = create_train_state(cfg, model, build_mpd(cfg, seed=1, device=device))
+        res[path], counts = counted(lambda: train_step(
+            cfg, st, batch, generator=torch.Generator(device=device).manual_seed(1)))
+        if path == "kernel":
+            log(f"  narrow VITS2 train step B={B} T_y={T_y} on the defaults: launches {counts}")
+            if counts["maximum_path"] != 1 or counts["wn_group"]:
+                raise RuntimeError(f"the narrow train step's kernels: {counts}")
+            launches = {n: c + counts[n] for n, c in launches.items()}
+        del st, model
+    for key in res["kernel"]:
+        d = abs(res["kernel"][key] - res["plain"][key])
+        if key.startswith("loss") and d > LOSS_RTOL * abs(res["plain"][key]) + LOSS_ATOL:
+            raise RuntimeError(f"narrow train step {key}: the defaults and the plain path disagree")
+    log(f"  narrow train step: every loss term within {LOSS_RTOL:g} * |plain| + {LOSS_ATOL:g} of "
+        f"the plain path's (loss/g/total {res['kernel']['loss/g/total']:.6f} against "
+        f"{res['plain']['loss/g/total']:.6f}) [{card}]")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def multispeaker_phase(device, card: str, tmp: str):
+    """The multi-speaker model at the full width of
+    configs/vits2-multispeaker.yaml, seeded: infer, voice conversion, three
+    train steps, the trainer through its CLI; then fault 1's card check.
+    Returns the path's launch counts (each part counted on its own)."""
+    cfg = multispeaker_config()
+    t0 = time.perf_counter()
+    model = seeded_synthesizer(cfg, device)
+    log(f"multi-speaker phase: {MULTISPEAKER}, {sum(p.numel() for p in model.parameters())} "
+        f"params, seeded init {time.perf_counter() - t0:.1f} s")
+    parts = [ms_infer(model, cfg, device, card), ms_voice_conversion(model, cfg, device, card)]
+    del model
+    parts += [ms_train(cfg, device, card), ms_trainer(cfg, device, card, tmp),
+              narrow_defaults(device, card)]
+    launches = {}
+    for p in parts:
+        for n, c in p.items():
+            launches[n] = launches.get(n, 0) + c
+    log(f"  launch counts on the multi-speaker path: {launches}")
+    return launches
+
+
 def main():
     import torch
 
@@ -1704,15 +2179,18 @@ def main():
     by_path["training"] = timed("training", train_phase, device, card)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["trainer"] = timed("trainer", trainer_phase, device, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["multi-speaker"] = timed("multi-speaker", multispeaker_phase, device, card, tmp)
     by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
     by_path["lltm"] = timed("lltm", lltm_phase, device, card)
     # launches: the last of these paths that runs the kernel (wn_group: the
-    # train step's), plus the trainer path's
+    # train step's), plus the trainer's and the multi-speaker path's
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for n, c in by_path["trainer"].items():
-        launches[n] += c
+    for p in ("trainer", "multi-speaker"):
+        for n, c in by_path[p].items():
+            launches[n] += c
     # the fused step is on no model path: its count is the kernel phase's
     launches["taco_step_fused"] = stats["taco_step_fused"]["launches"]
     by_path["kernel phase"] = {"taco_step_fused": launches["taco_step_fused"]}

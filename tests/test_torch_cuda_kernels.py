@@ -468,6 +468,41 @@ def test_default_synthesizer_runs_both_inference_kernels(cuda_device, monkeypatc
 
 
 @pytest.mark.cuda
+def test_narrow_synthesizer_runs_on_the_card_defaults(cuda_device, monkeypatch):
+    """A VITS2 at widths the kernels do not take everywhere (hidden 128, a
+    16-channel last decoder stage) runs `infer` on the card's defaults: the
+    model sends the WN stacks and that stage to their plain paths, the other
+    stages to the MRF kernel, and the audio matches the plain path's."""
+    import dataclasses
+
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.models.vits2 import build_synthesizer
+    from torch_tts_tpu_torch.text import symbols
+
+    monkeypatch.delenv("TTS_FUSED_WN", raising=False)
+    base = VITS2Config()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, hidden_channels=128, upsample_initial_channel=256))
+    model = build_synthesizer(cfg, len(symbols), seed=0, device=cuda_device)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randint(1, len(symbols), (2, 40), generator=g).to(cuda_device)
+    lengths = torch.tensor([40, 31], device=cuda_device)
+
+    def run():
+        return model.infer(x, lengths, max_frames=256,
+                           generator=torch.Generator(device=cuda_device).manual_seed(0))
+
+    before = (mrf_fused.launches, wn_group.launches)
+    out = run()
+    torch.cuda.synchronize()
+    assert mrf_fused.launches > before[0] and wn_group.launches == before[1]
+    model.dec.fuse_mrf = False
+    ref = run()
+    assert torch.equal(out[4], ref[4])
+    assert float((out[0] - ref[0]).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B", [9, 16])
 def test_tacotron_decodes_more_than_eight_rows(cuda_device, B):
     """Tacotron inference at B > 8 on the card: the step kernel in groups of

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port (torch_tts_tpu_torch).
 
-- Importing every module of the package leaves jax out of sys.modules
+- Importing every module of the package (the voice conversion CLI among
+  them) leaves jax out of sys.modules
   (checked in a fresh interpreter), and no module of the package, nor
   chip_smoke.py, imports the JAX package `torch_tts_tpu` (an AST scan).
 - Entry points default to the card: `build_synthesizer`, `build_mpd`,
@@ -54,7 +55,8 @@ def test_package_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 25
+    assert "torch_tts_tpu_torch.cli.vits2_vc" in modules
+    assert len(modules) >= 45
 
 
 def _imported_modules(path: pathlib.Path):
@@ -70,7 +72,8 @@ def test_port_never_imports_the_jax_package():
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
            if m.split(".")[0] in ("torch_tts_tpu", "jax", "jaxlib", "flax", "optax")]
     assert not bad, bad
-    assert len(files) >= 35
+    assert ROOT / "torch_tts_tpu_torch" / "cli" / "vits2_vc.py" in files
+    assert len(files) >= 59
 
 
 def test_entry_points_default_to_the_card():
@@ -78,14 +81,14 @@ def test_entry_points_default_to_the_card():
     from torch_tts_tpu_torch.cli import tacotron_infer, vits2_infer
     from torch_tts_tpu_torch.models.tacotron import build_tacotron
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
-    from torch_tts_tpu_torch.cli import vits2_train
+    from torch_tts_tpu_torch.cli import vits2_train, vits2_vc
     from torch_tts_tpu_torch.train.vits2_train import build_dur_disc, build_mpd
     from torch_tts_tpu_torch.train.vits2_trainer import VITS2Trainer, build_models
 
     for fn in (build_synthesizer, build_mpd, build_dur_disc, build_models, VITS2Trainer,
                build_tacotron, AudioFrontend):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for cli in (vits2_infer, tacotron_infer, vits2_train):
+    for cli in (vits2_infer, tacotron_infer, vits2_train, vits2_vc):
         assert "default='cuda'" in inspect.getsource(cli.main) or \
             'default="cuda"' in inspect.getsource(cli.main)
     # the mel frontend and the LLTM cell run where their input lies

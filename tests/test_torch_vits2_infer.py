@@ -11,7 +11,10 @@ DurationPredictor, flow reverse on JAX's own z_p, decoder (both
 whole `infer` at noise 0 for use_sdp True and False with max_frames below
 and above the 128-frame patch window. Tolerances: fp32 rtol 1e-4,
 atol 1e-5 per module; durations and attn exactly equal; waveform
-atol 1e-4.
+atol 1e-4. This file holds the SDP model's cases;
+tests/test_torch_vits2_infer_dp.py runs the same tests on the
+deterministic duration predictor's (split so that no port test file
+queues ahead of the suite's longest under `--dist loadfile`).
 """
 
 import contextlib
@@ -91,9 +94,9 @@ def injected_noise(table):
         jax.random.normal = orig
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["sdp", "dp"])
-def pair(request):
-    use_sdp = request.param
+def build_pair(use_sdp):
+    """The JAX model and the port's on the same weights, inputs, noise and
+    the JAX references, for use_sdp True or False."""
     rng = np.random.default_rng(7 if use_sdp else 8)
     jcfg = JaxModelConfig(use_sdp=use_sdp, **CFG_KW)
     jmodel, params = init_params(jcfg, rng)
@@ -135,6 +138,13 @@ def pair(request):
                                                              jnp.asarray([30, 21]))
     ref = jax.tree.map(np.asarray, ref)
     return dict(model=model, ids=ids, noise=noise, spec=spec, ref=ref, use_sdp=use_sdp)
+
+
+@pytest.fixture(scope="module", params=[True], ids=["sdp"])
+def pair(request):
+    """The SDP model's pair; the deterministic duration predictor's runs the
+    same tests in tests/test_torch_vits2_infer_dp.py."""
+    return build_pair(request.param)
 
 
 def _t(a):

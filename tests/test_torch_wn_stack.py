@@ -14,11 +14,12 @@ ops/wavenet.py) against the JAX package.
   `jax.vjp(wn_group_ref)`, with and without conditioning; a 16-layer
   `wn_stack` (four chained groups) gives JAX's gradients (rtol 1e-4,
   atol 1e-5).
-- The forward and backward kernels' products replayed in 3xTF32 on the
-  CPU stay within 1e-5 of the plain group, where 1xTF32 does not; the
-  forward's planner picks its window and cluster size as stated.
-- A CPU tensor takes the plain version and launches nothing (the kernels on
-  a card: tests/test_torch_cuda_kernels.py).
+- In tests/test_torch_wn_stack_kernel.py: the forward and backward
+  kernels' products replayed in 3xTF32 on the CPU stay within 1e-5 of the
+  plain group, where 1xTF32 does not; the forward's planner picks its
+  window and cluster size as stated; a CPU tensor takes the plain version
+  and launches nothing (the kernels on a card:
+  tests/test_torch_cuda_kernels.py).
 """
 
 import numpy as np
@@ -32,11 +33,8 @@ from torch_tts_tpu.kernels.wn_stack import (_wn_group_pallas, _wn_group_pallas_b
                                             wn_group_ref)
 from torch_tts_tpu.kernels.wn_stack import wn_stack as jax_wn_stack
 from torch_tts_tpu.ops.wavenet import WN as JaxWN
-from torch_tts_tpu_torch.kernels.wn_stack import (wn_group, wn_group_backward,
-                                                  wn_group_backward_plain, wn_group_plain,
-                                                  wn_stack)
+from torch_tts_tpu_torch.kernels.wn_stack import supports, wn_group_backward, wn_group_plain, wn_stack
 from torch_tts_tpu_torch.models.vits2.convert import state_dict_from_jax_params
-from torch_tts_tpu_torch.kernels.mrf_fused import split_tf32
 from torch_tts_tpu_torch.ops.wavenet import WN, fused_wn_default
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -88,8 +86,11 @@ def test_plain_group_matches_pallas_interpret_and_ref(T, tile, with_gl):
 @pytest.mark.parametrize("gin", [0, 6])
 @pytest.mark.parametrize("L", [4, 6])
 def test_fused_wn_matches_jax(L, gin):
+    """At H = 192, a width the kernels take (`wn_stack.supports`), so the
+    port's WN takes its fused path (on the CPU the plain group)."""
     rng = np.random.default_rng(1)
-    B, T, H = 2, 41, 16
+    B, T, H = 2, 41, 192
+    assert supports(H, 5)
     x = rng.standard_normal((B, T, H)).astype(np.float32)
     mask = (np.arange(T)[None, :, None] < np.array([T, 30])[:, None, None]).astype(np.float32)
     g = rng.standard_normal((B, 1, gin)).astype(np.float32) if gin else None
@@ -113,12 +114,14 @@ def test_fused_default_reads_env(monkeypatch):
     """fused=None follows TTS_FUSED_WN at call time when it is set, with no
     shape gate: the B=1, L=4 flow shape takes the stack path when the env
     asks for it. Unset, the default is the fused group on a CUDA device and
-    the layerwise path on the CPU."""
+    the layerwise path on the CPU. At H = 192, a width the kernels take
+    (`wn_stack.supports`; another width takes the layerwise path whatever
+    the env says)."""
     calls = []
     monkeypatch.setattr("torch_tts_tpu_torch.ops.wavenet.wn_stack",
                         lambda *a, **k: calls.append(1) or wn_group_plain(*a)[1])
-    wn = WN(8, 5, 1, 4).eval()
-    x, m = torch.randn(1, 8, 10), torch.ones(1, 1, 10)
+    wn = WN(192, 5, 1, 4).eval()
+    x, m = torch.randn(1, 192, 10), torch.ones(1, 1, 10)
     monkeypatch.setenv("TTS_FUSED_WN", "0")
     wn(x, m)
     assert not calls
@@ -180,152 +183,3 @@ def test_sixteen_layer_stack_gradients_match_jax():
     (out * torch.from_numpy(cot)).sum().backward()
     for t, w in zip(tins, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
-
-
-def test_backward_plain_is_autograd_of_plain_group():
-    args = tuple(map(_t, _group_inputs(np.random.default_rng(6), B=1, T=12)))
-    d_xo, d_sk = torch.randn(1, 12, 8), torch.randn(1, 12, 8)
-    before = wn_group_backward.launches
-    got = wn_group_backward(*args, d_xo, d_sk)
-    assert wn_group_backward.launches == before
-    for a, b in zip(got, wn_group_backward_plain(*args, d_xo, d_sk)):
-        assert torch.equal(a, b)
-
-
-def test_cpu_tensor_takes_plain_version():
-    args = tuple(map(_t, _group_inputs(np.random.default_rng(2), B=1, T=20)))
-    before = wn_group.launches
-    out = wn_group(*args)
-    assert wn_group.launches == before
-    for a, b in zip(out, wn_group_plain(*args)):
-        assert torch.equal(a, b)
-
-
-def test_plan_forward_splits_wider_when_one_wave_holds_the_grid():
-    """The forward's planner: 64-row windows (a halo share of at most 25%
-    at the flows' k=5, L=4); 4-CTA clusters when every tile fits in one
-    wave of them (the H100 holds 30 at once: B=1, T=1024 gives 88 CTAs),
-    3-CTA clusters over several waves, and 4-CTA clusters where the 3-CTA
-    CTA does not fit in shared memory; a halo that leaves no frames
-    raises."""
-    from torch_tts_tpu_torch.kernels.wn_stack import (SMEM_BYTES, forward_smem_bytes,
-                                                      plan_forward)
-
-    p = plan_forward(1, 1024, 5, 4, one_wave=30)
-    assert (p.cluster, p.frames, p.tiles, p.ctas) == (4, 48, 22, 88)
-    assert p.halo_share <= 0.25
-    assert plan_forward(1, 1024, 5, 4).cluster == 3  # no occupancy given: several waves
-    assert plan_forward(8, 1000, 5, 4, one_wave=30).ctas == 8 * 21 * 3
-    for k in (3, 5, 9, 11, 13, 15):
-        p = plan_forward(2, 300, k, 4)
-        assert p.frames == 64 - 8 * (k - 1) // 2 and forward_smem_bytes(p.cluster, k) <= SMEM_BYTES
-    assert plan_forward(2, 300, 13, 4).cluster == 4  # the 3-CTA CTA does not fit k=13
-    with pytest.raises(ValueError):
-        plan_forward(1, 100, 15, 5)  # 2 x 5 x 7 halo rows leave none of 64
-
-
-def _mm_3xtf32(a, b):
-    """a @ b as the backward kernel's tensor cores form it: small terms first."""
-    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
-    return al @ bh + ah @ bl + ah @ bh
-
-
-def _shift(a, s):
-    """out[:, t] = a[:, t + s] inside [0, T), zero outside."""
-    out = torch.zeros_like(a)
-    T = a.shape[1]
-    lo, hi = max(0, -s), min(T, T - s)
-    if lo < hi:
-        out[:, lo:hi] = a[:, lo + s:hi + s]
-    return out
-
-
-def _replay_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, mm):
-    """The backward kernel's algorithm on the CPU: the saving forward, then
-    per layer in reverse the four products (each through `mm`) and the bias
-    sums as products with a row of ones, per batch item for the weights."""
-    B, T, H = x.shape
-    L, k = w_in.shape[:2]
-    p = (k - 1) // 2
-    xs, x_ins = [], []
-    for i in range(L):  # the saving forward (fp32)
-        xs.append(x)
-        x_in = sum(_shift(x, t - p) @ w_in[i, t] for t in range(k)) + b_in[i]
-        if gl is not None:
-            x_in = x_in + gl[:, i][:, None]
-        x_ins.append(x_in)
-        rs = (torch.tanh(x_in[..., :H]) * torch.sigmoid(x_in[..., H:])) @ w_rs[i] + b_rs[i]
-        x = (x + rs[..., :H]) * mask
-    ones = torch.ones(1, T)
-    d, out = d_xo, {"d_w_in": [], "d_b_in": [], "d_w_rs": [], "d_b_rs": [], "d_gl": []}
-    for i in reversed(range(L)):
-        d_rs = torch.cat([d * mask, d_sk * mask], -1)
-        t = torch.tanh(x_ins[i][..., :H])
-        s = torch.sigmoid(x_ins[i][..., H:])
-        d_acts = mm(d_rs.reshape(-1, 2 * H), w_rs[i].t()).reshape(B, T, H)
-        d_xin = torch.cat([d_acts * s * (1 - t * t), d_acts * t * s * (1 - s)], -1)
-        acts = t * s
-        d = d_rs[..., :H] + mm(torch.cat([_shift(d_xin, p - tau) for tau in range(k)], -1)
-                               .reshape(-1, k * 2 * H),
-                               w_in[i].permute(0, 2, 1).reshape(k * 2 * H, H)).reshape(B, T, H)
-        a_in = torch.cat([_shift(xs[i], tau - p) for tau in range(k)], -1)  # [B, T, k H]
-        parts_in = [mm(torch.cat([a_in[b].t(), ones], 0), d_xin[b]) for b in range(B)]
-        parts_rs = [mm(torch.cat([acts[b].t(), ones], 0), d_rs[b]) for b in range(B)]
-        part_in, part_rs = sum(parts_in), sum(parts_rs)
-        out["d_w_in"].insert(0, part_in[:-1].reshape(k, H, 2 * H))
-        out["d_b_in"].insert(0, part_in[-1])
-        out["d_gl"].insert(0, torch.stack([q[-1] for q in parts_in]))
-        out["d_w_rs"].insert(0, part_rs[:-1])
-        out["d_b_rs"].insert(0, part_rs[-1])
-    stack = {n: torch.stack(v) for n, v in out.items()}
-    return (d, stack["d_gl"].transpose(0, 1) if gl is not None else None, stack["d_w_in"],
-            stack["d_b_in"], stack["d_w_rs"], stack["d_b_rs"])
-
-
-def test_backward_replay_in_3xtf32_matches_plain():
-    """The backward kernel's products replayed in 3xTF32 (every product and
-    bias sum split into hi and lo TF32 parts) stay within 1e-5 of autograd
-    through the plain group; with the hi parts alone (1xTF32) they do not."""
-    args = tuple(map(_t, _group_inputs(np.random.default_rng(7), B=2, T=21, H=8, L=2)))
-    d_xo, d_sk = (torch.from_numpy(np.random.default_rng(8).standard_normal((2, 21, 8))
-                                   .astype(np.float32)) for _ in range(2))
-    want = wn_group_backward_plain(*args, d_xo, d_sk)
-    got = _replay_backward(*args, d_xo, d_sk, _mm_3xtf32)
-    for name, g, w in zip(GRAD_NAMES, got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
-    one = _replay_backward(*args, d_xo, d_sk, lambda a, b: split_tf32(a)[0] @ split_tf32(b)[0])
-    assert max(float((g - w).abs().max()) for g, w in zip(one, want)) > 1e-4
-
-
-def _replay_forward(x, mask, gl, w_in, b_in, w_rs, b_rs, mm):
-    """The forward kernel's algorithm on the CPU: per layer the k-tap conv
-    as one product over the taps' shifted inputs and the 1x1 as another
-    (each through `mm`), the gate on the conv's columns; the skip half's
-    products summed over the layers before the summed biases and the mask."""
-    B, T, H = x.shape
-    L, k = w_in.shape[:2]
-    p = (k - 1) // 2
-    skip = torch.zeros(B * T, H)
-    for i in range(L):
-        a_conv = torch.cat([_shift(x, t - p) for t in range(k)], -1).reshape(-1, k * H)
-        x_in = mm(a_conv, w_in[i].reshape(k * H, 2 * H)) + b_in[i]
-        if gl is not None:
-            x_in = x_in + gl[:, i].repeat_interleave(T, 0)
-        acts = torch.tanh(x_in[:, :H]) * torch.sigmoid(x_in[:, H:])
-        rs = mm(acts, w_rs[i])
-        x = (x + (rs[:, :H] + b_rs[i, :H]).reshape(B, T, H)) * mask
-        skip = skip + rs[:, H:]
-    return x, (skip + b_rs[:, H:].sum(0)).reshape(B, T, H) * mask
-
-
-def test_forward_replay_in_3xtf32_matches_plain():
-    """The forward kernel's products replayed in 3xTF32 stay within 1e-5 of
-    the plain group, with conditioning and ragged lengths; with the hi parts
-    alone (1xTF32) they do not."""
-    args = tuple(map(_t, _group_inputs(np.random.default_rng(9), B=2, T=21, H=8, L=3)))
-    want = wn_group_plain(*args)
-    got = _replay_forward(*args, _mm_3xtf32)
-    for name, g, w in zip(("x_out", "skip"), got, want):
-        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5, msg=name)
-    one = _replay_forward(*args, lambda a, b: split_tf32(a)[0] @ split_tf32(b)[0])
-    assert max(float((g - w).abs().max()) for g, w in zip(one, want)) > 1e-4

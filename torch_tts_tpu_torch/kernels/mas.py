@@ -52,6 +52,17 @@ def smem_parts(T_y: int, T_x: int):
     return (64 + 2 * BLOCK * 32 * cpl * 4, T_y * 4, -(-T_y // BLOCK) * cpl * 32 * 4)
 
 
+def supports(T_y: int, T_x: int) -> bool:
+    """Whether the kernel takes a [T_y, T_x] problem: at most MAX_TEXT
+    columns, and the ring with the path's row index in shared memory (the
+    move bits go to global memory when they do not fit beside them). The
+    rule a model checks before it sends MAS to the kernel."""
+    if T_x > MAX_TEXT:
+        return False
+    ring, rec, _ = smem_parts(T_y, T_x)
+    return ring + rec <= SMEM_BYTES
+
+
 def maximum_path_plain(neg_cent: torch.Tensor, t_ys: torch.Tensor,
                        t_xs: torch.Tensor) -> torch.Tensor:
     """Port of `maximum_path_scan`: neg_cent [B, T_y, T_x] fp32, lengths [B]
@@ -87,11 +98,10 @@ def maximum_path_plain(neg_cent: torch.Tensor, t_ys: torch.Tensor,
 
 def _maximum_path_cuda(nc: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor) -> torch.Tensor:
     B, T_y, T_x = nc.shape
-    if T_x > MAX_TEXT:
-        raise ValueError(f"maximum_path: T_x={T_x} above the kernel's {MAX_TEXT}")
+    if not supports(T_y, T_x):
+        raise ValueError(f"maximum_path: [T_y, T_x] = [{T_y}, {T_x}] is not taken by the kernel "
+                         f"(T_x at most {MAX_TEXT}; T_y's row index in shared memory)")
     ring, rec, bits_bytes = smem_parts(T_y, T_x)
-    if ring + rec > SMEM_BYTES:
-        raise ValueError(f"maximum_path: T_y={T_y} too long for the row index in shared memory")
     bits = None
     if ring + rec + bits_bytes > SMEM_BYTES:  # the move bits go to global memory
         bits = torch.empty(B, bits_bytes // 4, dtype=torch.int32, device=nc.device)

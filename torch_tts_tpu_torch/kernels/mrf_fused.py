@@ -203,13 +203,20 @@ def plan_mrf(offsets: Sequence[Sequence[Tuple[Tuple[int, ...], Tuple[int, ...]]]
     return tuple(launches)
 
 
+def supports(C: int, max_taps: int = 1) -> bool:
+    """Whether the kernel takes a bank of C channels whose convs have at
+    most `max_taps` taps: the rule a model checks before it sends a bank to
+    `mrf_fused`."""
+    return C in SUPPORTED_CHANNELS and max_taps <= _MAX_TAPS
+
+
 def _check_cuda_args(x: torch.Tensor, blocks):
     if (x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous()
             or x.data_ptr() % 16):
         raise ValueError("mrf_fused: x must be a contiguous, 16-byte aligned fp32 "
                          "[B, T, C] tensor")
     C = x.shape[2]
-    if C not in SUPPORTED_CHANNELS:
+    if not supports(C):
         raise ValueError(f"mrf_fused: C={C} not in {SUPPORTED_CHANNELS}")
     for block in blocks:
         for it in block:

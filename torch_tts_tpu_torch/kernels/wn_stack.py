@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch_tts_tpu_torch.kernels import build
 
 SUPPORTED_HIDDEN = (192,)  # every shipped config
+MAX_TAPS = 15  # the largest (odd) conv kernel the forward's shared memory takes
 SMEM_BYTES = 232448  # per-block dynamic shared memory limit on Hopper
 WINDOW = 64  # rows of x a forward CTA holds: one m64 tile of the products
 FORWARD_CLUSTERS = (3, 4)  # the forward's cluster sizes: CTAs that split the 2H columns
@@ -126,13 +127,20 @@ def wn_group_backward_plain(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk):
     return tuple(grads)
 
 
+def supports(H: int, k: int) -> bool:
+    """Whether the kernels take a stack of H hidden channels and k taps:
+    the rule a model checks before it sends a WN to `wn_stack`."""
+    return H in SUPPORTED_HIDDEN and k % 2 == 1 and k <= MAX_TAPS
+
+
 def _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs):
     if x.dim() != 3 or w_in.dim() != 4:
         raise ValueError("wn_group: x must be [B, T, H] and w_in [L, k, H, 2H]")
     B, T, H = x.shape
     L, k = w_in.shape[:2]
-    if H not in SUPPORTED_HIDDEN or k % 2 == 0 or k > 15:
-        raise ValueError(f"wn_group: H={H} (supported {SUPPORTED_HIDDEN}), k={k} (odd, <= 15)")
+    if not supports(H, k):
+        raise ValueError(f"wn_group: H={H} (supported {SUPPORTED_HIDDEN}), "
+                         f"k={k} (odd, <= {MAX_TAPS})")
     shapes = {"x": (x, (B, T, H)), "mask": (mask, (B, T, 1)), "gl": (gl, (B, L, 2 * H)),
               "w_in": (w_in, (L, k, H, 2 * H)), "b_in": (b_in, (L, 2 * H)),
               "w_rs": (w_rs, (L, H, 2 * H)), "b_rs": (b_rs, (L, 2 * H))}

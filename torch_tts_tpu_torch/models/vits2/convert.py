@@ -12,6 +12,10 @@ numpy arrays) loads into this package's `SynthesizerTrn` with
   LayerNorm scale/bias -> gamma/beta; embedding -> weight;
   ElementwiseAffine m/logs [C] -> [C, 1]; `resblock_i_j` -> `resblocks.{i*nk+j}`.
 
+A multi-speaker tree's `emb_g`, `enc_p.encoder.spk_emb_linear`, `dec.cond`,
+`dp.cond` and the WN `cond_layer`s of `enc_q` and of every flow take the
+same rules (embedding, dense, conv, weight-normed conv).
+
 `mpd_state_dict_from_jax_params` does the same for the multi-period
 discriminator (the JAX `export_mpd_torch_state_dict`), and
 `dur_disc_state_dict_from_jax_params` for the duration discriminators

@@ -14,19 +14,22 @@ mask and two log-durations in [B, C, T] and return [prob_r, prob_g],
 each [B, T, 1]. Their names are the reference's
 torch names (`output_layer.0.*` of an `nn.Sequential(Linear, Sigmoid)`);
 V1 also holds the reference's `pre_out_norm_1/2`, which its forward never
-uses (`trained_parameters` leaves them out of the optimizer).
+uses (`trained_parameters` leaves them out of the optimizer). For a
+multi-speaker model they take no speaker embedding: the JAX modules
+declare `gin_channels` and take no g (`torch_tts_tpu/models/vits2/
+discriminators.py:132,150,164`), where the kgoba reference adds a `cond`
+of g; the port follows the JAX package.
 """
 
 from __future__ import annotations
 
-import math
 from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.layers import Conv1d, Conv2d, LayerNorm, _uniform_, leaky_relu
+from torch_tts_tpu_torch.ops.layers import Conv1d, Conv2d, LayerNorm, Linear, leaky_relu
 
 
 def _get_padding(k: int, d: int = 1) -> int:
@@ -107,16 +110,6 @@ class MultiPeriodDiscriminator(nn.Module):
         return y_d_rs, y_d_gs, fmap_rs, fmap_gs
 
 
-class _Linear(nn.Linear):
-    """nn.Linear whose initial weights come from an explicit generator
-    (torch's default bounds, 1 / sqrt(in_features))."""
-
-    def reset_parameters_(self, generator: torch.Generator):
-        bound = 1.0 / math.sqrt(self.in_features)
-        _uniform_(self.weight, bound, generator)
-        _uniform_(self.bias, bound, generator)
-
-
 class _DurationDiscriminator(nn.Module):
     """The layers both versions share; `normed` adds V2's ReLU + LayerNorm
     after each conv."""
@@ -135,7 +128,7 @@ class _DurationDiscriminator(nn.Module):
         self.pre_out_norm_1 = LayerNorm(f)
         self.pre_out_conv_2 = Conv1d(f, f, k, padding=k // 2)
         self.pre_out_norm_2 = LayerNorm(f)
-        self.output_layer = nn.Sequential(_Linear(f, 1), nn.Sigmoid())
+        self.output_layer = nn.Sequential(Linear(f, 1), nn.Sigmoid())
 
     def _act(self, y: torch.Tensor, norm: str) -> torch.Tensor:
         return getattr(self, norm)(torch.relu(y)) if self.normed else y

@@ -1,5 +1,5 @@
-"""VITS2 synthesizer, single-speaker (port of
-`torch_tts_tpu/models/vits2/model.py`), [B, C, T] layout inside.
+"""VITS2 synthesizer (port of `torch_tts_tpu/models/vits2/model.py`),
+[B, C, T] layout inside.
 
 Parameter names are the kgoba reference's torch names, as
 `export_torch_state_dict` emits them, so its state dicts load with
@@ -14,9 +14,22 @@ semantics; `forward` is the training forward and returns the JAX
 explicit `torch.Generator` (dropout masks included), or is passed in as a
 tensor.
 
+Multi-speaker models (`n_speakers > 1`) look up `emb_g(sid)` as g
+[B, gin, 1] and condition on it as the JAX model does: the text encoder
+(with `use_spk_conditioned_encoder`), the posterior encoder's and the
+flows' WN stacks through their `cond_layer`, the duration predictor on a
+detached g, and the decoder's `cond`. `voice_conversion` runs the
+posterior encoder and the flows forward under the source speaker, then the
+flows in reverse and the decoder under the target.
+
+Where a kernel does not take a shape, the model takes the plain path,
+chosen before the call by each kernel module's `supports`: the decoder's
+banks (`mrf_fused.supports`), the WN stacks (`wn_stack.supports`) and MAS
+(`mas.supports`, else `maximum_path_via_plain`).
+
 Ported so far: HiFi-GAN ResBlock1 decoder, `pre_conv` transformer flows,
 SDP (both directions) and deterministic duration predictors, MAS
-(`kernels/mas.py`). Multi-speaker models, the other flow types and
+(`kernels/mas.py`), speaker conditioning. The other flow types and
 MB-iSTFT are not ported yet.
 """
 
@@ -31,7 +44,8 @@ from torch import nn
 
 from torch_tts_tpu_torch.core.config import VITS2Config, VITS2ModelConfig
 from torch_tts_tpu_torch.core.masks import generate_path, rand_slice_segments, sequence_mask
-from torch_tts_tpu_torch.kernels.mas import maximum_path
+from torch_tts_tpu_torch.kernels import mas as mas_kernel
+from torch_tts_tpu_torch.kernels.mas import maximum_path, maximum_path_via_plain
 from torch_tts_tpu_torch.ops.convs import DDSConv
 from torch_tts_tpu_torch.ops.flows import ConvFlow, ElementwiseAffine, Flip, Log
 from torch_tts_tpu_torch.ops.hifigan import Generator
@@ -50,20 +64,21 @@ def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> 
 class TextEncoder(nn.Module):
     def __init__(self, n_vocab: int, out_channels: int, hidden_channels: int,
                  filter_channels: int, n_heads: int, n_layers: int, kernel_size: int,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, gin_channels: int = 0):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.out_channels = out_channels
         self.emb = Embed(n_vocab, hidden_channels, init_std=hidden_channels ** -0.5)
         self.encoder = Encoder(hidden_channels, filter_channels, n_heads, n_layers, kernel_size,
-                               p_dropout=p_dropout)
+                               p_dropout=p_dropout, gin_channels=gin_channels)
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
 
-    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor):
-        """ids [B, T] -> (hx [B, H, T], m, logs [B, D, T], x_mask [B, 1, T])."""
+    def forward(self, x: torch.Tensor, x_lengths: torch.Tensor, g=None):
+        """ids [B, T], g [B, gin, 1] or None -> (hx [B, H, T], m, logs
+        [B, D, T], x_mask [B, 1, T])."""
         emb = self.emb(x) * math.sqrt(self.hidden_channels)
         x_mask = sequence_mask(x_lengths, x.shape[1]).unsqueeze(1).to(emb.dtype)
-        hx = self.encoder(emb.transpose(1, 2) * x_mask, x_mask)
+        hx = self.encoder(emb.transpose(1, 2) * x_mask, x_mask, g=g)
         stats = self.proj(hx) * x_mask
         return hx, stats[:, :self.out_channels], stats[:, self.out_channels:], x_mask
 
@@ -72,16 +87,17 @@ class PosteriorEncoder(nn.Module):
     """1x1 pre -> WN -> (m, logs) -> z = m + eps * exp(logs)."""
 
     def __init__(self, in_channels: int, out_channels: int, hidden_channels: int,
-                 kernel_size: int, dilation_rate: int, n_layers: int):
+                 kernel_size: int, dilation_rate: int, n_layers: int, gin_channels: int = 0):
         super().__init__()
         self.out_channels = out_channels
         self.pre = Conv1d(in_channels, hidden_channels, 1)
-        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
+                      gin_channels=gin_channels)
         self.proj = Conv1d(hidden_channels, out_channels * 2, 1)
 
-    def forward(self, y, y_lengths, noise=None, generator=None):
+    def forward(self, y, y_lengths, g=None, noise=None, generator=None):
         y_mask = sequence_mask(y_lengths, y.shape[2]).unsqueeze(1).to(y.dtype)
-        h = self.enc(self.pre(y) * y_mask, y_mask)
+        h = self.enc(self.pre(y) * y_mask, y_mask, g=g)
         stats = self.proj(h) * y_mask
         m, logs = stats[:, :self.out_channels], stats[:, self.out_channels:]
         eps = noise if noise is not None else _normal(m.shape, m, generator)
@@ -93,7 +109,7 @@ class ResidualCouplingTransformersLayer(nn.Module):
     conditioner; mean-only affine on x1."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
-                 dilation_rate: int, n_layers: int):
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0):
         super().__init__()
         self.half = channels // 2
         # p_dropout 0.1 is the reference's own, whatever the config says
@@ -103,7 +119,8 @@ class ResidualCouplingTransformersLayer(nn.Module):
         self.post_transformer = Encoder(hidden_channels, hidden_channels, 2, 2, 3,
                                         window_size=None)
         self.pre = Conv1d(self.half, hidden_channels, 1)
-        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
+                      gin_channels=gin_channels)
         self.post = Conv1d(hidden_channels, self.half, 1, zero_init=True)
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
@@ -122,14 +139,16 @@ class FlowBlock(nn.Module):
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, n_flows: int = 4,
-                 use_transformer_flows: bool = True, transformer_flow_type: str = "pre_conv"):
+                 use_transformer_flows: bool = True, transformer_flow_type: str = "pre_conv",
+                 gin_channels: int = 0):
         super().__init__()
         if not use_transformer_flows or transformer_flow_type != "pre_conv":
             raise NotImplementedError("only pre_conv transformer flows are ported")
         self.flows = nn.ModuleList()
         for _ in range(n_flows):
             self.flows.append(ResidualCouplingTransformersLayer(
-                channels, hidden_channels, kernel_size, dilation_rate, n_layers))
+                channels, hidden_channels, kernel_size, dilation_rate, n_layers,
+                gin_channels=gin_channels))
             self.flows.append(Flip())
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
@@ -147,7 +166,7 @@ class StochasticDurationPredictor(nn.Module):
     sampled log-durations (reverse)."""
 
     def __init__(self, in_channels: int, filter_channels: int, kernel_size: int,
-                 n_flows: int = 4, p_dropout: float = 0.0):
+                 n_flows: int = 4, p_dropout: float = 0.0, gin_channels: int = 0):
         super().__init__()
         fc = in_channels  # the reference overrides filter_channels
         self.log_flow = Log()
@@ -163,14 +182,19 @@ class StochasticDurationPredictor(nn.Module):
         self.pre = Conv1d(in_channels, fc, 1)
         self.proj = Conv1d(fc, fc, 1)
         self.convs = DDSConv(fc, kernel_size, n_layers=3, p_dropout=p_dropout)
+        if gin_channels > 0:
+            self.cond = Conv1d(gin_channels, fc, 1)
 
-    def forward(self, x, x_mask, w=None, reverse: bool = False, noise_scale: float = 1.0,
-                noise=None, generator=None):
-        """hx [B, H, T] (no gradient flows back into it). Forward: durations
-        w [B, 1, T] -> NLL [B]; noise is e_q [B, 2, T]. Reverse: -> logw
-        [B, 1, T]; noise [B, 2, T]. Noise not given is drawn from
-        `generator`."""
-        x = self.proj(self.convs(self.pre(x.detach()), x_mask)) * x_mask
+    def forward(self, x, x_mask, w=None, g=None, reverse: bool = False,
+                noise_scale: float = 1.0, noise=None, generator=None):
+        """hx [B, H, T] and g [B, gin, 1] or None (no gradient flows back
+        into either). Forward: durations w [B, 1, T] -> NLL [B]; noise is
+        e_q [B, 2, T]. Reverse: -> logw [B, 1, T]; noise [B, 2, T]. Noise
+        not given is drawn from `generator`."""
+        x = self.pre(x.detach())
+        if g is not None:
+            x = x + self.cond(g.detach())
+        x = self.proj(self.convs(x, x_mask)) * x_mask
         if not reverse:
             return self._nll(x, x_mask, w, noise, generator)
         flows = list(reversed(self.flows))
@@ -211,7 +235,7 @@ class StochasticDurationPredictor(nn.Module):
 
 class DurationPredictor(nn.Module):
     def __init__(self, in_channels: int, filter_channels: int, kernel_size: int,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, gin_channels: int = 0):
         super().__init__()
         self.drop = Dropout(p_dropout)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size, padding=kernel_size // 2)
@@ -220,10 +244,15 @@ class DurationPredictor(nn.Module):
                              padding=kernel_size // 2)
         self.norm_2 = LayerNorm(filter_channels)
         self.proj = Conv1d(filter_channels, 1, 1)
+        if gin_channels > 0:
+            self.cond = Conv1d(gin_channels, in_channels, 1)
 
-    def forward(self, x, x_mask):
-        """hx [B, H, T] (no gradient flows back into it) -> logw [B, 1, T]."""
+    def forward(self, x, x_mask, g=None):
+        """hx [B, H, T] and g [B, gin, 1] or None (no gradient flows back
+        into either) -> logw [B, 1, T]."""
         x = x.detach()
+        if g is not None:
+            x = x + self.cond(g.detach())
         x = self.drop(self.norm_1(torch.relu(self.conv_1(x * x_mask))))
         x = self.drop(self.norm_2(torch.relu(self.conv_2(x * x_mask))))
         return self.proj(x * x_mask) * x_mask
@@ -237,38 +266,49 @@ class SynthesizerTrn(nn.Module):
         super().__init__()
         c = cfg
         self.segment_frames = segment_frames
-        if c.n_speakers > 1 or c.gin_channels > 0:
-            raise NotImplementedError("multi-speaker models are not ported yet")
         if c.decoder_type != "hifigan":
             raise NotImplementedError(f"decoder_type {c.decoder_type} is not ported yet")
         self.cfg = cfg
+        gin = c.gin_channels
         self.enc_p = TextEncoder(n_vocab, c.inter_channels, c.hidden_channels,
                                  c.filter_channels, c.n_heads, c.n_layers, c.kernel_size,
-                                 p_dropout=c.p_dropout)
+                                 p_dropout=c.p_dropout,
+                                 gin_channels=gin if c.use_spk_conditioned_encoder else 0)
         self.dec = Generator(c.inter_channels, c.resblock, c.resblock_kernel_sizes,
                              c.resblock_dilation_sizes, c.upsample_rates,
                              c.upsample_initial_channel, c.upsample_kernel_sizes,
-                             fuse_mrf=c.fuse_mrf)
+                             fuse_mrf=c.fuse_mrf, gin_channels=gin)
         self.enc_q = PosteriorEncoder(spec_channels, c.inter_channels, c.hidden_channels,
-                                      5, 1, c.posterior_wn_layers)
+                                      5, 1, c.posterior_wn_layers, gin_channels=gin)
         self.flow = FlowBlock(c.inter_channels, c.hidden_channels, 5, 1, 4,
                               n_flows=c.flow_n_flows,
                               use_transformer_flows=c.use_transformer_flows,
-                              transformer_flow_type=c.transformer_flow_type)
+                              transformer_flow_type=c.transformer_flow_type, gin_channels=gin)
         if c.use_sdp:
             self.dp = StochasticDurationPredictor(c.hidden_channels, 192, 3, 4,
-                                                  p_dropout=c.dp_dropout)
+                                                  p_dropout=c.dp_dropout, gin_channels=gin)
         else:
-            self.dp = DurationPredictor(c.hidden_channels, 256, 3, p_dropout=c.dp_dropout)
+            self.dp = DurationPredictor(c.hidden_channels, 256, 3, p_dropout=c.dp_dropout,
+                                        gin_channels=gin)
+        if c.n_speakers > 1:
+            self.emb_g = Embed(c.n_speakers, gin)
 
-    def forward(self, x, x_lengths, y, y_lengths, mas_noise_scale=None,
+    def _speaker(self, sid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """Speaker ids [B] -> g [B, gin, 1]; None for a single-speaker model
+        or no ids."""
+        if sid is None or self.cfg.n_speakers <= 1:
+            return None
+        return self.emb_g(sid).unsqueeze(2)
+
+    def forward(self, x, x_lengths, y, y_lengths, sid=None, mas_noise_scale=None,
                 generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None, mas_noise: Optional[torch.Tensor] = None,
                 sdp_noise_q: Optional[torch.Tensor] = None,
                 sdp_noise: Optional[torch.Tensor] = None,
                 ids_slice: Optional[torch.Tensor] = None):
         """Training forward (JAX `__call__`). ids [B, T_x]; y [B, T_y,
-        spec_channels] (channels-last, as the JAX batch). Returns
+        spec_channels] (channels-last, as the JAX batch); sid [B] speaker
+        ids or None. Returns
         (o [B, segment_frames*hop, 1], l_length [B], attn [B, T_y, T_x],
         ids_slice [B], x_mask [B, T_x, 1], y_mask [B, T_y, 1],
         (z, z_p, m_p_e, logs_p_e, m_q, logs_q) each [B, T_y, D],
@@ -281,10 +321,11 @@ class SynthesizerTrn(nn.Module):
         noise [B, 2, T_x], segment starts ids_slice [B]. In training mode the
         dropout masks come from `generator` too."""
         set_dropout_generator(self, generator)
-        hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
-        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, noise=eps,
+        g = self._speaker(sid)
+        hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, g=g)
+        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, g=g, noise=eps,
                                             generator=generator)
-        z_p = self.flow(z, y_mask)
+        z_p = self.flow(z, y_mask, g=g)
 
         with torch.no_grad():  # MAS sees no gradient (JAX model.py:633-653)
             s_p_sq_r = torch.exp(-2 * logs_p)  # [B, D, T_x]
@@ -300,45 +341,50 @@ class SynthesizerTrn(nn.Module):
                 # population std over the whole tensor, as jnp.std
                 neg_cent = neg_cent + torch.std(neg_cent, correction=0) * mas_noise * mas_noise_scale
             attn_mask = y_mask.transpose(1, 2) * x_mask  # [B, T_y, T_x]
-            attn = maximum_path(neg_cent, attn_mask)
+            # the kernel where it takes the shape, else the plain version
+            mas = (maximum_path if mas_kernel.supports(*attn_mask.shape[1:])
+                   else maximum_path_via_plain)
+            attn = mas(neg_cent, attn_mask)
 
         w = attn.sum(dim=1, keepdim=True)  # [B, 1, T_x]
         logw_ = torch.log(w + 1e-6) * x_mask
         if self.cfg.use_sdp:
-            l_length = self.dp(hx, x_mask, w=w, noise=sdp_noise_q, generator=generator)
+            l_length = self.dp(hx, x_mask, w=w, g=g, noise=sdp_noise_q, generator=generator)
             l_length = l_length / torch.sum(x_mask)
-            logw = self.dp(hx, x_mask, reverse=True, noise_scale=1.0, noise=sdp_noise,
+            logw = self.dp(hx, x_mask, g=g, reverse=True, noise_scale=1.0, noise=sdp_noise,
                            generator=generator)
         else:
-            logw = self.dp(hx, x_mask)
+            logw = self.dp(hx, x_mask, g=g)
             l_length = torch.sum((logw - logw_) ** 2, dim=(1, 2)) / torch.sum(x_mask)
 
         at = attn.transpose(1, 2)  # [B, T_x, T_y]
         m_p_e, logs_p_e = torch.matmul(m_p, at), torch.matmul(logs_p, at)  # [B, D, T_y]
         z_slice, ids_slice = rand_slice_segments(z, y_lengths, self.segment_frames,
                                                  generator=generator, ids=ids_slice, dim=2)
-        o = self.dec(z_slice)
+        o = self.dec(z_slice, g=g)
         cl = lambda t: t.transpose(1, 2)  # noqa: E731 - [B, C, T] -> [B, T, C]
         return (cl(o), l_length, attn, ids_slice, cl(x_mask), cl(y_mask),
                 tuple(map(cl, (z, z_p, m_p_e, logs_p_e, m_q, logs_q))),
                 (cl(hx), cl(logw), cl(logw_)))
 
     @torch.inference_mode()
-    def infer(self, x, x_lengths, noise_scale: float = 1.0, length_scale: float = 1.0,
+    def infer(self, x, x_lengths, sid=None, noise_scale: float = 1.0, length_scale: float = 1.0,
               noise_scale_w: float = 1.0, max_frames: int = 1000,
               generator: Optional[torch.Generator] = None,
               sdp_noise: Optional[torch.Tensor] = None,
               prior_noise: Optional[torch.Tensor] = None):
-        """ids [B, T_x] -> (audio [B, max_frames*hop, 1], attn [B, T_y, T_x],
-        y_mask [B, T_y, 1], (z, z_p, m_p_e, logs_p_e) each [B, T_y, D],
-        y_lengths [B]). Noise: sdp_noise [B, 2, T_x] and prior_noise
-        [B, D, T_y], or drawn from `generator` on the model's device."""
-        hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths)
+        """ids [B, T_x], sid [B] speaker ids or None -> (audio [B,
+        max_frames*hop, 1], attn [B, T_y, T_x], y_mask [B, T_y, 1], (z, z_p,
+        m_p_e, logs_p_e) each [B, T_y, D], y_lengths [B]). Noise: sdp_noise
+        [B, 2, T_x] and prior_noise [B, D, T_y], or drawn from `generator`
+        on the model's device."""
+        g = self._speaker(sid)
+        hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, g=g)
         if self.cfg.use_sdp:
-            logw = self.dp(hx, x_mask, reverse=True, noise_scale=noise_scale_w,
+            logw = self.dp(hx, x_mask, g=g, reverse=True, noise_scale=noise_scale_w,
                            noise=sdp_noise, generator=generator)
         else:
-            logw = self.dp(hx, x_mask)
+            logw = self.dp(hx, x_mask, g=g)
         w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)
         y_lengths = torch.clamp(torch.sum(w_ceil, dim=(1, 2)), min=1.0).to(torch.int32)
         y_lengths = torch.clamp(y_lengths, max=max_frames)
@@ -350,12 +396,36 @@ class SynthesizerTrn(nn.Module):
         if prior_noise is None:
             prior_noise = _normal(m_p_e.shape, m_p_e, generator)
         z_p = m_p_e + prior_noise * torch.exp(logs_p_e) * noise_scale
-        z = self.flow(z_p, y_mask, reverse=True)
-        o = self._decode_padded(z * y_mask, y_mask, y_lengths, max_frames)
+        z = self.flow(z_p, y_mask, g=g, reverse=True)
+        o = self._decode_padded(z * y_mask, y_mask, y_lengths, max_frames, g=g)
         aux = tuple(t.transpose(1, 2) for t in (z, z_p, m_p_e, logs_p_e))
         return o.transpose(1, 2), attn, y_mask.transpose(1, 2), aux, y_lengths
 
-    def _decode_padded(self, zm, y_mask, y_lengths, max_frames: int):
+    @torch.inference_mode()
+    def voice_conversion(self, y, y_lengths, sid_src, sid_tgt,
+                         generator: Optional[torch.Generator] = None,
+                         eps: Optional[torch.Tensor] = None):
+        """Speaker swap by the flow round trip (JAX `voice_conversion`):
+        y [B, T_y, spec_channels] (channels-last) of speakers sid_src [B] ->
+        (o_hat [B, T_y*hop, 1] in the speakers sid_tgt [B], y_mask
+        [B, T_y, 1], (z, z_p, z_hat) each [B, T_y, D]). The posterior's
+        noise eps [B, D, T_y], or drawn from `generator`. The decode is
+        masked as the JAX model's; where every item fills T_y, the mask is
+        all ones and the decode runs unmasked, with the same values, so the
+        decoder's banks can take their kernel."""
+        if self.cfg.n_speakers <= 1:
+            raise ValueError("voice conversion needs a multi-speaker model")
+        g_src, g_tgt = self._speaker(sid_src), self._speaker(sid_tgt)
+        z, _, _, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, g=g_src, noise=eps,
+                                     generator=generator)
+        z_p = self.flow(z, y_mask, g=g_src)
+        z_hat = self.flow(z_p, y_mask, g=g_tgt, reverse=True)
+        full = bool((y_lengths == y.shape[1]).all())
+        o_hat = self.dec(z_hat * y_mask, x_mask=None if full else y_mask, g=g_tgt)
+        cl = lambda t: t.transpose(1, 2)  # noqa: E731 - [B, C, T] -> [B, T, C]
+        return cl(o_hat), cl(y_mask), (cl(z), cl(z_p), cl(z_hat))
+
+    def _decode_padded(self, zm, y_mask, y_lengths, max_frames: int, g=None):
         """Decode padded latents with exact-length semantics: the bulk is
         decoded unmasked, one masked window of _PATCH_WINDOW frames ending
         at each item's length is decoded again and its last half pasted
@@ -363,10 +433,10 @@ class SynthesizerTrn(nn.Module):
         values as a fully masked decode, at the cost of one small window."""
         T, W = max_frames, self._PATCH_WINDOW
         if T <= W:
-            o = self.dec(zm, x_mask=y_mask)
+            o = self.dec(zm, x_mask=y_mask, g=g)
             return o * torch.repeat_interleave(y_mask, o.shape[2] // T, dim=2)
         keep = W // 2
-        o_bulk = self.dec(zm)
+        o_bulk = self.dec(zm, g=g)
         f = o_bulk.shape[2] // T
         B, C, _ = zm.shape
         yl = y_lengths.to(torch.int64)
@@ -374,7 +444,7 @@ class SynthesizerTrn(nn.Module):
         starts = torch.clamp(yl - W, 0, T - W)
         zwin = torch.gather(zm, 2, (starts[:, None] + ar_w)[:, None, :].expand(B, C, W))
         win_mask = (ar_w[None, :] < (yl - starts)[:, None]).to(zm.dtype)[:, None, :]
-        o_win = self.dec(zwin * win_mask, x_mask=win_mask)
+        o_win = self.dec(zwin * win_mask, x_mask=win_mask, g=g)
         paste_start = torch.clamp(yl - keep, 0, T - keep)
         ar_k = torch.arange(keep * f, device=zm.device)
         o_keep = torch.gather(o_win, 2, ((paste_start - starts) * f)[:, None, None] + ar_k)

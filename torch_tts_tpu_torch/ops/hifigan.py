@@ -9,7 +9,8 @@ the JAX package; the TPU lane-packing path has no counterpart here) and no
 gradient is needed: the kernel has no backward, so a training forward runs
 the plain convolutions. A
 given `x_mask` is threaded through every layer so a padded batch decodes
-as the exact-length sequences would.
+as the exact-length sequences would. With `gin_channels`, a 1x1 `cond`
+conv adds the speaker embedding after `conv_pre`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused
 from torch_tts_tpu_torch.ops.layers import Conv1d, ConvTranspose1d, leaky_relu
 
@@ -72,13 +74,15 @@ class Generator(nn.Module):
                  upsample_rates: Sequence[int] = (8, 8, 2, 2),
                  upsample_initial_channel: int = 512,
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
-                 fuse_mrf: bool = False):
+                 fuse_mrf: bool = False, gin_channels: int = 0):
         super().__init__()
         if resblock != "1":
             raise NotImplementedError("only ResBlock1 generators are ported")
         self.num_kernels = len(resblock_kernel_sizes)
         self.upsample_rates = tuple(upsample_rates)
         self.fuse_mrf = fuse_mrf
+        # the most taps of any conv in a bank (dilation does not add taps)
+        self.max_taps = max(resblock_kernel_sizes)
         self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7, padding=3)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
@@ -89,13 +93,19 @@ class Generator(nn.Module):
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
                 self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
+        if gin_channels > 0:
+            self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
 
-    def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x [B, C_in, T] latent frames -> [B, 1, T * prod(upsample_rates)]."""
+    def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor] = None,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, C_in, T] latent frames, g [B, gin, 1] or None -> [B, 1, T *
+        prod(upsample_rates)]."""
         mask = x_mask
         if mask is not None:
             x = x * mask
         x = self.conv_pre(x)
+        if g is not None:
+            x = x + self.cond(g)
         if mask is not None:
             x = x * mask
         nk = self.num_kernels
@@ -110,7 +120,8 @@ class Generator(nn.Module):
             bank = self.resblocks[i * nk:(i + 1) * nk]
             needs_grad = torch.is_grad_enabled() and (
                 x.requires_grad or any(p.requires_grad for p in bank.parameters()))
-            if self.fuse_mrf and mask is None and x.shape[1] <= 128 and not needs_grad:
+            if (self.fuse_mrf and mask is None and not needs_grad
+                    and mrf_kernel.supports(x.shape[1], self.max_taps)):
                 blocks = tuple(block.kernels() for block in bank)
                 # the kernel works in [B, T, C]; copy back to a contiguous
                 # [B, C, T] so the next convolutions take cuDNN's usual layout

@@ -207,6 +207,24 @@ class LayerNorm(nn.Module):
         return y * self.gamma[None, :, None] + self.beta[None, :, None]
 
 
+class Linear(nn.Module):
+    """Dense layer with nn.Linear's names and layout (`weight` [out, in],
+    `bias` [out]) and its default uniform init, drawn from the generator."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(out_features, in_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def reset_parameters_(self, generator: torch.Generator):
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        _uniform_(self.weight, bound, generator)
+        _uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
 class Embed(nn.Module):
     """Embedding table `weight` [n, features], normal(0, init_std) init."""
 

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm
+from torch_tts_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm, Linear
 
 
 def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
@@ -120,9 +120,12 @@ class Encoder(nn.Module):
 
     def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
                  n_layers: int, kernel_size: int = 1, window_size: Optional[int] = 4,
-                 p_dropout: float = 0.0):
+                 p_dropout: float = 0.0, gin_channels: int = 0, cond_layer_idx: int = 2):
         super().__init__()
         self.drop = Dropout(p_dropout)
+        self.cond_layer_idx = cond_layer_idx if gin_channels > 0 else n_layers
+        if gin_channels > 0:
+            self.spk_emb_linear = Linear(gin_channels, hidden_channels)
         self.attn_layers = nn.ModuleList()
         self.norm_layers_1 = nn.ModuleList()
         self.ffn_layers = nn.ModuleList()
@@ -136,12 +139,15 @@ class Encoder(nn.Module):
                                        kernel_size, p_dropout=p_dropout))
             self.norm_layers_2.append(LayerNorm(hidden_channels))
 
-    def forward(self, x: torch.Tensor, x_mask: torch.Tensor) -> torch.Tensor:
-        """x [B, C, T]; x_mask [B, 1, T]."""
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, C, T]; x_mask [B, 1, T]; g [B, gin, 1] or None."""
         attn_mask = x_mask.unsqueeze(2) * x_mask.unsqueeze(-1)
         x = x * x_mask
-        for attn, norm1, ffn, norm2 in zip(self.attn_layers, self.norm_layers_1,
-                                           self.ffn_layers, self.norm_layers_2):
+        for i, (attn, norm1, ffn, norm2) in enumerate(zip(
+                self.attn_layers, self.norm_layers_1, self.ffn_layers, self.norm_layers_2)):
+            if i == self.cond_layer_idx and g is not None:
+                x = (x + self.spk_emb_linear(g.transpose(1, 2)).transpose(1, 2)) * x_mask
             x = norm1(x + self.drop(attn(x, x, attn_mask)))
             x = norm2(x + self.drop(ffn(x, x_mask)))
         return x * x_mask

@@ -6,7 +6,9 @@ same parameters: layer by layer with `F.conv1d`, or the whole stack through
 `kernels/wn_stack.py` (fused). `fused=None` takes `fused_wn_default` at
 call time: `TTS_FUSED_WN=1` or `0` when set, else fused on a CUDA device
 (the H100 measured the fused group faster than the layerwise path; the JAX
-package's env default of 0 is a TPU verdict) and layerwise on the CPU. The fused path needs dilation 1, an odd kernel, inactive dropout and
+package's env default of 0 is a TPU verdict) and layerwise on the CPU. The
+fused path needs dilation 1, a width and kernel the kernels take
+(`wn_stack.supports`: H = 192, k odd and at most 15), inactive dropout and
 time-broadcast conditioning; otherwise the layerwise path runs.
 """
 
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from torch_tts_tpu_torch.kernels import wn_stack as wn_kernel
 from torch_tts_tpu_torch.kernels.wn_stack import wn_stack
 from torch_tts_tpu_torch.ops.layers import Conv1d, fused_add_tanh_sigmoid_multiply
 
@@ -61,7 +64,8 @@ class WN(nn.Module):
         h = self.hidden_channels
         g_all = self.cond_layer(g) if g is not None else None
         fused = fused_wn_default(x.device) if self.fused is None else self.fused
-        if (fused and self.dilation_rate == 1 and self.kernel_size % 2 == 1
+        if (fused and self.dilation_rate == 1
+                and wn_kernel.supports(self.hidden_channels, self.kernel_size)
                 and (self.p_dropout == 0.0 or not self.training)
                 and (g is None or g.shape[-1] == 1)):
             return self._fused(x, x_mask, g_all)

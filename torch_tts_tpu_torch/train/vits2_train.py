@@ -36,8 +36,13 @@ accumulation the zero joins the window's mean, and on the window's last
 micro-step that update is dropped too. `state.step` (the MAS noise's
 schedule) advances when every network's step was finite, per micro-step.
 
-Not ported (each raises NotImplementedError): bf16, spectral norm, and
-multi-speaker models.
+A multi-speaker config (`n_speakers > 1`) takes the batch's `sid`
+through the training forward, as the JAX step does; its gradient reaches
+`emb_g` through the text encoder's `spk_emb_linear`, every WN
+`cond_layer` (`d_gl` of the WN kernels) and the decoder's `cond`, not
+through the duration predictor (g is detached there).
+
+Not ported (each raises NotImplementedError): bf16 and spectral norm.
 """
 
 from __future__ import annotations
@@ -70,8 +75,6 @@ def check_supported(cfg: VITS2Config):
         raise NotImplementedError("bf16 training is not ported")
     if m.use_spectral_norm:
         raise NotImplementedError("spectral norm is not ported")
-    if m.n_speakers > 1:
-        raise NotImplementedError("multi-speaker training is not ported")
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -259,10 +262,19 @@ def _as_floats(metrics: Dict[str, torch.Tensor], ok: bool) -> Dict[str, float]:
     return out
 
 
+def _batch_on(cfg: VITS2Config, batch: Dict[str, torch.Tensor], dev, keys) -> Dict:
+    """The step's tensors of `batch` on `dev`; `sid` among them for a
+    multi-speaker config (None otherwise, as the JAX step)."""
+    b = {k: v.to(dev) for k, v in batch.items() if k in keys}
+    b["sid"] = batch["sid"].to(dev) if cfg.model.n_speakers > 1 else None
+    return b
+
+
 def train_step(cfg: VITS2Config, state: TrainState, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None, **noise) -> Dict[str, float]:
     """One step in the config's order on `batch` (x [B, T_x], x_lengths,
-    spec [B, T_y, C], spec_lengths, wav [B, L, 1]), on the device of the
+    spec [B, T_y, C], spec_lengths, wav [B, L, 1], and sid [B] for a
+    multi-speaker config), on the device of the
     model's parameters. Random draws come from `generator` unless injected
     through `noise` (SynthesizerTrn.forward's eps, mas_noise, sdp_noise_q,
     sdp_noise, ids_slice). Updates `state` in place; returns the JAX step's
@@ -273,14 +285,13 @@ def train_step(cfg: VITS2Config, state: TrainState, batch: Dict[str, torch.Tenso
     a, m = cfg.audio, cfg.model
     model, mpd = state.model.train(), state.mpd.train()
     dev = next(model.parameters()).device
-    b = {k: v.to(dev) for k, v in batch.items() if k in
-         ("x", "x_lengths", "spec", "spec_lengths", "wav")}
+    b = _batch_on(cfg, batch, dev, ("x", "x_lengths", "spec", "spec_lengths", "wav"))
     mas_noise = (max(m.mas_noise_scale_initial - m.noise_scale_delta * state.step, 0.0)
                  if m.use_noise_scaled_mas else None)
 
     y_hat, l_length, _, ids_slice, x_mask, z_mask, latents, (hx, logw, logw_) = model(
-        b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], mas_noise_scale=mas_noise,
-        generator=generator, **noise)
+        b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], sid=b["sid"],
+        mas_noise_scale=mas_noise, generator=generator, **noise)
     _, z_p, m_p, logs_p, _, logs_q = latents
     y_slice = slice_segments(b["wav"], ids_slice * a.hop_length, m.segment_size).transpose(1, 2)
     mel = b["spec"] if m.use_mel_posterior_encoder else melmod.spec_to_mel(
@@ -366,11 +377,10 @@ def eval_step(cfg: VITS2Config, model: SynthesizerTrn, batch: Dict[str, torch.Te
     model.eval()
     try:
         dev = next(model.parameters()).device
-        b = {k: v.to(dev) for k, v in batch.items() if k in
-             ("x", "x_lengths", "spec", "spec_lengths")}
+        b = _batch_on(cfg, batch, dev, ("x", "x_lengths", "spec", "spec_lengths"))
         y_hat, l_length, _, ids, _, z_mask, latents, _ = model(
-            b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], mas_noise_scale=None,
-            generator=generator, **noise)
+            b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], sid=b["sid"],
+            mas_noise_scale=None, generator=generator, **noise)
     finally:
         model.train(was_training)
     _, z_p, m_p, logs_p, _, logs_q = latents

@@ -73,7 +73,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def to_tensors(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """A collated numpy batch on `device` (int32 ids and lengths as int64)."""
+    """A collated numpy batch on `device`, every key (speaker ids `sid`
+included), int32 ids, lengths and sids as int64."""
     return {k: torch.from_numpy(v.astype(np.int64) if v.dtype == np.int32 else v).to(device)
             for k, v in batch.items()}
 
@@ -233,6 +234,8 @@ class VITS2Trainer:
         was_training = self.model.training
         self.model.eval()
         try:
+            # no sid, as the JAX trainer's evaluate(): a multi-speaker
+            # model's eval audio is unconditioned
             audio, attn, _, _, y_lengths = self.model.infer(
                 batch["x"], batch["x_lengths"], noise_scale=0.667, noise_scale_w=0.8,
                 length_scale=1.0, max_frames=self.eval_max_frames,
