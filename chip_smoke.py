@@ -227,6 +227,31 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # mel_spectrogram_auto's threshold sweep: 8 clips of these many samples
 MEL_AUTO_LENGTHS = (2048, 8192, 32768, 220500)
+# the serving path: the Synthesizer's buckets (None: serving.DEFAULT_BUCKETS)
+# and its default tiers; texts that span the buckets, each of which the
+# transliteration cleaners keep nearly as written (2 n + 1 ids with blanks);
+# the batcher's load; the stream's chunk and context frames and its text
+# (about 10 s in the (256, 1344) bucket); the long-form text's characters;
+# the stream on the plain path against the bucketed decode on the plain path
+SERVING_BUCKETS = None
+SERVING_TEXTS = (
+    "Hello there.", "The quick brown fox.", "Good morning to you.",
+    SENTENCES[0], "Speech synthesis turns text into audio.",
+    "Printing differs from most of the arts and crafts shown.",
+    SENTENCES[1], SENTENCES[0] + " " + SENTENCES[1],
+    "The batcher groups requests of one bucket and pads them to a batch tier of one, "
+    "two or eight.",
+    SENTENCES[2], SENTENCES[2] + " " + SENTENCES[0], SENTENCES[1] + " " + SENTENCES[2],
+)
+BATCHER_REQUESTS, BATCHER_THREADS, BATCHER_SID_REQUESTS = 32, 8, 2
+STREAM_CHUNK, STREAM_CONTEXT = 64, 32
+STREAM_TEXT = ("Streaming synthesis sends the first audio after one window of latent "
+               "frames, not after the whole utterance.")
+# the seeded weights give this text (215 ids) 4.39 s; a slower speaking rate
+# brings it to about 10 s, still inside its bucket's 1344 frames
+STREAM_LENGTH_SCALE = 2.7
+LONG_CHARS = 1000
+STREAM_ATOL = 2e-5
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -2132,6 +2157,354 @@ def multispeaker_phase(device, card: str, tmp: str):
     return launches
 
 
+def serving_kernel_checks(model, buckets, tiers, device, card: str):
+    """The MRF bank (the decoder's stages the kernel takes, with the model's
+    weights) and the flows' WN group forward against their plain versions
+    at the largest shape of the serving path (the top tier at the largest
+    bucket's frames) and the smallest (the stream's B=1 window for the bank;
+    B=1 at the smallest bucket for the WN), with their times."""
+    import torch
+
+    with torch.no_grad():  # the model's weights need no gradient here
+        _serving_kernel_checks(model, buckets, tiers, device, card)
+    torch.cuda.empty_cache()
+
+
+def _serving_kernel_checks(model, buckets, tiers, device, card: str):
+    import torch
+
+    from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
+    from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_plain
+
+    g = torch.Generator().manual_seed(12)
+    dec, nk = model.dec, model.dec.num_kernels
+    window = STREAM_CHUNK + 2 * STREAM_CONTEXT
+    checked = 0
+    for B, frames in ((max(tiers), buckets[-1][1]), (1, window)):
+        T = frames
+        for i, u in enumerate(dec.upsample_rates):
+            T *= u
+            bank = dec.resblocks[i * nk:(i + 1) * nk]
+            C = bank[0].channels
+            if not mrf_kernel.supports(C, dec.max_taps):
+                continue
+            blocks = tuple(block.kernels() for block in bank)
+            x = (torch.randn(B, T, C, generator=g) * 0.5).to(device)
+            compare(f"serving mrf_fused B={B} T={T} C={C}", mrf_kernel.mrf_fused(x, blocks),
+                    mrf_kernel.mrf_plain(x, blocks))
+            t_k = cuda_ms(lambda: mrf_kernel.mrf_fused(x, blocks), warmup=1, reps=3)
+            t_p = cuda_ms(lambda: mrf_kernel.mrf_plain(x, blocks), warmup=1, reps=3)
+            log(f"  serving mrf_fused B={B} T={T} C={C}: kernel {t_k:.3f} ms, plain "
+                f"{t_p:.3f} ms [{card}]")
+            checked += 1
+            del x
+    wn = model.flow.flows[0].enc
+    w_in, b_in, w_rs, b_rs = wn.fused_weights()
+    for B, T in ((max(tiers), buckets[-1][1]), (1, buckets[0][1])):
+        lengths = torch.tensor([T - 97 * i for i in range(B)])
+        mask = (torch.arange(T)[None, :] < lengths[:, None]).float()[:, :, None].to(device)
+        x = torch.randn(B, T, wn.hidden_channels, generator=g).to(device)
+        args = (x, mask, None, w_in, b_in, w_rs, b_rs)
+        for n, o, r in zip(("x_out", "skip"), wn_group(*args), wn_group_plain(*args)):
+            compare(f"serving wn_group B={B} T={T} {n}", o, r)
+        t_k = cuda_ms(lambda: wn_group(*args), warmup=1, reps=3)
+        t_p = cuda_ms(lambda: wn_group_plain(*args), warmup=1, reps=3)
+        log(f"  serving wn_group B={B} T={T}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms [{card}]")
+    if device.type == "cuda" and not checked:
+        raise RuntimeError("no decoder stage of the serving model takes the MRF kernel")
+
+
+def serving_results_agree(what: str, got, want, atol: float):
+    """Per request: the same length, samples within atol."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if len(a.audio) != len(b.audio) or not len(a.audio):
+            raise RuntimeError(f"{what}: request {i} has {len(a.audio)} samples, "
+                               f"against {len(b.audio)}")
+        worst = max(worst, float(abs(a.audio - b.audio).max()))
+    log(f"  {what}: lengths equal, max |d audio| {worst:.3e} (bound {atol:g})")
+    if worst > atol:
+        raise RuntimeError(f"{what}: audio disagrees")
+    return worst
+
+
+def serving_batcher_load(synth, ms_synth, texts, card: str):
+    """BATCHER_REQUESTS requests from BATCHER_THREADS threads at zero noise
+    scales, BATCHER_SID_REQUESTS of them with a speaker id through the
+    multi-speaker model's batcher; each against the serial synthesize of
+    its text."""
+    import threading
+
+    from torch_tts_tpu_torch.infer.serving import ContinuousBatcher
+
+    zero = dict(noise_scale=0.0, noise_scale_w=0.0)
+    jobs = [(texts[i % len(texts)], None if i >= BATCHER_SID_REQUESTS else 7 * i + 1)
+            for i in range(BATCHER_REQUESTS)]
+    serial = {t: synth.synthesize([t], **zero)[0] for t in texts}
+    ms_serial = {(t, sid): ms_synth.synthesize([t], sid=[sid], **zero)[0]
+                 for t, sid in jobs if sid is not None}
+    futures = [None] * len(jobs)
+    with ContinuousBatcher(synth) as batcher, ContinuousBatcher(ms_synth) as ms_batcher:
+        def submit(k):
+            for i in range(k, len(jobs), BATCHER_THREADS):
+                t, sid = jobs[i]
+                b = batcher if sid is None else ms_batcher
+                futures[i] = b.submit(t, sid=sid, seed=i, **zero)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submit, args=(k,)) for k in range(BATCHER_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - t0
+        stats, ms_stats = batcher.stats(), ms_batcher.stats()
+    want = [serial[t] if sid is None else ms_serial[(t, sid)] for t, sid in jobs]
+    serving_results_agree("batcher results against serial synthesize", results, want,
+                          AUDIO_ATOL)
+    n = stats["batched_requests_total"] + ms_stats["batched_requests_total"]
+    failures = stats["failures_total"] + ms_stats["failures_total"]
+    audio_s = sum(len(r.audio) for r in results) / synth.cfg.audio.sampling_rate
+    log(f"  batcher: {len(jobs)} requests from {BATCHER_THREADS} threads ({BATCHER_SID_REQUESTS} "
+        f"with a speaker id): {stats['batches_total']} + {ms_stats['batches_total']} batches, "
+        f"{n} batched, {failures} failures; {wall:.3f} s, {len(jobs) / wall:.2f} requests/s, "
+        f"{audio_s / wall:.2f} audio s/s on the host clock; stats {stats} [{card}]")
+    if failures or n != len(jobs):
+        raise RuntimeError(f"batcher: {failures} failures, {n} of {len(jobs)} requests batched")
+
+
+def serving_stream(synth, synth32, model, card: str):
+    """stream() in the (256, 1344) bucket: its time to first chunk and
+    total, with the windows that the host's length allows decoded unmasked
+    and with every window masked; the concatenation against the bucketed
+    decode at tier 1."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.infer.streaming import StreamingDecoder
+
+    enc = synth.encode_text(STREAM_TEXT)
+    bucket = synth._bucket_for(len(enc))
+    log(f"  stream text: {len(enc)} ids, bucket {bucket}")
+    synth.warmup_streaming(STREAM_CHUNK, STREAM_CONTEXT, buckets=[bucket])
+
+    def run():
+        t0 = time.perf_counter()
+        first, pieces = None, []
+        for a in synth.stream(STREAM_TEXT, STREAM_CHUNK, STREAM_CONTEXT, seed=3,
+                              length_scale=STREAM_LENGTH_SCALE):
+            pieces.append(a)
+            if first is None:
+                first = time.perf_counter() - t0
+        return np.concatenate(pieces), first * 1e3, (time.perf_counter() - t0) * 1e3, len(pieces)
+
+    audio, ttfc, total, n = run()
+    audio, ttfc2, total2, _ = run()
+    secs = len(audio) / synth.cfg.audio.sampling_rate
+    log(f"  stream: {secs:.2f} s of audio in {n} chunks of {STREAM_CHUNK} frames (context "
+        f"{STREAM_CONTEXT}); first chunk {ttfc:.2f}, {ttfc2:.2f} ms; whole stream {total:.2f}, "
+        f"{total2:.2f} ms on the host clock [{card}]")
+
+    # the decoder's windows alone, every window masked against the host's rule
+    x = torch.zeros(1, bucket[0], dtype=torch.int64)
+    x[0, :len(enc)] = torch.tensor(enc)
+    z, g, y_mask, y_lengths = model.infer_latents(
+        x.to(synth.device), torch.tensor([len(enc)], device=synth.device), noise_scale=0.667,
+        noise_scale_w=0.8, length_scale=STREAM_LENGTH_SCALE, max_frames=bucket[1],
+        generator=torch.Generator(device=synth.device).manual_seed(3))
+    n_frames = int(y_lengths[0])
+    sd = StreamingDecoder(model, STREAM_CHUNK, STREAM_CONTEXT)
+    for name, lengths in (("unmasked where full", [n_frames]), ("all masked", None),
+                          ("unmasked where full", [n_frames]), ("all masked", None)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it = sd.stream(z, g, y_mask, lengths=lengths)
+        next(it)[0, :, 0].cpu()
+        first = (time.perf_counter() - t0) * 1e3
+        for _ in range(-(-n_frames // STREAM_CHUNK) - 1):
+            next(it)[0, :, 0].cpu()
+        log(f"  stream windows {name}: first window {first:.2f} ms, the utterance's "
+            f"{-(-n_frames // STREAM_CHUNK)} windows {(time.perf_counter() - t0) * 1e3:.2f} ms "
+            f"on the host clock [{card}]")
+    for name, lengths in (("unmasked where full", [n_frames]), ("all masked", None)):
+        busy = profile_busy_ms(lambda: next(sd.stream(z, g, y_mask, lengths=lengths)).cpu())
+        log(f"  stream first window {name}: device busy {busy:.2f} ms [{card}]")
+
+    for path, atol in (("kernel", AUDIO_ATOL), ("plain", STREAM_ATOL)):
+        use_model_path(model, path)
+        streamed = np.concatenate(list(synth32.stream(
+            STREAM_TEXT, STREAM_CHUNK, STREAM_CONTEXT, seed=3, length_scale=STREAM_LENGTH_SCALE)))
+        whole = synth32.synthesize([STREAM_TEXT], seed=3,
+                                   length_scale=STREAM_LENGTH_SCALE)[0].audio
+        if streamed.shape != whole.shape:
+            raise RuntimeError(f"stream {path}: {streamed.shape} samples against {whole.shape}")
+        diff = float(abs(streamed - whole).max())
+        log(f"  stream on the {path} path against synthesize at tier 1 on it: max |d audio| "
+            f"{diff:.3e} (bound {atol:g})")
+        if diff > atol:
+            raise RuntimeError(f"stream on the {path} path disagrees with synthesize")
+    use_model_path(model, "kernel")
+
+
+def serving_webui(synth, texts, card: str):
+    """make_server on 127.0.0.1:0: one /tts_stream while BATCHER_THREADS
+    /tts requests load the batcher, then /tts, /tts_stream and /metrics."""
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    import numpy as np
+
+    from torch_tts_tpu_torch.cli import webui
+
+    server, batcher = webui.make_server(synth, port=0, host="127.0.0.1",
+                                       stream_chunks=(STREAM_CHUNK,))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path, **q):
+        with urllib.request.urlopen(f"{url}{path}?{urllib.parse.urlencode(q)}",
+                                    timeout=600) as r:
+            return r.status, r.read()
+
+    try:
+        out = {}
+
+        def load(k):
+            out[k] = get("/tts", text=texts[k % len(texts)], seed=k)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=load, args=(k,)) for k in range(BATCHER_THREADS)]
+        for th in threads:
+            th.start()
+        out["stream"] = get("/tts_stream", text=STREAM_TEXT, seed=3, chunk=STREAM_CHUNK,
+                            length=STREAM_LENGTH_SCALE)
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        if any(code != 200 for code, _ in out.values()):
+            raise RuntimeError(f"web UI: statuses {[c for c, _ in out.values()]}")
+        pcm = np.frombuffer(out["stream"][1], "<i2").astype(np.float32) / 32767
+        want = np.concatenate(list(synth.stream(STREAM_TEXT, STREAM_CHUNK, STREAM_CONTEXT,
+                                                seed=3, length_scale=STREAM_LENGTH_SCALE)))
+        diff = float(abs(pcm - want).max()) if pcm.shape == want.shape else float("inf")
+        log(f"  web UI: {BATCHER_THREADS} /tts and one /tts_stream at once in {wall:.3f} s; "
+            f"the stream's PCM against a serial stream: max |d| {diff:.3e} (bound "
+            f"{AUDIO_ATOL:g} + one 16-bit step) [{card}]")
+        if diff > AUDIO_ATOL + 1 / 32767:
+            raise RuntimeError("web UI: /tts_stream under load disagrees with a serial stream")
+        code, wav = get("/tts", text=texts[0])
+        if code != 200 or wav[:4] != b"RIFF":
+            raise RuntimeError("web UI: /tts did not give a WAV")
+        code, metrics = get("/metrics")
+        values = dict(line.split() for line in metrics.decode().splitlines()
+                      if not line.startswith("#"))
+        log(f"  web UI /metrics: {values}")
+        if values["tts_failures_total"] != "0" or int(values["tts_requests_total"]) != (
+                BATCHER_THREADS + 1):
+            raise RuntimeError(f"web UI: /metrics {values}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=60)
+
+
+def serving_phase(device, card: str, tmp: str):
+    """The serving layer on the full-width LJSpeech VITS2 (seeded as the
+    inference phase's): the (tier, bucket) grid's warm-up, `synthesize` on
+    the kernel and the plain path, the ContinuousBatcher under concurrent
+    load, `stream()`, `synthesize_long` and the web UI. Returns the path's
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.infer import serving
+
+    base = VITS2Config()
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
+    os.environ.pop("TTS_FUSED_WN", None)
+    t0 = time.perf_counter()
+    model = seeded_synthesizer(cfg, device)
+    buckets = SERVING_BUCKETS or serving.DEFAULT_BUCKETS
+    tiers = serving.DEFAULT_BATCH_TIERS
+    synth = serving.Synthesizer(cfg, model, buckets=buckets, batch_tiers=tiers, device=device)
+    synth32 = serving.Synthesizer(cfg, model, buckets=buckets, batch_tiers=tiers,
+                                  transfer_dtype="float32", device=device)
+    log(f"serving phase: buckets {list(buckets)}, tiers {list(tiers)}, seeded init "
+        f"{time.perf_counter() - t0:.1f} s")
+    in_buckets = sorted({synth._bucket_for(len(synth.encode_text(t))) for t in SERVING_TEXTS})
+    if in_buckets != sorted(buckets):
+        raise RuntimeError(f"the serving texts fill buckets {in_buckets}, not {list(buckets)}")
+    serving_kernel_checks(model, buckets, tiers, device, card)
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    # 1. the grid's warm-up: each cell's first and second host time, device busy
+    for b in buckets:
+        for t in tiers:
+            first = wall_ms(lambda: synth.warmup(tiers=[t], buckets=[b]), warmup=0, reps=1)
+            again = wall_ms(lambda: synth.warmup(tiers=[t], buckets=[b]), warmup=0, reps=1)
+            busy = profile_busy_ms(lambda: synth.warmup(tiers=[t], buckets=[b]))
+            log(f"  warm-up tier {t} bucket {b}: first {first:.2f} ms, again {again:.2f} ms on "
+                f"the host clock; device busy {busy:.2f} ms [{card}]")
+    # the one-deep pipeline: dispatch returns before the device has run the group
+    t = time.perf_counter()
+    h = synth._dispatch_group([[1]] * max(tiers), (0.667, 1.0, 0.8), 0, bucket=buckets[-1])
+    t_dispatch = time.perf_counter() - t
+    synth._collect_group(h)
+    log(f"  tier {max(tiers)} bucket {buckets[-1]}: _dispatch_group returned after "
+        f"{t_dispatch * 1e3:.2f} ms, _collect_group after {(time.perf_counter() - t) * 1e3:.2f} "
+        f"ms on the host clock [{card}]")
+    # 2. synthesize on both paths
+    results = {}
+    for path in ("kernel", "plain"):
+        use_model_path(model, path)
+        t = time.perf_counter()
+        results[path] = synth.synthesize(SERVING_TEXTS, seed=5)
+        torch.cuda.synchronize()
+        log(f"  synthesize {len(SERVING_TEXTS)} texts, {path} path: "
+            f"{(time.perf_counter() - t) * 1e3:.2f} ms on the host clock [{card}]")
+        for r in results[path]:
+            if not len(r.audio) or not np.isfinite(r.audio).all():
+                raise RuntimeError("synthesize: empty or non-finite audio")
+    use_model_path(model, "kernel")
+    serving_results_agree("synthesize, kernel path against plain path", results["kernel"],
+                          results["plain"], AUDIO_ATOL)
+    # 3. the batcher under concurrent load, with the multi-speaker model's
+    ms_cfg = multispeaker_config()
+    ms_synth = serving.Synthesizer(ms_cfg, seeded_synthesizer(ms_cfg, device), buckets=buckets,
+                                   batch_tiers=tiers, device=device)
+    serving_batcher_load(synth, ms_synth, SERVING_TEXTS, card)
+    del ms_synth
+    # 4. stream(), 5. synthesize_long, 6. the web UI
+    serving_stream(synth, synth32, model, card)
+    text = " ".join(SERVING_TEXTS)
+    text = (text + " ") * (LONG_CHARS // len(text)) + text[:LONG_CHARS % len(text)]
+    t = time.perf_counter()
+    r = synth.synthesize_long(text, pause_ms=100.0, seed=2)
+    pieces = synth._long_chunks(text)
+    log(f"  synthesize_long: {len(text)} characters in {len(pieces)} pieces, "
+        f"{len(r.audio) / r.sample_rate:.2f} s of audio in {time.perf_counter() - t:.3f} s on the "
+        f"host clock [{card}]")
+    if not np.isfinite(r.audio).all() or len(r.audio) <= len(pieces) * 0.1 * r.sample_rate:
+        raise RuntimeError("synthesize_long: empty or non-finite audio")
+    serving_webui(synth, SERVING_TEXTS, card)
+    torch.cuda.synchronize()
+    launches = {n: counters[n].launches for n in ("mrf_fused", "wn_group")}
+    log(f"  launch counts on the serving path: {launches}")
+    if not all(launches.values()):
+        raise RuntimeError(f"a kernel of the serving path did not launch: {launches}")
+    del synth, synth32, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2181,14 +2554,17 @@ def main():
         by_path["trainer"] = timed("trainer", trainer_phase, device, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["multi-speaker"] = timed("multi-speaker", multispeaker_phase, device, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["serving"] = timed("serving", serving_phase, device, card, tmp)
     by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
     by_path["lltm"] = timed("lltm", lltm_phase, device, card)
     # launches: the last of these paths that runs the kernel (wn_group: the
-    # train step's), plus the trainer's and the multi-speaker path's
+    # train step's), plus the trainer's, the multi-speaker path's and the
+    # serving path's
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for p in ("trainer", "multi-speaker"):
+    for p in ("trainer", "multi-speaker", "serving"):
         for n, c in by_path[p].items():
             launches[n] += c
     # the fused step is on no model path: its count is the kernel phase's

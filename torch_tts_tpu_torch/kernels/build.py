@@ -18,6 +18,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -27,6 +28,17 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libtts_torch_kernels.so"
+# one build at a time when several host threads make their first launch
+# together; each wrapper's launch count is added to under a lock so that it
+# stays exact when several threads launch (a server's batcher and handlers)
+_BUILD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`, the count of its kernel's launches."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -84,6 +96,11 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; nvcc's output,
     including ptxas's register and shared-memory report, is kept in
     `nvcc.log` beside it."""
+    with _BUILD_LOCK:
+        return _load_library()
+
+
+def _load_library() -> ctypes.CDLL:
     out_dir = library_dir()
     lib_path = out_dir / LIB_NAME
     if not lib_path.exists():

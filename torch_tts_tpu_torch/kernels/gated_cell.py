@@ -91,7 +91,7 @@ def _launch(x, weights, bias, old_h, old_cell):
             old_cell.data_ptr(), new_h.data_ptr(), new_cell.data_ptr(), gates.data_ptr(), B, I, H,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_cuda_error(code, "lltm")
-    lltm.launches += 1
+    build.count_launch(lltm)
     return new_h, new_cell, gates
 
 

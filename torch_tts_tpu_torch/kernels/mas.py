@@ -115,7 +115,7 @@ def _maximum_path_cuda(nc: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor)
             None if bits is None else bits.data_ptr(), B, T_y, T_x,
             torch.cuda.current_stream(nc.device).cuda_stream)
     build.check_cuda_error(code, "maximum_path")
-    maximum_path.launches += 1
+    build.count_launch(maximum_path)
     return path
 
 

@@ -282,7 +282,7 @@ def mrf_fused(x: torch.Tensor, blocks) -> torch.Tensor:
             ctypes.cast(w_ptrs, ctypes.c_void_p), ctypes.cast(b_ptrs, ctypes.c_void_p),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check_cuda_error(code, "mrf_fused")
-    mrf_fused.launches += 1
+    build.count_launch(mrf_fused)
     return out
 
 

@@ -182,7 +182,7 @@ def _launch(y: torch.Tensor, n_fft: int, hop_length: int, window: torch.Tensor,
             ranges.data_ptr(), out.data_ptr(), B, Lp, T, n_fft, hop_length, basis.shape[0],
             torch.cuda.current_stream(y.device).cuda_stream)
     build.check_cuda_error(code, "mel_spectrogram_fused")
-    mel_spectrogram_fused.launches += 1
+    build.count_launch(mel_spectrogram_fused)
     return out
 
 

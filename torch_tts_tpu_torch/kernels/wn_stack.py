@@ -199,7 +199,7 @@ def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool, plan: Optiona
             None if saved is None else saved[1].data_ptr(), wsplit.data_ptr(),
             B, T, H, L, k, plan.cluster, _stream(x))
     build.check_cuda_error(code, "wn_group")
-    wn_group.launches += 1
+    build.count_launch(wn_group)
     return x_out, skip, saved
 
 
@@ -241,7 +241,7 @@ def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=Non
             None if d_gl is None else d_gl.data_ptr(), d_w_in.data_ptr(), d_b_in.data_ptr(),
             d_w_rs.data_ptr(), d_b_rs.data_ptr(), work.data_ptr(), B, T, H, L, k, _stream(x))
     build.check_cuda_error(code, "wn_group_backward")
-    wn_group_backward.launches += 1
+    build.count_launch(wn_group_backward)
     return d_x, d_gl, d_w_in, d_b_in, d_w_rs, d_b_rs
 
 

@@ -27,10 +27,14 @@ chosen before the call by each kernel module's `supports`: the decoder's
 banks (`mrf_fused.supports`), the WN stacks (`wn_stack.supports`) and MAS
 (`mas.supports`, else `maximum_path_via_plain`).
 
-Ported so far: HiFi-GAN ResBlock1 decoder, `pre_conv` transformer flows,
-SDP (both directions) and deterministic duration predictors, MAS
-(`kernels/mas.py`), speaker conditioning. The other flow types and
-MB-iSTFT are not ported yet.
+`infer_latents` and `infer_pre_flow` run `infer` up to the decoder and up
+to the flow reverse, for the streaming decoders (`infer/streaming.py`).
+
+Ported so far: HiFi-GAN ResBlock1 decoder, `pre_conv` transformer flows
+and the plain VITS1 couplings (`use_transformer_flows=False`), SDP (both
+directions) and deterministic duration predictors, MAS
+(`kernels/mas.py`), speaker conditioning. The other flow types (`pre_conv2`,
+`fft`, `mono_layer_*`) and MB-iSTFT are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +51,8 @@ from torch_tts_tpu_torch.core.masks import generate_path, rand_slice_segments, s
 from torch_tts_tpu_torch.kernels import mas as mas_kernel
 from torch_tts_tpu_torch.kernels.mas import maximum_path, maximum_path_via_plain
 from torch_tts_tpu_torch.ops.convs import DDSConv
-from torch_tts_tpu_torch.ops.flows import ConvFlow, ElementwiseAffine, Flip, Log
+from torch_tts_tpu_torch.ops.flows import (ConvFlow, ElementwiseAffine, Flip, Log,
+                                           ResidualCouplingLayer)
 from torch_tts_tpu_torch.ops.hifigan import Generator
 from torch_tts_tpu_torch.ops.layers import (Conv1d, Dropout, Embed, LayerNorm, init_params_,
                                             set_dropout_generator)
@@ -59,6 +64,10 @@ def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> 
     if generator is None:
         raise ValueError("a torch.Generator (or the noise tensor) is required")
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def _channels_last(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else t.transpose(1, 2)
 
 
 class TextEncoder(nn.Module):
@@ -135,20 +144,31 @@ class ResidualCouplingTransformersLayer(nn.Module):
 
 
 class FlowBlock(nn.Module):
-    """n_flows `pre_conv` coupling steps, each followed by a channel flip."""
+    """n_flows coupling steps, each followed by a channel flip: `pre_conv`
+    transformer couplings, or with `use_transformer_flows=False` the plain
+    mean-only VITS1 couplings (`ResidualCouplingLayer`), whose WN stacks
+    have a bounded receptive field (`StreamingFlowDecoder` relies on it).
+    The other transformer flow types are not ported."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, n_flows: int = 4,
                  use_transformer_flows: bool = True, transformer_flow_type: str = "pre_conv",
                  gin_channels: int = 0):
         super().__init__()
-        if not use_transformer_flows or transformer_flow_type != "pre_conv":
-            raise NotImplementedError("only pre_conv transformer flows are ported")
+        if use_transformer_flows and transformer_flow_type != "pre_conv":
+            raise NotImplementedError(
+                f"transformer flow type {transformer_flow_type!r} is not ported; pre_conv and "
+                "the plain couplings (use_transformer_flows=False) are")
         self.flows = nn.ModuleList()
         for _ in range(n_flows):
-            self.flows.append(ResidualCouplingTransformersLayer(
-                channels, hidden_channels, kernel_size, dilation_rate, n_layers,
-                gin_channels=gin_channels))
+            if use_transformer_flows:
+                self.flows.append(ResidualCouplingTransformersLayer(
+                    channels, hidden_channels, kernel_size, dilation_rate, n_layers,
+                    gin_channels=gin_channels))
+            else:
+                self.flows.append(ResidualCouplingLayer(
+                    channels, hidden_channels, kernel_size, dilation_rate, n_layers,
+                    gin_channels=gin_channels, mean_only=True))
             self.flows.append(Flip())
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
@@ -367,17 +387,12 @@ class SynthesizerTrn(nn.Module):
                 tuple(map(cl, (z, z_p, m_p_e, logs_p_e, m_q, logs_q))),
                 (cl(hx), cl(logw), cl(logw_)))
 
-    @torch.inference_mode()
-    def infer(self, x, x_lengths, sid=None, noise_scale: float = 1.0, length_scale: float = 1.0,
-              noise_scale_w: float = 1.0, max_frames: int = 1000,
-              generator: Optional[torch.Generator] = None,
-              sdp_noise: Optional[torch.Tensor] = None,
-              prior_noise: Optional[torch.Tensor] = None):
-        """ids [B, T_x], sid [B] speaker ids or None -> (audio [B,
-        max_frames*hop, 1], attn [B, T_y, T_x], y_mask [B, T_y, 1], (z, z_p,
-        m_p_e, logs_p_e) each [B, T_y, D], y_lengths [B]). Noise: sdp_noise
-        [B, 2, T_x] and prior_noise [B, D, T_y], or drawn from `generator`
-        on the model's device."""
+    def _prior(self, x, x_lengths, sid, noise_scale: float, length_scale: float,
+               noise_scale_w: float, max_frames: int, generator, sdp_noise, prior_noise):
+        """The shared prefix of `infer`, `infer_latents` and `infer_pre_flow`:
+        text encoder, durations, alignment and the prior's sample, drawing
+        the SDP's noise first and then the prior's. -> (z_p, m_p_e,
+        logs_p_e [B, D, T_y], g, y_mask [B, 1, T_y], attn, y_lengths)."""
         g = self._speaker(sid)
         hx, m_p, logs_p, x_mask = self.enc_p(x, x_lengths, g=g)
         if self.cfg.use_sdp:
@@ -396,10 +411,63 @@ class SynthesizerTrn(nn.Module):
         if prior_noise is None:
             prior_noise = _normal(m_p_e.shape, m_p_e, generator)
         z_p = m_p_e + prior_noise * torch.exp(logs_p_e) * noise_scale
+        return z_p, m_p_e, logs_p_e, g, y_mask, attn, y_lengths
+
+    @torch.inference_mode()
+    def infer(self, x, x_lengths, sid=None, noise_scale: float = 1.0, length_scale: float = 1.0,
+              noise_scale_w: float = 1.0, max_frames: int = 1000,
+              generator: Optional[torch.Generator] = None,
+              sdp_noise: Optional[torch.Tensor] = None,
+              prior_noise: Optional[torch.Tensor] = None):
+        """ids [B, T_x], sid [B] speaker ids or None -> (audio [B,
+        max_frames*hop, 1], attn [B, T_y, T_x], y_mask [B, T_y, 1], (z, z_p,
+        m_p_e, logs_p_e) each [B, T_y, D], y_lengths [B]). Noise: sdp_noise
+        [B, 2, T_x] and prior_noise [B, D, T_y], or drawn from `generator`
+        on the model's device."""
+        z_p, m_p_e, logs_p_e, g, y_mask, attn, y_lengths = self._prior(
+            x, x_lengths, sid, noise_scale, length_scale, noise_scale_w, max_frames,
+            generator, sdp_noise, prior_noise)
         z = self.flow(z_p, y_mask, g=g, reverse=True)
         o = self._decode_padded(z * y_mask, y_mask, y_lengths, max_frames, g=g)
         aux = tuple(t.transpose(1, 2) for t in (z, z_p, m_p_e, logs_p_e))
         return o.transpose(1, 2), attn, y_mask.transpose(1, 2), aux, y_lengths
+
+    @torch.inference_mode()
+    def infer_latents(self, x, x_lengths, sid=None, noise_scale: float = 1.0,
+                      length_scale: float = 1.0, noise_scale_w: float = 1.0,
+                      max_frames: int = 1000, generator: Optional[torch.Generator] = None,
+                      sdp_noise: Optional[torch.Tensor] = None,
+                      prior_noise: Optional[torch.Tensor] = None):
+        """`infer` up to, not including, the decoder, for streaming
+        (`infer/streaming.StreamingDecoder`): -> (z * y_mask [B, max_frames,
+        D], g [B, 1, gin] or None, y_mask [B, max_frames, 1], y_lengths [B]),
+        channels-last as `infer` returns. The same arguments, and with the
+        same generator the same draws in the same order, as `infer`; so
+        `dec(z * y_mask, g=g, x_mask=y_mask)`, its samples past y_lengths
+        zeroed, reproduces `infer`'s audio (JAX `infer_latents`)."""
+        z_p, _, _, g, y_mask, _, y_lengths = self._prior(
+            x, x_lengths, sid, noise_scale, length_scale, noise_scale_w, max_frames,
+            generator, sdp_noise, prior_noise)
+        z = self.flow(z_p, y_mask, g=g, reverse=True)
+        return (z * y_mask).transpose(1, 2), _channels_last(g), y_mask.transpose(1, 2), y_lengths
+
+    @torch.inference_mode()
+    def infer_pre_flow(self, x, x_lengths, sid=None, noise_scale: float = 1.0,
+                       length_scale: float = 1.0, noise_scale_w: float = 1.0,
+                       max_frames: int = 1000, generator: Optional[torch.Generator] = None,
+                       sdp_noise: Optional[torch.Tensor] = None,
+                       prior_noise: Optional[torch.Tensor] = None):
+        """`infer` up to, not including, the flow reverse, for streaming the
+        flow and the decoder together (`infer/streaming.StreamingFlowDecoder`)
+        when the flows are conv-local (plain couplings): -> (z_p [B,
+        max_frames, D], g [B, 1, gin] or None, y_mask [B, max_frames, 1],
+        y_lengths [B]), channels-last. The same draws as `infer`;
+        `dec(flow(z_p, y_mask, reverse=True) * y_mask, g=g)` reproduces
+        `infer`'s audio (JAX `infer_pre_flow`)."""
+        z_p, _, _, g, y_mask, _, y_lengths = self._prior(
+            x, x_lengths, sid, noise_scale, length_scale, noise_scale_w, max_frames,
+            generator, sdp_noise, prior_noise)
+        return z_p.transpose(1, 2), _channels_last(g), y_mask.transpose(1, 2), y_lengths
 
     @torch.inference_mode()
     def voice_conversion(self, y, y_lengths, sid_src, sid_tgt,

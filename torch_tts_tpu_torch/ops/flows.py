@@ -1,5 +1,6 @@
-"""Flow building blocks (port of `Log`, `Flip`, `ElementwiseAffine` and
-`ConvFlow` from `torch_tts_tpu/ops/flows.py`), [B, C, T] layout.
+"""Flow building blocks (port of `Log`, `Flip`, `ElementwiseAffine`,
+`ResidualCouplingLayer` and `ConvFlow` from `torch_tts_tpu/ops/flows.py`),
+[B, C, T] layout.
 
 `forward(x, x_mask, g=None, reverse=False)` returns (y, logdet) in the
 forward direction and y alone in reverse, so flow stacks compose as in the
@@ -16,6 +17,7 @@ from torch import nn
 from torch_tts_tpu_torch.ops.convs import DDSConv
 from torch_tts_tpu_torch.ops.layers import Conv1d
 from torch_tts_tpu_torch.ops.splines import piecewise_rational_quadratic_transform
+from torch_tts_tpu_torch.ops.wavenet import WN
 
 
 class Log(nn.Module):
@@ -50,6 +52,36 @@ class ElementwiseAffine(nn.Module):
             y = (self.m + torch.exp(self.logs) * x) * x_mask
             return y, torch.sum(self.logs * x_mask, dim=(1, 2))
         return (x - self.m) * torch.exp(-self.logs) * x_mask
+
+
+class ResidualCouplingLayer(nn.Module):
+    """Affine coupling with a WN conditioner on the first half (the plain
+    VITS1 coupling); `mean_only` shifts x1 and leaves its scale at 1. The
+    WN goes through `kernels/wn_stack.py` where its gate allows."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, n_layers: int, p_dropout: float = 0.0,
+                 gin_channels: int = 0, mean_only: bool = False):
+        super().__init__()
+        self.half = channels // 2
+        self.mean_only = mean_only
+        self.pre = Conv1d(self.half, hidden_channels, 1)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
+                      gin_channels=gin_channels, p_dropout=p_dropout)
+        self.post = Conv1d(hidden_channels, self.half * (2 - mean_only), 1, zero_init=True)
+
+    def forward(self, x, x_mask, g=None, reverse: bool = False):
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        h = self.enc(self.pre(x0) * x_mask, x_mask, g=g)
+        stats = self.post(h) * x_mask
+        if self.mean_only:
+            m, logs = stats, torch.zeros_like(stats)
+        else:
+            m, logs = stats[:, :self.half], stats[:, self.half:]
+        if not reverse:
+            x1 = (m + x1 * torch.exp(logs)) * x_mask
+            return torch.cat([x0, x1], dim=1), torch.sum(logs, dim=(1, 2))
+        return torch.cat([x0, (x1 - m) * torch.exp(-logs) * x_mask], dim=1)
 
 
 class ConvFlow(nn.Module):

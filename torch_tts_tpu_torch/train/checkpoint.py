@@ -149,12 +149,10 @@ def restore_checkpoint(path: str, state, lenient: bool = True):
     return state
 
 
-def average_checkpoints(paths: List[str], state, subtree: Optional[str] = None):
-    """Uniform average of the float tensors of several checkpoints, loaded
-    into `state` (in place; returns it). Other values come from the last
-    file. `subtree` (e.g. "model") restricts the average to one top-level
-    key, so the optimizer state is never averaged; the rest also comes
-    from the last file."""
+def average_trees(paths: List[str], subtree: Optional[str] = None) -> Dict[str, Any]:
+    """The checkpoint dict of the last file with the float tensors replaced
+    by their uniform average over `paths`; with `subtree` (e.g. "model")
+    only that top-level key is averaged."""
     if not paths:
         raise ValueError("average_checkpoints: no checkpoint paths given")
 
@@ -177,10 +175,19 @@ def average_checkpoints(paths: List[str], state, subtree: Optional[str] = None):
         last = load_file(p)
         acc = add(acc, last[subtree] if subtree else last)
     avg = mean(acc, last[subtree] if subtree else last)
+    if not subtree:
+        return avg
     merged = dict(last)
-    if subtree:
-        merged[subtree] = avg
-    else:
-        merged = avg
+    merged[subtree] = avg
+    return merged
+
+
+def average_checkpoints(paths: List[str], state, subtree: Optional[str] = None):
+    """Uniform average of the float tensors of several checkpoints, loaded
+    into `state` (in place; returns it). Other values come from the last
+    file. `subtree` (e.g. "model") restricts the average to one top-level
+    key, so the optimizer state is never averaged; the rest also comes
+    from the last file."""
+    merged = average_trees(paths, subtree)
     load_state_tree(state, _merge_lenient(state_tree(state), merged))
     return state
