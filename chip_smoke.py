@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
-multi-speaker VITS2, Tacotron-2 inference, the bulk mel frontend, the LLTM
-cell) on one NVIDIA GPU.
+multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
+types, Tacotron-2 inference, the bulk mel frontend, the LLTM cell) on one
+NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -139,9 +140,28 @@ Phases, each of which raises on failure (exit code 1, no result line):
    the analytic backward) and `lltm_ref` (autograd): outputs within
    LLTM_ATOL, the five gradients within GRAD_REL; one launch per kernel
    step; times of both, in turns.
-11. Prints each phase's seconds, the kernels' JSON line (launches: the
-   main paths', the trainer's and the multi-speaker path's;
-   launches_by_path: each path's own), then the device line last.
+11. MB-iSTFT (after the serving phase): configs/vits2-ljspeech-mbistft.yaml
+   at full width (`mbistft_config`, held equal to the YAML by a CPU test),
+   seeded. `infer` at the bench shapes, kernel path against plain path in
+   turns: equal durations, audio within AUDIO_ATOL of the plain path's
+   peak (no tanh), one mrf_fused launch (the trunk's C=128 bank) and one
+   wn_group launch a flow per call; host and device-busy times beside the
+   HiFi-GAN model's of phase 4. The MRF kernel with the trunk's C=128 bank
+   at MB_MRF_SHAPE ([8, 16384, 128]) against its plain version, timed
+   beside its bound; the iSTFT + PQMF head on the card against the CPU on
+   inputs whose DC and Nyquist bins have imaginary parts. The inference
+   CLI once; a Synthesizer's `synthesize` of four texts and one stream()
+   in the (256, 1344) bucket, chunk 64, context 32, against `synthesize`
+   on each path (all but the last MB_EDGE samples). Three `ddp` steps at
+   the train phase's batch (MAS, WN forward and backward launched), the
+   first against the plain path. Then each other transformer flow type
+   and a ResBlock2 decoder at full width: `infer` B=1 against the plain
+   path, the launches each must make (no MRF launch on ResBlock2 banks,
+   no WN launch in `fft` flows).
+12. Prints each phase's seconds, the kernels' JSON line (launches: the
+   main paths', the trainer's, the multi-speaker path's, the serving
+   path's and the MB-iSTFT path's; launches_by_path: each path's own),
+   then the device line last.
 """
 
 from __future__ import annotations
@@ -215,6 +235,27 @@ LLTM_GRAPH = 100
 MULTISPEAKER = dict(n_speakers=109, gin_channels=256, use_spk_conditioned_encoder=True)
 MS_VC_B, MS_VC_TY = 2, 400
 MS_TRAINER_CLIPS, MS_TRAINER_SPEAKERS = 16, 4
+# the MB-iSTFT model: configs/vits2-ljspeech-mbistft.yaml's changes to the
+# LJSpeech defaults
+MBISTFT = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(16, 16), decoder_type="mb_istft",
+               subbands=4, gen_istft_n_fft=16, gen_istft_hop_size=4, pack_narrow_convs=True)
+# its audio has no tanh: kernel path against plain path within AUDIO_ATOL *
+# max(1, max |plain|); the stream against synthesize within STREAM_ATOL times
+# that, but for the last MB_EDGE samples (n_fft / 2 * subbands + the PQMF's
+# taps / 2), where synthesize decodes the exact length and a stream the
+# masked one; the iSTFT + PQMF head on the card against the CPU within
+# MB_HEAD_RTOL of the peak; the MRF bank at the trunk's C=128 stage, B=8 at
+# 1024 frames; the four other flow types, and the ResBlock2 decoder of
+# HiFi-GAN's V2/V3 configs
+MB_EDGE = 16 // 2 * 4 + 62 // 2
+MB_HEAD_RTOL = 1e-5
+MB_MRF_SHAPE = (8, 16 * MAX_FRAMES, 128)
+MB_FLOW_TYPES = ("pre_conv2", "fft", "mono_layer_inter_residual", "mono_layer_post_residual")
+RESBLOCK2 = dict(resblock="2", resblock_kernel_sizes=(3, 5, 7),
+                 resblock_dilation_sizes=((1, 2), (2, 6), (3, 12)))
+# the inference phase's host and device-busy ms per (model, B, path), printed
+# beside the MB-iSTFT model's
+INFER_TIMES = {}
 # fault 1's card check: widths no shipped config has, which the WN kernels
 # (hidden 128) and the MRF kernel (a 16-channel last stage) do not take
 NARROW = dict(hidden_channels=128, upsample_initial_channel=256)
@@ -1116,6 +1157,7 @@ def slice_phase(device, card: str, tmp: str):
             ms = statistics.median(ts)
             use_model_path(model, path)
             busy = profile_busy_ms(lambda: run(B, seed=B))
+            INFER_TIMES["HiFi-GAN", B, path] = (ms, busy)
             log(f"  infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: {ms:.2f} ms/call, "
                 f"{B * audio_s / (ms / 1e3):.1f}x real time; device busy {busy:.2f} ms/call [{card}]")
     use_model_path(model, "kernel")
@@ -1706,6 +1748,18 @@ def multispeaker_config():
                                  n_speakers=MULTISPEAKER["n_speakers"]))
 
 
+def mbistft_config():
+    """configs/vits2-ljspeech-mbistft.yaml as a VITS2Config, built from the
+    dataclass defaults (the card has no PyYAML; a CPU test holds the two
+    equal)."""
+    from torch_tts_tpu_torch.core.config import VITS2Config
+
+    base = VITS2Config()
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, **MBISTFT),
+        data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",))).check()
+
+
 def seeded_synthesizer(cfg, device, seed: int = 0):
     """build_synthesizer's seeded model, with small seeded weights in the
     flows' zero-initialised output convs, which would otherwise make the
@@ -1718,7 +1772,7 @@ def seeded_synthesizer(cfg, device, seed: int = 0):
     model = build_synthesizer(cfg, len(symbols), seed=seed, device=device)
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
-        for flow in model.flow.flows[::2]:
+        for flow in (f for f in model.flow.flows if hasattr(f, "post")):
             flow.post.weight.copy_(torch.randn(flow.post.weight.shape, generator=g) * 0.02)
     return model
 
@@ -2504,6 +2558,340 @@ def serving_phase(device, card: str, tmp: str):
     torch.cuda.empty_cache()
     return launches
 
+def mb_rel_diff(a, b) -> float:
+    """max |a - b| / max(1, max |b|): the MB-iSTFT audio's yardstick."""
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def mb_infer(model, cfg, device, card: str):
+    """`infer` at the bench shapes on the defaults and on the plain path:
+    equal durations, audio within AUDIO_ATOL of the plain path's peak; one
+    mrf_fused launch (the C=128 stage of the bulk decode; the patch window
+    decodes masked) and one wn_group launch a flow per call; times beside
+    the HiFi-GAN model's of the inference phase."""
+    import torch
+
+    from torch_tts_tpu_torch.text import symbols
+
+    hop = cfg.audio.hop_length
+
+    def run(B):
+        g = torch.Generator().manual_seed(100 + B)
+        x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
+        lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
+        return model.infer(x, lengths, noise_scale=0.667, noise_scale_w=0.8,
+                           max_frames=MAX_FRAMES,
+                           generator=torch.Generator(device=device).manual_seed(B))
+
+    use_model_path(model, "kernel")
+    outs, launches = counted(lambda: {B: run(B) for B in (1, 8)})
+    launches = {n: c for n, c in launches.items() if n in ("mrf_fused", "wn_group")}
+    want = {"mrf_fused": 2, "wn_group": 2 * cfg.model.flow_n_flows}
+    log(f"  MB-iSTFT infer B=1 and B=8: launches {launches} (expected {want}: per call one "
+        f"C=128 bank, one WN group a flow)")
+    if launches != want:
+        raise RuntimeError(f"MB-iSTFT infer launched {launches}, not {want}")
+    use_model_path(model, "plain")
+    for B in (1, 8):
+        audio, _, _, _, y_lengths = run(B)
+        check_audio(audio, y_lengths, hop, f"MB-iSTFT plain B={B}")
+        check_audio(outs[B][0], outs[B][4], hop, f"MB-iSTFT B={B}")
+        if not torch.equal(y_lengths, outs[B][4]):
+            raise RuntimeError("MB-iSTFT: the plain path gave other durations")
+        rel = mb_rel_diff(outs[B][0], audio)
+        log(f"  MB-iSTFT infer B={B}: y_lengths {outs[B][4].tolist()}, max |audio| "
+            f"{float(audio.abs().max()):.3f}; max |kernel - plain| / max(1, max |plain|) = "
+            f"{rel:.3e} (bound {AUDIO_ATOL:g}), durations equal")
+        if rel > AUDIO_ATOL:
+            raise RuntimeError("MB-iSTFT infer: kernel path and plain path disagree")
+    for B in (1, 8):
+        times = {}
+        for path in ("plain", "kernel", "kernel", "plain"):
+            use_model_path(model, path)
+            times.setdefault(path, []).append(wall_ms(lambda: run(B), warmup=1, reps=3))
+        for path, ts in times.items():
+            use_model_path(model, path)
+            ms, busy = statistics.median(ts), profile_busy_ms(lambda: run(B))
+            h_ms, h_busy = INFER_TIMES.get(("HiFi-GAN", B, path), (float("nan"),) * 2)
+            log(f"  infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: MB-iSTFT {ms:.2f} "
+                f"ms/call on the host clock (turns {', '.join(f'{t:.2f}' for t in ts)}), device "
+                f"busy {busy:.2f} ms; HiFi-GAN (inference phase) {h_ms:.2f} ms, busy "
+                f"{h_busy:.2f} ms [{card}]")
+    use_model_path(model, "kernel")
+    return launches
+
+
+def mb_kernel_checks(model, device, card: str):
+    """The MRF kernel with the trunk's C=128 bank at MB_MRF_SHAPE against
+    its plain version, timed beside its bound; the iSTFT + PQMF head on the
+    card against the same head on the CPU, on conv_post-shaped inputs whose
+    edge bins have imaginary parts."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
+    from torch_tts_tpu_torch.ops.mb_istft import MultiBandISTFTGenerator
+
+    dec, nk = model.dec, model.dec.num_kernels
+    B, T, C = MB_MRF_SHAPE
+    banks = [dec.resblocks[i:i + nk] for i in range(0, len(dec.resblocks), nk)
+             if dec.resblocks[i].channels == C]
+    if len(banks) != 1 or not mrf_kernel.supports(C, dec.max_taps):
+        raise RuntimeError(f"the MB-iSTFT trunk has no one C={C} bank that the kernel takes")
+    g = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        blocks = tuple(block.kernels() for block in banks[0])
+        x = (torch.randn(B, T, C, generator=g) * 0.5).to(device)
+        err = compare(f"MB-iSTFT mrf_fused B={B} T={T} C={C}", mrf_kernel.mrf_fused(x, blocks),
+                      mrf_kernel.mrf_plain(x, blocks))
+        t_k = cuda_ms(lambda: mrf_kernel.mrf_fused(x, blocks), warmup=1, reps=5)
+        t_p = cuda_ms(lambda: mrf_kernel.mrf_plain(x, blocks), warmup=1, reps=5)
+        taps = sum(len(offs) for block in blocks for it in block for offs, _, _ in it)
+        nbytes = 4.0 * (2 * B * T * C + sum(w.numel() + b.numel() for block in blocks
+                                             for it in block for _, w, b in it))
+        b = product_bound(f"MB-iSTFT mrf_fused B={B} T={T} C={C}", 2.0 * B * T * C * C * taps,
+                          nbytes, card)
+        log(f"  MB-iSTFT mrf_fused B={B} T={T} C={C}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]}) [{card}]")
+        del x
+        S, Fb = dec.subbands, dec.fbins
+        h = torch.randn(8, S * 2 * Fb, 4096, generator=g) * 2.0
+        cpu = MultiBandISTFTGenerator(8, upsample_initial_channel=32, subbands=S,
+                                      istft_n_fft=dec.istft_n_fft, istft_hop=dec.istft_hop)
+        ref = cpu.head(h)
+        out = dec.head(h.to(device)).cpu()
+        hb = h.reshape(8 * S, 2 * Fb, -1)
+        edge_imag = float((torch.exp(torch.clamp(hb[:, [0, Fb - 1]], -12, 6))
+                           * torch.sin(hb[:, [Fb, 2 * Fb - 1]])).abs().max())
+        rel = mb_rel_diff(out, ref)
+        log(f"  MB-iSTFT head (iSTFT n_fft {dec.istft_n_fft} hop {dec.istft_hop}, PQMF x{S}) "
+            f"on [8, {S * 2 * Fb}, 4096], edge bins' imaginary parts up to {edge_imag:.2f}: max "
+            f"|card - CPU| / max(1, max |CPU|) = {rel:.3e} (bound {MB_HEAD_RTOL:g}), max |CPU| "
+            f"{float(ref.abs().max()):.2f}")
+        if rel > MB_HEAD_RTOL or not bool(torch.isfinite(out).all()):
+            raise RuntimeError("the MB-iSTFT head on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+    return err
+
+
+def mb_cli_and_serving(model, cfg, device, card: str, tmp: str):
+    """The inference CLI once (config as JSON, the seeded state dict), then a
+    Synthesizer: `synthesize` of four texts, and one stream() in the
+    (256, 1344) bucket against `synthesize` of its text."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.cli import vits2_infer
+    from torch_tts_tpu_torch.infer import serving
+
+    ckpt, cfg_path = os.path.join(tmp, "G_mb.pth"), os.path.join(tmp, "mbistft.json")
+    torch.save({"model": model.state_dict()}, ckpt)
+    with open(cfg_path, "w") as f:
+        json.dump({"model": dataclasses.asdict(cfg.model),
+                   "data": {**dataclasses.asdict(cfg.data), **dataclasses.asdict(cfg.audio)}}, f)
+    use_model_path(model, "kernel")
+
+    def cli():
+        wav = os.path.join(tmp, "mb_request.wav")
+        audio = vits2_infer.main(["-c", cfg_path, "-m", ckpt, "--text", SENTENCES[1], "-o", wav,
+                                  "--max-frames", str(MAX_FRAMES), "--seed", "1",
+                                  "--device", str(device)])
+        if audio.size == 0 or not np.isfinite(audio).all() or (
+                os.path.getsize(wav) != 44 + 2 * audio.size):
+            raise RuntimeError("the inference CLI on the MB-iSTFT model: bad audio or WAV")
+        return audio
+
+    audio, launches = counted(cli)
+    log(f"  MB-iSTFT inference CLI: {audio.size} samples; launches {launches}")
+    synth = serving.Synthesizer(cfg, model, buckets=SERVING_BUCKETS or serving.DEFAULT_BUCKETS,
+                                transfer_dtype="float32", device=device)
+    texts = SERVING_TEXTS[:4]
+
+    def stream():
+        return np.concatenate(list(synth.stream(
+            STREAM_TEXT, STREAM_CHUNK, STREAM_CONTEXT, seed=3, length_scale=STREAM_LENGTH_SCALE)))
+
+    def serve():
+        t = time.perf_counter()
+        res = synth.synthesize(texts, seed=5)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3, stream()
+
+    (res, wall, streamed), counts = counted(serve)
+    for r in res:
+        if not len(r.audio) or not np.isfinite(r.audio).all():
+            raise RuntimeError("MB-iSTFT synthesize: empty or non-finite audio")
+    log(f"  MB-iSTFT synthesize of {len(texts)} texts: "
+        f"{', '.join(f'{len(r.audio) / r.sample_rate:.2f}' for r in res)} s of audio in "
+        f"{wall:.2f} ms on the host clock (first call of its cells) [{card}]")
+    bucket = synth._bucket_for(len(synth.encode_text(STREAM_TEXT)))
+    for path, atol in (("kernel", AUDIO_ATOL), ("plain", STREAM_ATOL)):
+        use_model_path(model, path)
+        if path == "plain":
+            streamed = stream()
+        whole = synth.synthesize([STREAM_TEXT], seed=3, length_scale=STREAM_LENGTH_SCALE)[0].audio
+        if streamed.shape != whole.shape or bucket[0] != 256:
+            raise RuntimeError(f"MB-iSTFT stream: {streamed.shape} samples against "
+                               f"{whole.shape}, bucket {bucket}")
+        peak = max(1.0, float(abs(whole).max()))
+        body = float(abs(streamed[:-MB_EDGE] - whole[:-MB_EDGE]).max()) / peak
+        edge = float(abs(streamed[-MB_EDGE:] - whole[-MB_EDGE:]).max()) / peak
+        log(f"  MB-iSTFT stream on the {path} path, bucket {bucket}, chunk {STREAM_CHUNK}, "
+            f"context {STREAM_CONTEXT}: {len(whole) / cfg.audio.sampling_rate:.2f} s; against "
+            f"synthesize on it max |d| / max(1, peak) {body:.3e} (bound {atol:g}) but for the "
+            f"last {MB_EDGE} samples ({edge:.3e} there: a stream decodes them masked, "
+            f"synthesize the exact length)")
+        if body > atol:
+            raise RuntimeError(f"the MB-iSTFT stream on the {path} path disagrees with synthesize")
+    use_model_path(model, "kernel")
+    for n, c in counts.items():
+        launches[n] += c
+    del synth
+    return launches
+
+
+def mb_train(cfg, device, card: str):
+    """Three full-width `ddp` steps of the MB-iSTFT model at the train
+    phase's batch (MAS and the WN forward and backward must launch; the
+    decoder's banks on their plain convolutions under autograd), the first
+    against one plain-path step from the same fresh state and noise."""
+    import torch
+
+    from torch_tts_tpu_torch.text import symbols
+    from torch_tts_tpu_torch.train.vits2_train import build_mpd, create_train_state, train_step
+
+    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
+    g = torch.Generator().manual_seed(0)
+    batch = {"x": torch.randint(1, len(symbols), (B, T_x), generator=g),
+             "x_lengths": torch.full((B,), T_x),
+             "spec": torch.randn(B, T_y, cfg.posterior_channels, generator=g),
+             "spec_lengths": torch.full((B,), T_y),
+             "wav": torch.randn(B, T_y * cfg.audio.hop_length, 1, generator=g) * 0.1}
+    batch = {k: v.to(device) for k, v in batch.items()}
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def fresh_state(path):
+        st = create_train_state(cfg, seeded_synthesizer(cfg, device),
+                                build_mpd(cfg, seed=1, device=device))
+        use_model_path(st.model, path)
+        return st
+
+    state = fresh_state("kernel")
+    history, step_ms = [], []
+
+    def steps():
+        for i in range(TRAIN_STEPS):
+            t = time.perf_counter()
+            history.append(train_step(cfg, state, batch, generator=gen(i)))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+
+    _, launches = counted(steps)
+    log(f"  MB-iSTFT {TRAIN_STEPS} ddp steps B={B} T_x={T_x} T_y={T_y}: launches {launches}; "
+        f"{', '.join(f'{t:.1f}' for t in step_ms)} ms a step on the host clock [{card}]")
+    for i, m in enumerate(history):
+        log(f"  step {i}: " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
+        if m["nonfinite"] or not all(map(math.isfinite, m.values())):
+            raise RuntimeError(f"MB-iSTFT step {i}: non-finite loss or gradient")
+    if not all(launches[n] for n in ("maximum_path", "wn_group", "wn_group_backward")):
+        raise RuntimeError(f"the MB-iSTFT step did not run its kernels: {launches}")
+    del state
+    plain = fresh_state("plain")
+    mp, mk = train_step(cfg, plain, batch, generator=gen(0)), history[0]
+    del plain
+    for key in mk:
+        d = abs(mk[key] - mp[key])
+        log(f"  step 0 {key}: kernel {mk[key]:.6f} plain {mp[key]:.6f} |d|={d:.3e}")
+        if key.startswith("loss") and d > LOSS_RTOL * abs(mp[key]) + LOSS_ATOL:
+            raise RuntimeError(f"MB-iSTFT {key}: kernel path and plain path disagree")
+    torch.cuda.empty_cache()
+    return {n: c for n, c in launches.items() if n != "mrf_fused"}
+
+
+def mb_variants(device, card: str):
+    """Each other transformer flow type, and a ResBlock2 HiFi-GAN decoder,
+    at full width: `infer` at B=1 on the defaults against the plain path;
+    no mrf_fused launch on a ResBlock2 bank, no wn_group launch in the fft
+    flows (they have no WN)."""
+    import torch
+
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
+    from torch_tts_tpu_torch.ops import hifigan
+    from torch_tts_tpu_torch.text import symbols
+
+    base = VITS2Config()
+    variants = [(f"flow {t}", dict(transformer_flow_type=t)) for t in MB_FLOW_TYPES]
+    variants.append(("ResBlock2 decoder", RESBLOCK2))
+    g = torch.Generator().manual_seed(101)
+    x = torch.randint(1, len(symbols), (1, T_X), generator=g).to(device)
+    xl = torch.tensor([T_X], device=device)
+    total = {}
+    for name, change in variants:
+        cfg = dataclasses.replace(base, model=dataclasses.replace(base.model, **change))
+        model = seeded_synthesizer(cfg, device)
+
+        def infer():
+            return model.infer(x, xl, noise_scale=0.667, noise_scale_w=0.8, max_frames=MAX_FRAMES,
+                               generator=torch.Generator(device=device).manual_seed(1))
+
+        use_model_path(model, "kernel")
+        out, launches = counted(infer)
+        use_model_path(model, "plain")
+        ref = infer()
+        diff = float((out[0] - ref[0]).abs().max())
+        check_audio(out[0], out[4], cfg.audio.hop_length, name)
+        # the bulk decode's stages whose ResBlock1 bank the kernel takes (the
+        # patch window decodes masked)
+        dec, nk = model.dec, model.dec.num_kernels
+        want_mrf = sum(isinstance(b, hifigan.ResBlock1) and mrf_kernel.supports(b.channels,
+                                                                                dec.max_taps)
+                       for b in dec.resblocks[::nk])
+        want_wn = 0 if change.get("transformer_flow_type") == "fft" else cfg.model.flow_n_flows
+        log(f"  {name}: infer B=1, y_lengths {out[4].tolist()}; launches {launches} (expected "
+            f"mrf_fused {want_mrf}, wn_group {want_wn}); max |audio_kernel - audio_plain| "
+            f"{diff:.3e} (bound {AUDIO_ATOL:g})")
+        if (not torch.equal(out[4], ref[4]) or diff > AUDIO_ATOL
+                or launches["mrf_fused"] != want_mrf or launches["wn_group"] != want_wn):
+            raise RuntimeError(f"{name}: wrong launches, or kernel and plain paths disagree")
+        for n, c in launches.items():
+            total[n] = total.get(n, 0) + c
+        del model
+    torch.cuda.empty_cache()
+    return {n: c for n, c in total.items() if n in ("mrf_fused", "wn_group")}
+
+
+def mbistft_phase(device, card: str, tmp: str):
+    """configs/vits2-ljspeech-mbistft.yaml at full width, seeded: infer,
+    the MRF bank at the trunk's shape and the head on the card against the
+    CPU, the inference CLI, serving, three train steps; then the four other
+    flow types and the ResBlock2 decoder. Returns the path's launch counts
+    (each part counted on its own; the kernel checks not counted)."""
+    import torch
+
+    cfg = mbistft_config()
+    os.environ.pop("TTS_FUSED_WN", None)
+    t0 = time.perf_counter()
+    model = seeded_synthesizer(cfg, device)
+    log(f"MB-iSTFT phase: {MBISTFT}, {sum(p.numel() for p in model.parameters())} params, "
+        f"seeded init {time.perf_counter() - t0:.1f} s")
+    parts = [mb_infer(model, cfg, device, card)]
+    mb_kernel_checks(model, device, card)
+    parts.append(mb_cli_and_serving(model, cfg, device, card, tmp))
+    del model
+    torch.cuda.empty_cache()
+    parts += [mb_train(cfg, device, card), mb_variants(device, card)]
+    launches = {}
+    for p in parts:
+        for n, c in p.items():
+            launches[n] = launches.get(n, 0) + c
+    log(f"  launch counts on the MB-iSTFT path: {launches}")
+    if not all(launches.get(n) for n in ("mrf_fused", "wn_group", "wn_group_backward",
+                                         "maximum_path")):
+        raise RuntimeError(f"a kernel of the MB-iSTFT path did not launch: {launches}")
+    return launches
+
 
 def main():
     import torch
@@ -2556,15 +2944,17 @@ def main():
         by_path["multi-speaker"] = timed("multi-speaker", multispeaker_phase, device, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["serving"] = timed("serving", serving_phase, device, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["mb-istft"] = timed("mb-istft", mbistft_phase, device, card, tmp)
     by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
     by_path["lltm"] = timed("lltm", lltm_phase, device, card)
     # launches: the last of these paths that runs the kernel (wn_group: the
-    # train step's), plus the trainer's, the multi-speaker path's and the
-    # serving path's
+    # train step's), plus the trainer's, the multi-speaker path's, the
+    # serving path's and the MB-iSTFT path's
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for p in ("trainer", "multi-speaker", "serving"):
+    for p in ("trainer", "multi-speaker", "serving", "mb-istft"):
         for n, c in by_path[p].items():
             launches[n] += c
     # the fused step is on no model path: its count is the kernel phase's

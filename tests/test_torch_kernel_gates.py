@@ -99,6 +99,57 @@ def test_decoder_sends_only_supported_banks_to_the_kernel(monkeypatch):
     np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-4, atol=1e-5)
 
 
+def test_mbistft_trunk_sends_only_its_128_channel_bank_to_the_kernel(monkeypatch):
+    """The MB-iSTFT trunk at the shipped widths (upsample_initial_channel
+    512: stages of 256 and 128 channels) goes through the HiFi-GAN
+    decoder's bank rule: the 128-channel bank takes `mrf_fused`, the
+    256-channel one its plain convolutions, and a masked decode none; the
+    audio equals the plain decoder's."""
+    from torch_tts_tpu_torch.ops import hifigan, mb_istft
+    from torch_tts_tpu_torch.ops.layers import init_params_
+
+    dec = mb_istft.MultiBandISTFTGenerator(8, "1", (3, 5), ((1, 3, 5), (1, 3, 5)), (2, 2), 512,
+                                           (4, 4), fuse_mrf=True)
+    init_params_(dec, torch.Generator().manual_seed(0))
+    widths = []
+
+    def counting(x, blocks):
+        widths.append(x.shape[2])
+        return mrf_fused.mrf_plain(x, blocks)
+
+    monkeypatch.setattr(hifigan, "mrf_fused", counting)
+    z = torch.randn(1, 8, 6, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        out = dec(z)
+        masked = dec(z, x_mask=torch.ones(1, 1, 6))
+        dec.fuse_mrf = False
+        plain = dec(z)
+    assert widths == [128]
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(plain.abs().max()))
+    np.testing.assert_allclose(masked.numpy(), plain.numpy(), rtol=1e-4,
+                               atol=1e-5 * float(plain.abs().max()))
+
+
+def test_resblock2_banks_never_reach_the_kernel(monkeypatch):
+    """The kernel computes a ResBlock1 bank: a ResBlock2 decoder with
+    fuse_mrf on and 128-, 64- and 32-channel stages runs every bank on its
+    plain convolutions."""
+    from torch_tts_tpu_torch.ops import hifigan
+    from torch_tts_tpu_torch.ops.layers import init_params_
+
+    dec = hifigan.Generator(8, "2", (3, 5), ((1, 2), (2, 6)), (2, 2, 2), 256, (4, 4, 4),
+                            fuse_mrf=True)
+    init_params_(dec, torch.Generator().manual_seed(0))
+    calls = []
+    monkeypatch.setattr(hifigan, "mrf_fused", lambda x, blocks: calls.append(x.shape))
+    with torch.no_grad():
+        out = dec(torch.randn(1, 8, 12, generator=torch.Generator().manual_seed(1)))
+    assert calls == [] and out.shape == (1, 1, 96)
+    assert all(isinstance(b, hifigan.ResBlock2) for b in dec.resblocks)
+    assert [b.channels for b in dec.resblocks] == [128, 128, 64, 64, 32, 32]
+
+
 @pytest.mark.parametrize("H,k,fused", [(192, 5, True), (128, 5, False), (192, 17, False)])
 def test_wn_sends_only_supported_stacks_to_the_kernel(monkeypatch, H, k, fused):
     from torch_tts_tpu_torch.ops import wavenet

@@ -200,5 +200,9 @@ def test_prefixes_draw_what_infer_draws(pair):
 
 
 def test_flow_block_raises_on_flow_types_not_ported():
-    with pytest.raises(NotImplementedError, match="fft"):
-        FlowBlock(8, 8, 5, 1, 4, transformer_flow_type="fft")
+    """Every JAX flow type is ported (tests/test_torch_vits2_flow_types.py);
+    a type the JAX package does not have is refused."""
+    for t in ("pre_conv2", "fft", "mono_layer_inter_residual", "mono_layer_post_residual"):
+        FlowBlock(8, 8, 5, 1, 4, transformer_flow_type=t)
+    with pytest.raises(ValueError, match="conv3"):
+        FlowBlock(8, 8, 5, 1, 4, transformer_flow_type="conv3")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -82,6 +83,11 @@ class VITS2ModelConfig:
     # bank 30-52% under cuDNN fp32 per stage (PERF.md; the JAX package's
     # False is a TPU verdict)
     fuse_mrf: bool = True
+    # "hifigan", or "mb_istft": the conv trunk stops at prod(upsample_rates)
+    # and an iSTFT head (gen_istft_n_fft, gen_istft_hop_size) and a fixed
+    # PQMF bank of `subbands` bands make the rest (ops/mb_istft.py);
+    # prod(upsample_rates) * gen_istft_hop_size * subbands must equal the
+    # audio hop_length (VITS2Config.check)
     decoder_type: str = "hifigan"
     subbands: int = 4
     gen_istft_n_fft: int = 16
@@ -153,6 +159,21 @@ class VITS2Config:
     train: VITS2TrainConfig = field(default_factory=VITS2TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
 
+    def check(self) -> "VITS2Config":
+        """Raise ValueError on an unknown decoder_type, or an MB-iSTFT
+        decoder whose upsampling, prod(upsample_rates) * gen_istft_hop_size *
+        subbands, is not the audio hop_length; return the config."""
+        m = self.model
+        if m.decoder_type not in ("hifigan", "mb_istft"):
+            raise ValueError(f"unknown decoder_type {m.decoder_type!r}")
+        if m.decoder_type == "mb_istft":
+            up = math.prod(m.upsample_rates) * m.gen_istft_hop_size * m.subbands
+            if up != self.audio.hop_length:
+                raise ValueError(f"the mb_istft decoder upsamples by {up} (prod(upsample_rates) * "
+                                 f"gen_istft_hop_size * subbands), the audio hop_length is "
+                                 f"{self.audio.hop_length}")
+        return self
+
     @property
     def posterior_channels(self) -> int:
         """Mel posterior (VITS2) or linear-spectrogram posterior (VITS1)."""
@@ -195,7 +216,7 @@ def load_vits2_config(path: str) -> VITS2Config:
         cfg = dataclasses.replace(cfg, audio=_apply(cfg.audio, data_d))
     if isinstance(raw.get("train"), dict):
         cfg = dataclasses.replace(cfg, train=_apply(cfg.train, raw["train"]))
-    return cfg
+    return cfg.check()
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,15 @@ Inputs are channels-last, as the JAX API's: latents [B, T, C], the mask
 [B, T, 1], g [B, 1, gin] (what `SynthesizerTrn.infer_latents` returns);
 each yielded chunk is [B, n, 1] audio on the model's device.
 
+The same holds for the MB-iSTFT decoder (`ops/mb_istft.py`), whose trunk
+spans fewer frames than HiFi-GAN's and whose iSTFT and PQMF head reach
+under one frame. Its stream equals the whole masked decode too; `infer`
+(as the JAX package's) differs from that in an utterance's last n_fft / 2
+* subbands + 31 samples when it decodes the exact length (an utterance of
+at least 128 frames in a longer max_frames: the masked frames past the end
+give conv_post's bias as log-magnitudes, which the iSTFT and the PQMF
+carry back across the end).
+
 The decoder's ResBlock1 banks take the MRF kernel only when the decode is
 unmasked (`ops/hifigan.py`). A window whose mask is all ones decodes to the
 same values without it, so when the caller passes the host's `lengths` (the
@@ -100,12 +109,13 @@ class _WindowedStream:
 
 
 class StreamingDecoder(_WindowedStream):
-    """Chunked decoding through `model.dec` (HiFi-GAN).
+    """Chunked decoding through `model.dec` (HiFi-GAN or MB-iSTFT).
 
     chunk_frames: latent frames decoded per emitted chunk.
     context_frames: the halo on each side of a chunk; it must cover the
         decoder's receptive-field half-width in frames (32 is ample:
-        HiFi-GAN's MRF stack spans fewer than 30 frames).
+        HiFi-GAN's MRF stack spans fewer than 30 frames, the MB-iSTFT
+        trunk fewer and its iSTFT and PQMF under one).
     """
 
     def __init__(self, model, chunk_frames: int = 64, context_frames: int = 32):

@@ -30,11 +30,13 @@ banks (`mrf_fused.supports`), the WN stacks (`wn_stack.supports`) and MAS
 `infer_latents` and `infer_pre_flow` run `infer` up to the decoder and up
 to the flow reverse, for the streaming decoders (`infer/streaming.py`).
 
-Ported so far: HiFi-GAN ResBlock1 decoder, `pre_conv` transformer flows
-and the plain VITS1 couplings (`use_transformer_flows=False`), SDP (both
-directions) and deterministic duration predictors, MAS
-(`kernels/mas.py`), speaker conditioning. The other flow types (`pre_conv2`,
-`fft`, `mono_layer_*`) and MB-iSTFT are not ported yet.
+The decoder is the HiFi-GAN `Generator` (ResBlock1 or ResBlock2 banks) or,
+with `decoder_type: mb_istft`, the `MultiBandISTFTGenerator`; the flows are
+the plain VITS1 couplings (`use_transformer_flows=False`) or any of the
+five VITS2 transformer flow types (`AVAILABLE_FLOW_TYPES`); SDP (both
+directions) or the deterministic duration predictor; MAS
+(`kernels/mas.py`); speaker conditioning. Not ported: the int8 decoder
+(`quantize_decoder`, which raises).
 """
 
 from __future__ import annotations
@@ -56,8 +58,17 @@ from torch_tts_tpu_torch.ops.flows import (ConvFlow, ElementwiseAffine, Flip, Lo
 from torch_tts_tpu_torch.ops.hifigan import Generator
 from torch_tts_tpu_torch.ops.layers import (Conv1d, Dropout, Embed, LayerNorm, init_params_,
                                             set_dropout_generator)
-from torch_tts_tpu_torch.ops.transformer import Encoder
+from torch_tts_tpu_torch.ops.mb_istft import MultiBandISTFTGenerator
+from torch_tts_tpu_torch.ops.transformer import FFT, Encoder
 from torch_tts_tpu_torch.ops.wavenet import WN
+
+AVAILABLE_FLOW_TYPES = (
+    "pre_conv",
+    "pre_conv2",
+    "fft",
+    "mono_layer_inter_residual",
+    "mono_layer_post_residual",
+)
 
 
 def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -113,6 +124,14 @@ class PosteriorEncoder(nn.Module):
         return (m + eps * torch.exp(logs)) * y_mask, m, logs, y_mask
 
 
+def _mean_only_coupling(x0, x1, m, x_mask, reverse: bool):
+    """x1 shifted by m (mean-only affine: logs = 0, so logdet 0)."""
+    if not reverse:
+        return (torch.cat([x0, (m + x1) * x_mask], dim=1),
+                torch.zeros(x0.shape[0], dtype=x0.dtype, device=x0.device))
+    return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+
+
 class ResidualCouplingTransformersLayer(nn.Module):
     """`pre_conv` coupling: a 2-layer transformer on x0 before the WN
     conditioner; mean-only affine on x1."""
@@ -136,40 +155,125 @@ class ResidualCouplingTransformersLayer(nn.Module):
         x0, x1 = x[:, :self.half], x[:, self.half:]
         x0_ = self.pre_transformer(x0 * x_mask, x_mask) + x0
         h = self.enc(self.pre(x0_) * x_mask, x_mask, g=g)
+        return _mean_only_coupling(x0, x1, self.post(h) * x_mask, x_mask, reverse)
+
+
+class ResidualCouplingTransformersLayer2(nn.Module):
+    """`pre_conv2` coupling: a 1-layer windowed transformer added to the
+    hidden stream between `pre` and the WN conditioner; mean-only."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
+                 dilation_rate: int, n_layers: int, gin_channels: int = 0):
+        super().__init__()
+        self.half = channels // 2
+        self.pre = Conv1d(self.half, hidden_channels, 1)
+        self.pre_transformer = Encoder(hidden_channels, hidden_channels, 2, 1, kernel_size)
+        self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
+                      gin_channels=gin_channels)
+        self.post = Conv1d(hidden_channels, self.half, 1, zero_init=True)
+
+    def forward(self, x, x_mask, g=None, reverse: bool = False):
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        h = self.pre(x0) * x_mask
+        h = h + self.pre_transformer(h * x_mask, x_mask)
+        m = self.post(self.enc(h, x_mask, g=g)) * x_mask
+        return _mean_only_coupling(x0, x1, m, x_mask, reverse)
+
+
+class FFTransformerCouplingLayer(nn.Module):
+    """`fft` coupling: a causal FFT block (`ops/transformer.FFT`, filter
+    width 768) as the conditioner, added to `pre`'s output; mean-only."""
+
+    def __init__(self, channels: int, hidden_channels: int, kernel_size: int, n_layers: int,
+                 n_heads: int = 2, filter_channels: int = 768, gin_channels: int = 0):
+        super().__init__()
+        self.half = channels // 2
+        self.pre = Conv1d(self.half, hidden_channels, 1)
+        self.enc = FFT(hidden_channels, filter_channels, n_heads, n_layers, kernel_size,
+                       gin_channels=gin_channels)
+        self.post = Conv1d(hidden_channels, self.half, 1, zero_init=True)
+
+    def forward(self, x, x_mask, g=None, reverse: bool = False):
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        h = self.pre(x0) * x_mask
+        h = self.enc(h, x_mask, g=g) + h
         m = self.post(h) * x_mask
+        return _mean_only_coupling(x0, x1, m, x_mask, reverse)
+
+
+class MonoTransformerFlowLayer(nn.Module):
+    """The mono-layer transformer flow: a 2-layer transformer on x0 and a
+    zero-initialised 1x1 `post` shift x1 (mean-only). With
+    `residual_connection` (VITS2 figure 1B) the forward adds its input,
+    y = x + [x0, m + x1], with logdet sum(log(e^logs + 1)) + log 2 * half *
+    T (T the padded length, as the JAX layer counts it); the reverse halves
+    x0 first."""
+
+    def __init__(self, channels: int, residual_connection: bool = False):
+        super().__init__()
+        self.half = channels // 2
+        self.residual_connection = residual_connection
+        # p_dropout 0.1 is the reference's own, whatever the config says
+        self.pre_transformer = Encoder(self.half, self.half, 2, 2, 3, window_size=None,
+                                       p_dropout=0.1)
+        self.post = Conv1d(self.half, self.half, 1, zero_init=True)
+
+    def forward(self, x, x_mask, g=None, reverse: bool = False):
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        if not self.residual_connection:
+            m = self.post(self.pre_transformer(x0 * x_mask, x_mask) + x0) * x_mask
+            return _mean_only_coupling(x0, x1, m, x_mask, reverse)
         if not reverse:
-            return (torch.cat([x0, (m + x1) * x_mask], dim=1),
-                    torch.zeros(x.shape[0], dtype=x.dtype, device=x.device))
-        return torch.cat([x0, (x1 - m) * x_mask], dim=1)
+            m = self.post(self.pre_transformer(x0, x_mask)) * x_mask
+            logs = torch.zeros_like(m)
+            y = x + torch.cat([x0, (m + x1 * torch.exp(logs)) * x_mask], dim=1)
+            logdet = torch.sum(torch.log(torch.exp(logs) + 1), dim=(1, 2))
+            return y, logdet + math.log(2.0) * (self.half * x.shape[2])
+        x0 = x0 / 2
+        m = self.post(self.pre_transformer(x0, x_mask)) * x_mask
+        # the inverse of x1' = m + 2 x1 (logs = 0)
+        return torch.cat([x0, (x1 - m) / 2 * x_mask], dim=1)
 
 
 class FlowBlock(nn.Module):
-    """n_flows coupling steps, each followed by a channel flip: `pre_conv`
-    transformer couplings, or with `use_transformer_flows=False` the plain
-    mean-only VITS1 couplings (`ResidualCouplingLayer`), whose WN stacks
-    have a bounded receptive field (`StreamingFlowDecoder` relies on it).
-    The other transformer flow types are not ported."""
+    """n_flows coupling steps: each a coupling and a channel flip (the
+    plain mean-only VITS1 couplings with `use_transformer_flows=False`,
+    else `pre_conv`, `pre_conv2` or `fft` couplings), or for the
+    `mono_layer_*` types a plain coupling, a flip and a mono transformer
+    flow. The plain couplings' WN stacks have a bounded receptive field
+    (`StreamingFlowDecoder` relies on it); every transformer type attends
+    over the whole sequence."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, n_flows: int = 4,
                  use_transformer_flows: bool = True, transformer_flow_type: str = "pre_conv",
                  gin_channels: int = 0):
         super().__init__()
-        if use_transformer_flows and transformer_flow_type != "pre_conv":
-            raise NotImplementedError(
-                f"transformer flow type {transformer_flow_type!r} is not ported; pre_conv and "
-                "the plain couplings (use_transformer_flows=False) are")
+        t = transformer_flow_type if use_transformer_flows else None
+        if t is not None and t not in AVAILABLE_FLOW_TYPES:
+            raise ValueError(f"unknown transformer_flow_type {t!r}; one of {AVAILABLE_FLOW_TYPES}")
+        args = (channels, hidden_channels, kernel_size, dilation_rate, n_layers)
         self.flows = nn.ModuleList()
         for _ in range(n_flows):
-            if use_transformer_flows:
-                self.flows.append(ResidualCouplingTransformersLayer(
-                    channels, hidden_channels, kernel_size, dilation_rate, n_layers,
-                    gin_channels=gin_channels))
+            if t == "pre_conv":
+                self.flows.append(ResidualCouplingTransformersLayer(*args,
+                                                                    gin_channels=gin_channels))
+            elif t == "pre_conv2":
+                self.flows.append(ResidualCouplingTransformersLayer2(*args,
+                                                                     gin_channels=gin_channels))
+            elif t == "fft":
+                # the reference passes (dilation_rate, n_layers) into (n_layers,
+                # n_heads): one FFT layer of n_layers heads, as the JAX package
+                self.flows.append(FFTransformerCouplingLayer(
+                    channels, hidden_channels, kernel_size, n_layers=dilation_rate,
+                    n_heads=n_layers, gin_channels=gin_channels))
             else:
-                self.flows.append(ResidualCouplingLayer(
-                    channels, hidden_channels, kernel_size, dilation_rate, n_layers,
-                    gin_channels=gin_channels, mean_only=True))
+                self.flows.append(ResidualCouplingLayer(*args, gin_channels=gin_channels,
+                                                        mean_only=True))
             self.flows.append(Flip())
+            if t is not None and t.startswith("mono_layer_"):
+                self.flows.append(MonoTransformerFlowLayer(
+                    channels, residual_connection=t == "mono_layer_post_residual"))
 
     def forward(self, x, x_mask, g=None, reverse: bool = False):
         if not reverse:
@@ -286,18 +390,26 @@ class SynthesizerTrn(nn.Module):
         super().__init__()
         c = cfg
         self.segment_frames = segment_frames
-        if c.decoder_type != "hifigan":
-            raise NotImplementedError(f"decoder_type {c.decoder_type} is not ported yet")
+        if c.quantize_decoder:
+            raise NotImplementedError("the int8 decoder (quantize_decoder) is not ported")
+        if c.decoder_type not in ("hifigan", "mb_istft"):
+            raise ValueError(f"unknown decoder_type {c.decoder_type!r}")
         self.cfg = cfg
         gin = c.gin_channels
         self.enc_p = TextEncoder(n_vocab, c.inter_channels, c.hidden_channels,
                                  c.filter_channels, c.n_heads, c.n_layers, c.kernel_size,
                                  p_dropout=c.p_dropout,
                                  gin_channels=gin if c.use_spk_conditioned_encoder else 0)
-        self.dec = Generator(c.inter_channels, c.resblock, c.resblock_kernel_sizes,
-                             c.resblock_dilation_sizes, c.upsample_rates,
-                             c.upsample_initial_channel, c.upsample_kernel_sizes,
-                             fuse_mrf=c.fuse_mrf, gin_channels=gin)
+        dec_args = (c.inter_channels, c.resblock, c.resblock_kernel_sizes,
+                    c.resblock_dilation_sizes, c.upsample_rates, c.upsample_initial_channel,
+                    c.upsample_kernel_sizes)
+        if c.decoder_type == "mb_istft":
+            self.dec = MultiBandISTFTGenerator(*dec_args, subbands=c.subbands,
+                                               istft_n_fft=c.gen_istft_n_fft,
+                                               istft_hop=c.gen_istft_hop_size,
+                                               fuse_mrf=c.fuse_mrf, gin_channels=gin)
+        else:
+            self.dec = Generator(*dec_args, fuse_mrf=c.fuse_mrf, gin_channels=gin)
         self.enc_q = PosteriorEncoder(spec_channels, c.inter_channels, c.hidden_channels,
                                       5, 1, c.posterior_wn_layers, gin_channels=gin)
         self.flow = FlowBlock(c.inter_channels, c.hidden_channels, 5, 1, 4,
@@ -526,6 +638,7 @@ def build_synthesizer(cfg: VITS2Config, n_vocab: int, seed: int = 0,
     module order (torch-default bounds, zero-init projections as the
     reference), moved to `device` (the card unless the caller says
     otherwise), in eval mode."""
+    cfg.check()
     model = SynthesizerTrn(n_vocab, cfg.posterior_channels, cfg.model, cfg.segment_frames)
     init_params_(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -1,16 +1,20 @@
-"""HiFi-GAN generator with ResBlock1 banks (port of `Generator` and
-`ResBlock1`, `torch_tts_tpu/ops/hifigan.py`), [B, C, T] layout.
+"""HiFi-GAN generator with ResBlock1 or ResBlock2 banks (port of
+`Generator`, `ResBlock1` and `ResBlock2`, `torch_tts_tpu/ops/hifigan.py`),
+[B, C, T] layout.
 
 conv_pre -> per stage [lrelu -> weight-normed transposed conv -> mean of
-the stage's ResBlock1 bank] -> lrelu(0.01) -> conv_post -> tanh. With
-`fuse_mrf`, a stage's bank runs through `kernels/mrf_fused.py` when the
-decode is unmasked, the stage has at most 128 channels (the same gate as
-the JAX package; the TPU lane-packing path has no counterpart here) and no
-gradient is needed: the kernel has no backward, so a training forward runs
-the plain convolutions. A
-given `x_mask` is threaded through every layer so a padded batch decodes
-as the exact-length sequences would. With `gin_channels`, a 1x1 `cond`
-conv adds the speaker embedding after `conv_pre`.
+the stage's bank of resblocks] -> lrelu(0.01) -> conv_post -> tanh.
+`run_bank` runs one stage's bank for this decoder and the MB-iSTFT one
+(`ops/mb_istft.py`): with `fuse_mrf`, a ResBlock1 bank runs through
+`kernels/mrf_fused.py` when the decode is unmasked, the stage has a width
+and taps the kernel takes (`mrf_fused.supports`; the JAX gate, whose TPU
+lane-packing path has no counterpart here) and no gradient is needed: the
+kernel has no backward, so a training forward runs the plain
+convolutions. The kernel computes a ResBlock1 bank, so a ResBlock2 bank
+always runs its plain convolutions (JAX `hifigan.py`: `res_cls is
+ResBlock1`). A given `x_mask` is threaded through every layer so a padded
+batch decodes as the exact-length sequences would. With `gin_channels`, a
+1x1 `cond` conv adds the speaker embedding after `conv_pre`.
 """
 
 from __future__ import annotations
@@ -67,6 +71,55 @@ class ResBlock1(nn.Module):
             for d, c1, c2 in zip(self.dilation, self.convs1, self.convs2))
 
 
+class ResBlock2(nn.Module):
+    """Per dilation: lrelu -> dilated conv, added residually (one conv per
+    dilation, `convs.{j}`)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3, dilation: Tuple[int, ...] = (1, 3)):
+        super().__init__()
+        self.channels = channels
+        self.convs = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, padding=_get_padding(kernel_size, d),
+                   dilation=d, weight_norm=True) for d in dilation)
+
+    def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor] = None):
+        for c in self.convs:
+            xt = leaky_relu(x)
+            if x_mask is not None:
+                xt = xt * x_mask
+            x = c(xt) + x
+        return x * x_mask if x_mask is not None else x
+
+
+def make_bank(resblock: str, channels: int, kernel_sizes: Sequence[int],
+              dilation_sizes: Sequence[Sequence[int]]):
+    """One stage's bank: a ResBlock1 (resblock "1") or ResBlock2 (else, as
+    the JAX package) per kernel size."""
+    cls = ResBlock1 if resblock == "1" else ResBlock2
+    return [cls(channels, k, tuple(d)) for k, d in zip(kernel_sizes, dilation_sizes)]
+
+
+def run_bank(bank, x: torch.Tensor, mask: Optional[torch.Tensor], fuse_mrf: bool,
+             max_taps: int) -> torch.Tensor:
+    """The mean of a stage's resblocks on x [B, C, T]: through `mrf_fused`
+    when `fuse_mrf` is on, the bank is ResBlock1's, the decode unmasked, no
+    gradient needed and the kernel takes C and max_taps; else the plain
+    convolutions."""
+    needs_grad = torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in bank.parameters()))
+    if (fuse_mrf and isinstance(bank[0], ResBlock1) and mask is None and not needs_grad
+            and mrf_kernel.supports(x.shape[1], max_taps)):
+        blocks = tuple(block.kernels() for block in bank)
+        # the kernel works in [B, T, C]; copy back to a contiguous [B, C, T]
+        # so the next convolutions take cuDNN's usual layout
+        return mrf_fused(x.transpose(1, 2).contiguous(), blocks).transpose(1, 2).contiguous()
+    xs = None
+    for block in bank:
+        b_out = block(x, mask)
+        xs = b_out if xs is None else xs + b_out
+    return xs / len(bank)
+
+
 class Generator(nn.Module):
     def __init__(self, initial_channel: int, resblock: str = "1",
                  resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
@@ -76,8 +129,6 @@ class Generator(nn.Module):
                  upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
                  fuse_mrf: bool = False, gin_channels: int = 0):
         super().__init__()
-        if resblock != "1":
-            raise NotImplementedError("only ResBlock1 generators are ported")
         self.num_kernels = len(resblock_kernel_sizes)
         self.upsample_rates = tuple(upsample_rates)
         self.fuse_mrf = fuse_mrf
@@ -90,8 +141,8 @@ class Generator(nn.Module):
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
             self.ups.append(ConvTranspose1d(2 * ch, ch, k, stride=u, padding=(k - u) // 2))
-            for rk, rd in zip(resblock_kernel_sizes, resblock_dilation_sizes):
-                self.resblocks.append(ResBlock1(ch, rk, tuple(rd)))
+            self.resblocks.extend(make_bank(resblock, ch, resblock_kernel_sizes,
+                                            resblock_dilation_sizes))
         self.conv_post = Conv1d(ch, 1, 7, padding=3, bias=False)
         if gin_channels > 0:
             self.cond = Conv1d(gin_channels, upsample_initial_channel, 1)
@@ -117,21 +168,8 @@ class Generator(nn.Module):
             if mask is not None:
                 mask = torch.repeat_interleave(mask, u, dim=2)
                 x = x * mask
-            bank = self.resblocks[i * nk:(i + 1) * nk]
-            needs_grad = torch.is_grad_enabled() and (
-                x.requires_grad or any(p.requires_grad for p in bank.parameters()))
-            if (self.fuse_mrf and mask is None and not needs_grad
-                    and mrf_kernel.supports(x.shape[1], self.max_taps)):
-                blocks = tuple(block.kernels() for block in bank)
-                # the kernel works in [B, T, C]; copy back to a contiguous
-                # [B, C, T] so the next convolutions take cuDNN's usual layout
-                x = mrf_fused(x.transpose(1, 2).contiguous(), blocks).transpose(1, 2).contiguous()
-            else:
-                xs = None
-                for block in bank:
-                    b_out = block(x, mask)
-                    xs = b_out if xs is None else xs + b_out
-                x = xs / nk
+            x = run_bank(self.resblocks[i * nk:(i + 1) * nk], x, mask, self.fuse_mrf,
+                         self.max_taps)
         x = leaky_relu(x, 0.01)
         if mask is not None:
             x = x * mask

@@ -1,13 +1,18 @@
-"""Relative-position transformer encoder, [B, C, T] layout.
+"""Relative-position transformer encoder and the causal FFT block, [B, C, T]
+layout.
 
-Port of `MultiHeadAttention`, `FFN` and `Encoder` from
+Port of `MultiHeadAttention`, `FFN`, `Encoder` and `FFT` from
 `torch_tts_tpu/ops/transformer.py`: windowed relative-position attention
-(window 4 in the text encoder; `window_size=None` in the flows'
-pre_transformer) with the pad/reshape skew between relative and absolute
-positions, a conv FFN, and post-LN residual blocks. Dropout, in training
-mode, at the JAX sites: attention probabilities, the FFN's hidden
-activation, and each residual branch (masks from the modules' explicit
-generator, `ops/layers.py:set_dropout_generator`).
+(window 4 in the text encoder and the `pre_conv2` flow; `window_size=None`
+in the other flows' transformers) with the pad/reshape skew between
+relative and absolute positions, a conv FFN ('same' or causal padding),
+post-LN residual blocks, and the `fft` flow's block: causal self-attention
+under a bare `tril` mask, a causal FFN, and with a speaker embedding a
+gated tanh-sigmoid input from one shared `cond_pre` and a weight-normed
+`cond_layer`. Dropout, in training mode, at the JAX sites: attention
+probabilities, the FFN's hidden activation, and each residual branch
+(masks from the modules' explicit generator,
+`ops/layers.py:set_dropout_generator`).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.layers import Conv1d, Dropout, LayerNorm, Linear
+from torch_tts_tpu_torch.ops.layers import (Conv1d, Dropout, LayerNorm, Linear,
+                                            fused_add_tanh_sigmoid_multiply)
 
 
 def _rel_to_abs(x: torch.Tensor) -> torch.Tensor:
@@ -39,8 +45,12 @@ def _abs_to_rel(x: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadAttention(nn.Module):
+    """With `proximal_init`, conv_k starts as a copy of conv_q (its
+    initialiser copies conv_q's, which `init_params_` visits first)."""
+
     def __init__(self, channels: int, out_channels: int, n_heads: int,
-                 window_size: Optional[int] = None, p_dropout: float = 0.0):
+                 window_size: Optional[int] = None, p_dropout: float = 0.0,
+                 proximal_init: bool = False):
         super().__init__()
         assert channels % n_heads == 0
         self.drop = Dropout(p_dropout)
@@ -51,6 +61,8 @@ class MultiHeadAttention(nn.Module):
         self.conv_k = Conv1d(channels, channels, 1)
         self.conv_v = Conv1d(channels, channels, 1)
         self.conv_o = Conv1d(channels, out_channels, 1)
+        if proximal_init:
+            self.conv_k.reset_parameters_ = self._copy_q_into_k
         if window_size is not None:
             shape = (1, 2 * window_size + 1, self.k_channels)
             self.emb_rel_k = nn.Parameter(torch.zeros(shape))
@@ -62,6 +74,11 @@ class MultiHeadAttention(nn.Module):
             with torch.no_grad():
                 for p in (self.emb_rel_k, self.emb_rel_v):
                     p.copy_(torch.randn(p.shape, generator=generator) * std)
+
+    def _copy_q_into_k(self, generator: torch.Generator):
+        with torch.no_grad():
+            self.conv_k.weight.copy_(self.conv_q.weight)
+            self.conv_k.bias.copy_(self.conv_q.bias)
 
     def _relative_embeddings(self, emb: torch.Tensor, length: int) -> torch.Tensor:
         """[1, 2w+1, d] window embeddings -> [1, 2*length-1, d]."""
@@ -99,13 +116,14 @@ class MultiHeadAttention(nn.Module):
 
 
 class FFN(nn.Module):
-    """Two 'same'-padded convs with ReLU, masked before each conv."""
+    """Two 'same'-padded (or with `causal`, left-padded) convs with ReLU,
+    masked before each conv."""
 
     def __init__(self, in_channels: int, out_channels: int, filter_channels: int,
-                 kernel_size: int, p_dropout: float = 0.0):
+                 kernel_size: int, p_dropout: float = 0.0, causal: bool = False):
         super().__init__()
         self.drop = Dropout(p_dropout)
-        self.pad = ((kernel_size - 1) // 2, kernel_size // 2)
+        self.pad = (kernel_size - 1, 0) if causal else ((kernel_size - 1) // 2, kernel_size // 2)
         self.conv_1 = Conv1d(in_channels, filter_channels, kernel_size)
         self.conv_2 = Conv1d(filter_channels, out_channels, kernel_size)
 
@@ -150,4 +168,54 @@ class Encoder(nn.Module):
                 x = (x + self.spk_emb_linear(g.transpose(1, 2)).transpose(1, 2)) * x_mask
             x = norm1(x + self.drop(attn(x, x, attn_mask)))
             x = norm2(x + self.drop(ffn(x, x_mask)))
+        return x * x_mask
+
+
+class FFT(nn.Module):
+    """Causal self-attention blocks (the JAX `FFT`, the `fft` flow's
+    conditioner): per layer, with a speaker embedding g, x becomes
+    tanh * sigmoid of cond_pre(x) + that layer's slice of cond_layer(g);
+    then causal self-attention (a bare `tril` mask, no window) and a causal
+    FFN, each added residually under a LayerNorm."""
+
+    def __init__(self, hidden_channels: int, filter_channels: int, n_heads: int,
+                 n_layers: int = 1, kernel_size: int = 1, p_dropout: float = 0.0,
+                 proximal_init: bool = True, gin_channels: int = 0):
+        super().__init__()
+        self.hidden_channels = hidden_channels
+        self.drop = Dropout(p_dropout)
+        if gin_channels > 0:
+            self.cond_layer = Conv1d(gin_channels, 2 * hidden_channels * n_layers, 1,
+                                     weight_norm=True)
+            # one cond_pre shared by every layer, as the reference's
+            self.cond_pre = Conv1d(hidden_channels, 2 * hidden_channels, 1)
+        self.self_attn_layers = nn.ModuleList()
+        self.norm_layers_0 = nn.ModuleList()
+        self.ffn_layers = nn.ModuleList()
+        self.norm_layers_1 = nn.ModuleList()
+        for _ in range(n_layers):
+            self.self_attn_layers.append(MultiHeadAttention(
+                hidden_channels, hidden_channels, n_heads, p_dropout=p_dropout,
+                proximal_init=proximal_init))
+            self.norm_layers_0.append(LayerNorm(hidden_channels))
+            self.ffn_layers.append(FFN(hidden_channels, hidden_channels, filter_channels,
+                                       kernel_size, p_dropout=p_dropout, causal=True))
+            self.norm_layers_1.append(LayerNorm(hidden_channels))
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, H, T]; x_mask [B, 1, T]; g [B, gin, 1] or None."""
+        h = self.hidden_channels
+        cond = g is not None and hasattr(self, "cond_layer")
+        g_all = self.cond_layer(g) if cond else None
+        t = x.shape[2]
+        causal = torch.tril(torch.ones(t, t, dtype=x.dtype, device=x.device))[None, None]
+        x = x * x_mask
+        for i, (attn, norm0, ffn, norm1) in enumerate(zip(
+                self.self_attn_layers, self.norm_layers_0, self.ffn_layers, self.norm_layers_1)):
+            if cond:
+                x = fused_add_tanh_sigmoid_multiply(
+                    self.cond_pre(x), g_all[:, i * 2 * h:(i + 1) * 2 * h], h)
+            x = norm0(x + self.drop(attn(x, x, causal)))
+            x = norm1(x + self.drop(ffn(x, x_mask)))
         return x * x_mask
