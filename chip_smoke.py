@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
 multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
-types, Tacotron-2 inference, the bulk mel frontend, the LLTM cell) on one
-NVIDIA GPU.
+types, Tacotron-2 inference and serving with the HiFi-GAN vocoder and its
+trainer, the bulk mel frontend, the LLTM cell) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -158,10 +158,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    and a ResBlock2 decoder at full width: `infer` B=1 against the plain
    path, the launches each must make (no MRF launch on ResBlock2 banks,
    no WN launch in `fft` flows).
-12. Prints each phase's seconds, the kernels' JSON line (launches: the
+12. Tacotron serving (after MB-iSTFT): full-width `TacotronConfig()`,
+   seeded as phase 5, and the vocoder `cli/vocoder_train.py` builds for
+   hop 256 (upsample (8, 8, 4), initial channel 256: banks of 128, 64 and
+   32 channels). First the step kernel with the model's packed weights at
+   the serving shapes and the MRF bank at the stream's window and the
+   grid's largest cell against their plain versions. Then, counts zeroed:
+   the vocoder trainer's CLI for TACO_VOCODER_STEPS GAN steps on a
+   synthetic corpus (the trainer phase's writer), its artifact behind a
+   `TacotronSynthesizer` (DEFAULT_TACO_BUCKETS, tiers 1, 2, 4): every
+   (tier, bucket) cell of the two smallest buckets on the kernel and the
+   plain path (equal stop lengths, audio within TACO_AUDIO_ATOL; host ms,
+   device busy, the vocoder's busy); one `stream()` in the (128, 400)
+   bucket at chunk 32, pad 48 (its chunked mel equal to the tier-1 batch
+   decode's, its audio against postnet + vocoder over that mel trimmed at
+   the stop and against the batch audio; time to first chunk); one
+   Griffin-Lim dispatch; `tacotron_infer --vocoder`; the web UI with
+   TACO_WEB_REQUESTS /tts_taco and one /tts_taco_stream at once. The
+   launches must equal what the dispatches imply: one
+   `taco_step_streamed` per decoder step and row group, one `mrf_fused`
+   per MRF stage of each vocoder call.
+13. Prints each phase's seconds, the kernels' JSON line (launches: the
    main paths', the trainer's, the multi-speaker path's, the serving
-   path's and the MB-iSTFT path's; launches_by_path: each path's own),
-   then the device line last.
+   path's, the MB-iSTFT path's and the Tacotron serving path's;
+   launches_by_path: each path's own), then the device line last.
 """
 
 from __future__ import annotations
@@ -293,6 +313,24 @@ STREAM_TEXT = ("Streaming synthesis sends the first audio after one window of la
 STREAM_LENGTH_SCALE = 2.7
 LONG_CHARS = 1000
 STREAM_ATOL = 2e-5
+# the Tacotron serving path (`infer/taco_serving.py`): the vocoder trainer's
+# GAN steps (batch, steps) on a synthetic corpus of TACO_VOCODER_CLIPS clips
+# (the trainer phase's writer); the (tier, bucket) grid of the two smallest
+# default buckets; the stream's chunk steps and pad frames in the (128, 400)
+# bucket; requests at once on the web UI. Tolerances: kernel path against
+# plain path (the step kernel and the MRF bank, decoded free-running over up
+# to 200 steps) stop lengths equal and audio within TACO_AUDIO_ATOL of the
+# peak; the stream against postnet + vocoder over the tier-1 batch decode's
+# mel trimmed at the stop within TACO_AUDIO_ATOL of the peak, and against the
+# batch audio but for the last TACO_EDGE_FRAMES frames (the postnet's and
+# HiFi-GAN's reach past the stop: 10 + under 30 frames)
+TACO_VOCODER_CLIPS, TACO_VOCODER_STEPS, TACO_VOCODER_BATCH = 8, 4, 4
+TACO_GRID_BUCKETS = 2
+TACO_STREAM_CHUNK, TACO_STREAM_PAD = 32, 48
+TACO_STREAM_TEXT = SENTENCES[2][:110]
+TACO_AUDIO_ATOL = 1e-3
+TACO_EDGE_FRAMES = 48
+TACO_WEB_REQUESTS = 4
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -2893,6 +2931,394 @@ def mbistft_phase(device, card: str, tmp: str):
     return launches
 
 
+def taco_path(synth, path: str):
+    """The Tacotron serving path on the kernels (the port's defaults) or on
+    the plain step and the plain convolutions."""
+    synth.model.decoder.use_kernel = path == "kernel"
+    if synth.vocoder is not None:
+        synth.vocoder.generator.fuse_mrf = path == "kernel"
+
+
+def mrf_stages(gen) -> int:
+    """The number of the generator's banks that take the MRF kernel."""
+    from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
+
+    return sum(mrf_kernel.supports(gen.resblocks[i * gen.num_kernels].channels, gen.max_taps)
+               for i in range(len(gen.ups)))
+
+
+@contextlib.contextmanager
+def expected_taco_launches(synth):
+    """Counts, while open, the launches the synthesizer's dispatches imply on
+    the kernel path: one `taco_step_streamed` per decoder step and row group
+    of at most 8, one `mrf_fused` per MRF stage of each vocoder call."""
+    import threading
+
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+
+    dec, voc = synth.model.decoder, synth.vocoder
+    counts, lock = {"taco_step_streamed": 0, "mrf_fused": 0}, threading.Lock()
+    real_run, real_wave = dec._run, voc.wave
+
+    def run(carry, memory, prenet_masks, step_inputs=None):
+        if dec.use_kernel:
+            with lock:
+                counts["taco_step_streamed"] += (prenet_masks.shape[0]
+                                                 * len(ts.row_groups(memory.shape[0])))
+        return real_run(carry, memory, prenet_masks, step_inputs)
+
+    def wave(mel):
+        if voc.generator.fuse_mrf:
+            with lock:
+                counts["mrf_fused"] += mrf_stages(voc.generator)
+        return real_wave(mel)
+
+    dec._run, voc.wave = run, wave
+    try:
+        yield counts
+    finally:
+        del dec._run, voc.wave
+
+
+def taco_serving_kernel_checks(model, gen, device, card: str):
+    """The step kernel with the model's packed weights at the serving
+    shapes (the top tier at the second bucket's text, B=1 at the stream's),
+    and the MRF bank with a vocoder's widths at the stream's window and the
+    grid's largest cell, against their plain versions."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+    from torch_tts_tpu_torch.infer.taco_serving import DEFAULT_TACO_BUCKETS, DEFAULT_TACO_TIERS
+
+    g = torch.Generator().manual_seed(14)
+    packed = model.decoder.packed_weights()
+    H, Dc, P = packed.query_w.shape[0], packed.query_w.shape[1], packed.prenet_w2.shape[0]
+    with torch.no_grad():
+        for B, L in ((max(DEFAULT_TACO_TIERS), DEFAULT_TACO_BUCKETS[1][0]),
+                     (1, DEFAULT_TACO_BUCKETS[2][0])):
+            w = torch.softmax(torch.randn(B, L, generator=g) * 3, dim=1)
+            state = ts.TacoStepState(w, *(torch.randn(B, n, generator=g) * 0.3
+                                          for n in (Dc, H, H, H, H)))
+            state = ts.TacoStepState(*(t.to(device) for t in state))
+            memory = (torch.randn(B, L, Dc, generator=g) * 0.5).to(device)
+            y_in = (torch.rand(B, packed.prenet_w1.shape[0], generator=g)).to(device)
+            masks = tuple((torch.rand(B, P, generator=g) < 0.5).to(device) for _ in range(2))
+            ones = torch.ones(B, L, device=device)
+            err, ok = step_errors(  # n_tile: the TPU kernel's DMA tile, which 4 H must divide
+                ts.taco_step_streamed(y_in, state, memory, ones, packed, n_tile=32,
+                                      prenet_masks=masks),
+                ts.taco_step_streamed_via_plain(y_in, state, memory, ones, packed, n_tile=32,
+                                                prenet_masks=masks))
+            log(f"  tacotron serving taco_step_streamed B={B} L={L}: max_abs_err={err:.3e} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError("taco_step_streamed disagrees with its plain version")
+        window = TACO_STREAM_CHUNK + 2 * TACO_STREAM_PAD
+        for B, frames in ((1, window), (max(DEFAULT_TACO_TIERS), DEFAULT_TACO_BUCKETS[1][1])):
+            T = frames
+            for i, u in enumerate(gen.upsample_rates):
+                T *= u
+                bank = gen.resblocks[i * gen.num_kernels:(i + 1) * gen.num_kernels]
+                C = bank[0].channels
+                if not mrf_kernel.supports(C, gen.max_taps):
+                    continue
+                blocks = tuple(block.kernels() for block in bank)
+                x = (torch.randn(B, T, C, generator=g) * 0.5).to(device)
+                compare(f"tacotron serving mrf_fused B={B} T={T} C={C}",
+                        mrf_kernel.mrf_fused(x, blocks), mrf_kernel.mrf_plain(x, blocks))
+                t_k = cuda_ms(lambda: mrf_kernel.mrf_fused(x, blocks), warmup=1, reps=3)
+                t_p = cuda_ms(lambda: mrf_kernel.mrf_plain(x, blocks), warmup=1, reps=3)
+                log(f"  tacotron serving mrf_fused B={B} T={T} C={C}: kernel {t_k:.3f} ms, "
+                    f"plain {t_p:.3f} ms [{card}]")
+    torch.cuda.empty_cache()
+
+
+def taco_grid_texts(synth, bucket, n: int):
+    """n prefixes of SENTENCES[2] whose ids fall in `bucket`, longest first."""
+    texts = [SENTENCES[2][:k] for k in range(len(SENTENCES[2]), 4, -1)
+             if synth._bucket_for(len(synth.encode_text(SENTENCES[2][:k]))) == bucket]
+    if len(texts) < n:
+        raise RuntimeError(f"no {n} texts in bucket {bucket}")
+    return texts[::max(1, len(texts) // n)][:n]
+
+
+def taco_serving_grid(synth, card: str):
+    """Each (tier, bucket) cell of the two smallest buckets on the kernel and
+    the plain path: equal stop lengths, audio within TACO_AUDIO_ATOL; host
+    ms a dispatch and its collect on both paths in turns, the kernel path's
+    device busy (torch.profiler) and the vocoder's alone on a mel of the
+    cell's shape (busy, and its time between CUDA events)."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for bucket in synth.buckets[:TACO_GRID_BUCKETS]:
+        for tier in synth.batch_tiers:
+            ids = [synth.encode_text(t) for t in taco_grid_texts(synth, bucket, tier)]
+            out, times = {}, {}
+            for path in ("plain", "kernel", "kernel", "plain"):
+                taco_path(synth, path)
+                t0 = time.perf_counter()
+                out[path] = synth._collect_group(synth._dispatch_group(ids, seed=5))
+                torch.cuda.synchronize()
+                times.setdefault(path, []).append((time.perf_counter() - t0) * 1e3)
+            for a, b in zip(out["kernel"], out["plain"]):
+                if a.audio.shape != b.audio.shape or not np.isfinite(a.audio).all():
+                    raise RuntimeError(f"tier {tier} bucket {bucket}: {a.audio.shape} samples "
+                                       f"against the plain path's {b.audio.shape}")
+                worst = max(worst, float(np.abs(a.audio - b.audio).max()))
+            taco_path(synth, "kernel")
+            busy = profile_busy_ms(lambda: synth._collect_group(synth._dispatch_group(ids, seed=5)))
+            mel = torch.rand(tier, bucket[1] * synth.cfg.model.r, synth.cfg.audio.num_mels,
+                             device=synth.device)
+            voc_ms = cuda_ms(lambda: synth.vocoder.wave(mel), warmup=1, reps=3)
+            voc_busy = profile_busy_ms(lambda: synth.vocoder.wave(mel))
+            stops = [len(r.audio) // (synth.cfg.model.r * synth.cfg.audio.hop_length)
+                     for r in out["kernel"]]
+            log(f"  dispatch tier {tier} bucket {bucket}: stop lengths {stops}; host "
+                f"{statistics.median(times['kernel']):.1f} ms (turns plain "
+                f"{', '.join(f'{t:.1f}' for t in times['plain'])}, kernel "
+                f"{', '.join(f'{t:.1f}' for t in times['kernel'])}), device busy {busy:.2f} ms; "
+                f"the vocoder alone busy {voc_busy:.2f} ms ({voc_busy / busy:.2f} of the "
+                f"dispatch's), {voc_ms:.2f} ms between CUDA events [{card}]")
+    log(f"  grid, kernel path against plain path: stop lengths equal, max |d audio| {worst:.3e} "
+        f"(bound {TACO_AUDIO_ATOL:g})")
+    if worst > TACO_AUDIO_ATOL:
+        raise RuntimeError("tacotron serving: the kernel path's audio disagrees with the plain "
+                           "path")
+
+
+def taco_serving_stream(synth, card: str):
+    """stream() in the (128, 400) bucket: its chunked mel against the tier-1
+    batch decode (equal), its audio against postnet + vocoder over that mel
+    trimmed at the stop and against the batch audio; time to first chunk."""
+    import numpy as np
+    import torch
+
+    r, hop = synth.cfg.model.r, synth.cfg.audio.hop_length
+    K, pad = TACO_STREAM_CHUNK, TACO_STREAM_PAD
+    ids = synth.encode_text(TACO_STREAM_TEXT)
+    bucket = synth._bucket_for(len(ids))
+    if bucket != synth.buckets[2]:
+        raise RuntimeError(f"the stream text ({len(ids)} ids) is in bucket {bucket}")
+    log(f"  stream text: {len(ids)} ids, bucket {bucket}, chunk {K} steps, pad {pad} frames; "
+        f"warm-up of {synth.warmup_streaming(K, pad)} buckets")
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        first, pieces = None, []
+        for a in synth.stream(TACO_STREAM_TEXT, seed=3, chunk_steps=K, pad_frames=pad):
+            pieces.append(a)
+            first = first if first is not None else (time.perf_counter() - t0) * 1e3
+        runs.append((np.concatenate(pieces), first, (time.perf_counter() - t0) * 1e3,
+                     len(pieces)))
+    audio = runs[0][0]
+    if not np.array_equal(audio, runs[1][0]):
+        raise RuntimeError("two streams of one text and seed differ")
+    log(f"  stream: {len(audio) / synth.cfg.audio.sample_rate:.2f} s of audio in {runs[0][3]} "
+        f"chunks; first chunk {runs[0][1]:.1f}, {runs[1][1]:.1f} ms; whole stream "
+        f"{runs[0][2]:.1f}, {runs[1][2]:.1f} ms on the host clock [{card}]")
+    # the chunked decode the stream runs, against the tier-1 batch decode
+    S = bucket[1]
+    memory, carry, buf, masks, _ = synth._stream_start(ids, 3, K)
+    for t0 in range(0, buf.shape[1] // r, K):
+        carry, _, _ = synth._chunk(memory, carry, buf, masks, t0, K)
+    x = torch.zeros(1, bucket[0], dtype=torch.int64)
+    x[0, :len(ids)] = torch.tensor(ids)
+    y, *_ = synth.model.infer(x.to(synth.device), torch.tensor([len(ids)], device=synth.device),
+                              max_steps=S, prenet_masks=synth._masks(3, S, 1))
+    mel_d = float((buf[:, :S * r] - y).abs().max())
+    log(f"  stream's chunked mel against the tier-1 batch decode: max |d| {mel_d:.3e} (bound 0)")
+    if mel_d != 0:
+        raise RuntimeError("the stream's chunked decode differs from the batch decode")
+    res = synth.synthesize([TACO_STREAM_TEXT], seed=3)[0].audio
+    total = len(audio) // hop
+    if total < K * r + 2 * pad:  # fell back to the batch path
+        if not np.array_equal(audio, res):
+            raise RuntimeError("the stream's fallback differs from the batch path")
+        log(f"  stream stopped at {total} frames, under one window: the batch path's audio")
+        return
+    with torch.no_grad():
+        trimmed = synth.vocoder.wave(synth.model.apply_postnet(y[:, :total]))[0].cpu().numpy()
+        whole = synth.vocoder.wave(synth.model.apply_postnet(y))[0, :total * hop].cpu().numpy()
+    peak = float(np.abs(whole).max())
+    d_trim = float(np.abs(audio - trimmed).max()) / peak
+    keep = max(0, total - TACO_EDGE_FRAMES) * hop
+    d_batch = float(np.abs(audio[:keep] - whole[:keep]).max()) / peak if keep else 0.0
+    d_res = float(np.abs(res - whole / peak).max())
+    log(f"  stream ({total} of {S * r} frames) against postnet + vocoder over the batch mel "
+        f"trimmed at the stop: max |d| / peak {d_trim:.3e}; against the batch audio but for the "
+        f"last {TACO_EDGE_FRAMES} frames {d_batch:.3e}, the last "
+        f"{float(np.abs(audio[keep:] - whole[keep:]).max()) / peak:.3e}; synthesize against that "
+        f"audio over its peak {d_res:.3e} (bound {TACO_AUDIO_ATOL:g})")
+    if max(d_trim, d_batch, d_res) > TACO_AUDIO_ATOL:
+        raise RuntimeError("the stream disagrees with the batch path")
+
+
+def taco_serving_webui(synth, vits_synth, stream_audio, card: str):
+    """make_server with the Tacotron synthesizer: TACO_WEB_REQUESTS /tts_taco
+    and one /tts_taco_stream at once, then /metrics."""
+    import threading
+    import urllib.parse
+    import urllib.request
+
+    import numpy as np
+
+    from torch_tts_tpu_torch.cli import webui
+
+    server, batcher = webui.make_server(vits_synth, port=0, host="127.0.0.1", taco_synth=synth,
+                                       taco_stream_params=((TACO_STREAM_CHUNK, TACO_STREAM_PAD),))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def get(path, **q):
+        with urllib.request.urlopen(f"{url}{path}?{urllib.parse.urlencode(q)}",
+                                    timeout=600) as resp:
+            return resp.status, resp.read()
+
+    try:
+        out = {}
+        texts = taco_grid_texts(synth, synth.buckets[1], TACO_WEB_REQUESTS)
+
+        def tts(k):
+            out[k] = get("/tts_taco", text=texts[k], seed=k)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=tts, args=(k,)) for k in range(TACO_WEB_REQUESTS)]
+        for th in threads:
+            th.start()
+        out["stream"] = get("/tts_taco_stream", text=TACO_STREAM_TEXT, seed=3,
+                            chunk=TACO_STREAM_CHUNK, pad=TACO_STREAM_PAD)
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+        if any(code != 200 for code, _ in out.values()):
+            raise RuntimeError(f"web UI: statuses {[c for c, _ in out.values()]}")
+        pcm = np.frombuffer(out["stream"][1], "<i2").astype(np.float32) / 32767
+        want = np.clip(stream_audio, -1, 1)
+        diff = float(abs(pcm - want).max()) if pcm.shape == want.shape else float("inf")
+        code, metrics = get("/metrics")
+        values = dict(line.split() for line in metrics.decode().splitlines()
+                      if not line.startswith("#"))
+        taco = {k: v for k, v in values.items() if k.startswith("tts_taco")}
+        log(f"  web UI: {TACO_WEB_REQUESTS} /tts_taco and one /tts_taco_stream at once in "
+            f"{wall:.3f} s; the stream's PCM against a serial stream: max |d| {diff:.3e} (bound "
+            f"{AUDIO_ATOL:g} + one 16-bit step); {taco} [{card}]")
+        if diff > AUDIO_ATOL + 1 / 32767:
+            raise RuntimeError("web UI: /tts_taco_stream under load disagrees with a stream")
+        if (values["tts_taco_failures_total"] != "0"
+                or int(values["tts_taco_requests_total"]) != TACO_WEB_REQUESTS):
+            raise RuntimeError(f"web UI: /metrics {values}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        server.taco_batcher.close()
+        thread.join(timeout=60)
+
+
+def taco_serving_phase(device, card: str, tmp: str):
+    """Tacotron serving at full width (LJSpeech Taco2Prod, seeded as the
+    Tacotron phase's): the vocoder trainer's CLI on a synthetic corpus, its
+    artifact behind a TacotronSynthesizer: the grid against the plain path,
+    one stream, one Griffin-Lim dispatch, the inference CLI with --vocoder,
+    and the web UI's Tacotron routes under concurrent requests. Returns the
+    path's launch counts, each equal to what its dispatches imply."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.cli import tacotron_infer, vocoder_train
+    from torch_tts_tpu_torch.core.config import TacotronConfig, VITS2Config
+    from torch_tts_tpu_torch.infer import serving
+    from torch_tts_tpu_torch.infer.taco_serving import TacotronSynthesizer
+    from torch_tts_tpu_torch.infer.vocoder import build_generator, load_vocoder
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+    from torch_tts_tpu_torch.kernels.mrf_fused import mrf_fused
+    from torch_tts_tpu_torch.models.tacotron import build_tacotron
+    from torch_tts_tpu_torch.ops.layers import init_params_
+
+    cfg = TacotronConfig()
+    a = cfg.audio
+    t0 = time.perf_counter()
+    model = build_tacotron(cfg, seed=0, device=device)
+    ckpt, cfg_path = os.path.join(tmp, "tacotron.pth"), os.path.join(tmp, "tacotron.json")
+    torch.save({"model": model.state_dict()}, ckpt)
+    with open(cfg_path, "w") as f:
+        json.dump({k: dataclasses.asdict(getattr(cfg, k)) for k in ("audio", "text", "model")}, f)
+    gen_kwargs = vocoder_train.gen_kwargs_for(a.hop_length)
+    log(f"tacotron serving phase: Tacotron-2 seeded init {time.perf_counter() - t0:.1f} s; "
+        f"vocoder {gen_kwargs}")
+    gen = build_generator(gen_kwargs, a.num_mels).to(device)
+    init_params_(gen, torch.Generator().manual_seed(1))
+    taco_serving_kernel_checks(model, gen, device, card)
+    if mrf_stages(gen) != len(gen.ups):
+        raise RuntimeError("a stage of the LJSpeech vocoder does not take the MRF kernel")
+    del gen
+
+    # --- the main path, its launches counted from here
+    ts.taco_step_streamed.launches = mrf_fused.launches = 0
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, TACO_VOCODER_CLIPS, a.sample_rate, seed=7)
+    run_dir = os.path.join(tmp, "vocoder")
+    t = time.perf_counter()
+    state = vocoder_train.main([os.path.join(corpus, "wavs"), cfg_path, "--run-dir", run_dir,
+                                "--steps", str(TACO_VOCODER_STEPS), "--batch-size",
+                                str(TACO_VOCODER_BATCH), "--log-interval", "1", "--ckpt-interval",
+                                str(TACO_VOCODER_STEPS), "--device", str(device)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    if state.step != TACO_VOCODER_STEPS or not all(
+            bool(torch.isfinite(p).all()) for p in state.model.parameters()):
+        raise RuntimeError("the vocoder trainer did not take its steps, or its weights are "
+                           "not finite")
+    log(f"  vocoder trainer CLI: {TACO_VOCODER_CLIPS} clips, {TACO_VOCODER_STEPS} GAN steps of "
+        f"{TACO_VOCODER_BATCH} x 32 frames, the checkpoint and the artifact in {train_s:.1f} s "
+        f"(corpus encoding and the first step's warm-up included) [{card}]")
+    del state
+    artifact = os.path.join(run_dir, "vocoder.pt")
+    voc = load_vocoder(artifact, device=device)
+    synth = TacotronSynthesizer(cfg, model, vocoder=voc, device=device)
+    with expected_taco_launches(synth) as expected:
+        taco_serving_grid(synth, card)
+        taco_serving_stream(synth, card)
+        stream_audio = np.concatenate(list(synth.stream(
+            TACO_STREAM_TEXT, seed=3, chunk_steps=TACO_STREAM_CHUNK, pad_frames=TACO_STREAM_PAD)))
+        # one Griffin-Lim dispatch (the same model, no vocoder)
+        gl = TacotronSynthesizer(cfg, model, device=device)
+        t = time.perf_counter()
+        r = gl.synthesize([SENTENCES[0]], seed=2)[0]
+        log(f"  Griffin-Lim dispatch: {len(r.audio) / a.sample_rate:.2f} s of audio in "
+            f"{(time.perf_counter() - t) * 1e3:.1f} ms on the host clock [{card}]")
+        if not len(r.audio) or not np.isfinite(r.audio).all():
+            raise RuntimeError("Griffin-Lim dispatch: empty or non-finite audio")
+        # the inference CLI with the artifact: its own model and vocoder
+        wav_path = os.path.join(tmp, "tacotron_vocoder.wav")
+        wav, mel = tacotron_infer.main([SENTENCES[1], cfg_path, "-m", ckpt, "-o", wav_path,
+                                        "--max-steps", str(TACO_STEPS), "--vocoder", artifact,
+                                        "--device", str(device)])
+        cli_launches = {"taco_step_streamed": TACO_STEPS, "mrf_fused": mrf_stages(voc.generator)}
+        if wav.size != mel.shape[0] * a.hop_length or not np.isfinite(wav).all():
+            raise RuntimeError("tacotron_infer --vocoder: audio of the wrong length or not finite")
+        base = VITS2Config()
+        vcfg = dataclasses.replace(base, data=dataclasses.replace(
+            base.data, text_cleaners=("transliteration_cleaners",)))
+        vits = serving.Synthesizer(vcfg, seeded_synthesizer(vcfg, device), device=device)
+        taco_serving_webui(synth, vits, stream_audio, card)
+        torch.cuda.synchronize()
+        want = {n: c + cli_launches[n] for n, c in expected.items()}
+    launches = {"taco_step_streamed": ts.taco_step_streamed.launches,
+                "mrf_fused": mrf_fused.launches}
+    log(f"  launch counts on the tacotron serving path: {launches} (implied by its dispatches "
+        f"{want})")
+    if launches != want or not all(launches.values()):
+        raise RuntimeError(f"tacotron serving launches {launches}, its dispatches imply {want}")
+    del synth, gl, voc, model, vits
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -2946,15 +3372,18 @@ def main():
         by_path["serving"] = timed("serving", serving_phase, device, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["mb-istft"] = timed("mb-istft", mbistft_phase, device, card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["tacotron serving"] = timed("tacotron serving", taco_serving_phase, device, card,
+                                            tmp)
     by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
     by_path["lltm"] = timed("lltm", lltm_phase, device, card)
     # launches: the last of these paths that runs the kernel (wn_group: the
     # train step's), plus the trainer's, the multi-speaker path's, the
-    # serving path's and the MB-iSTFT path's
+    # serving path's, the MB-iSTFT path's and the Tacotron serving path's
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for p in ("trainer", "multi-speaker", "serving", "mb-istft"):
+    for p in ("trainer", "multi-speaker", "serving", "mb-istft", "tacotron serving"):
         for n, c in by_path[p].items():
             launches[n] += c
     # the fused step is on no model path: its count is the kernel phase's

@@ -6,7 +6,8 @@
   chip_smoke.py, imports the JAX package `torch_tts_tpu` (an AST scan).
 - Entry points default to the card: `build_synthesizer`, `build_mpd`,
   `build_dur_disc`, `build_models`, `VITS2Trainer`, `build_tacotron`,
-  `AudioFrontend` and the CLIs (the train CLI's --device too) take
+  `AudioFrontend`, `TacotronSynthesizer`, `Vocoder`, `load_vocoder`,
+  `create_vocoder_state` and the CLIs (the train CLIs' --device too) take
   device="cuda" unless told otherwise.
 - Kernel wrappers take their plain version only for CPU tensors: another
   device raises, and a missing nvcc raises instead of falling back;
@@ -81,14 +82,18 @@ def test_entry_points_default_to_the_card():
     from torch_tts_tpu_torch.cli import tacotron_infer, vits2_infer
     from torch_tts_tpu_torch.models.tacotron import build_tacotron
     from torch_tts_tpu_torch.models.vits2 import build_synthesizer
-    from torch_tts_tpu_torch.cli import vits2_train, vits2_vc
+    from torch_tts_tpu_torch.cli import vits2_train, vits2_vc, vocoder_train
+    from torch_tts_tpu_torch.infer.taco_serving import TacotronSynthesizer
+    from torch_tts_tpu_torch.infer.vocoder import Vocoder, load_vocoder
     from torch_tts_tpu_torch.train.vits2_train import build_dur_disc, build_mpd
     from torch_tts_tpu_torch.train.vits2_trainer import VITS2Trainer, build_models
+    from torch_tts_tpu_torch.train.vocoder_train import create_vocoder_state
 
     for fn in (build_synthesizer, build_mpd, build_dur_disc, build_models, VITS2Trainer,
-               build_tacotron, AudioFrontend):
+               build_tacotron, AudioFrontend, TacotronSynthesizer, Vocoder, load_vocoder,
+               create_vocoder_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for cli in (vits2_infer, tacotron_infer, vits2_train, vits2_vc):
+    for cli in (vits2_infer, tacotron_infer, vits2_train, vits2_vc, vocoder_train):
         assert "default='cuda'" in inspect.getsource(cli.main) or \
             'default="cuda"' in inspect.getsource(cli.main)
     # the mel frontend and the LLTM cell run where their input lies

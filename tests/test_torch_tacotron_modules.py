@@ -1,9 +1,11 @@
 """Tacotron-2 (Taco2Prod) inference of the port, module by module against
 the JAX package: the LSTM zoneout cell, the packed BiLSTM and
 reverse_padded on ragged lengths, the attention and the PreNet, mel_inv
-and Griffin-Lim, the config loader, the variants that are not ported,
-and the CLI on the CPU (the whole model: tests/test_torch_tacotron.py,
-whose helpers these tests share).
+and Griffin-Lim, the config loader, the variants that are not ported
+(training; `decode_chunk` is ported, tests/test_torch_taco_chunk.py),
+and the CLI on the CPU (`--vocoder`: tests/test_torch_vocoder_train.py;
+the whole model: tests/test_torch_tacotron.py, whose helpers these tests
+share).
 """
 
 import dataclasses
@@ -170,8 +172,6 @@ def test_unported_variants_raise():
     model = build_tacotron(tiny, device="cpu")
     with pytest.raises(NotImplementedError):
         model(torch.zeros(1, 3, dtype=torch.int64), torch.tensor([3]))
-    with pytest.raises(NotImplementedError):
-        model.decode_chunk()
     with pytest.raises(ValueError, match="generator"):
         model.infer(torch.ones(1, 3, dtype=torch.int64), torch.tensor([3]), max_steps=2)
 
@@ -189,6 +189,6 @@ def test_cli_writes_wav_on_cpu(tmp_path):
     with wave.open(str(out)) as f:
         assert (f.getnchannels(), f.getsampwidth(), f.getframerate()) == (1, 2, cfg.audio.sample_rate)
         assert f.getnframes() == wav.size
-    for flag in ("--vocoder", "--ref", "--plot"):
+    for flag in ("--ref", "--plot"):
         with pytest.raises(SystemExit, match="not ported"):
             tacotron_infer.main(argv + [flag, "x"])

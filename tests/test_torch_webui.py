@@ -11,8 +11,9 @@ and an off-list `chunk` give 400; `/tts_taco` and `/tts_taco_stream` 404;
 `/healthz` and `/metrics` keep the JAX UI's names. The CLI, `--device
 cpu`: `--text-file` writes one WAV a line equal to the `Synthesizer`'s
 audio, `--long` equals `synthesize_long`, `--stream-chunk` equals the
-whole decode within one 16-bit step; `--taco-config` exits with an error
-naming ROADMAP queue 5.
+whole decode within one 16-bit step; `--taco-config` without
+`--taco-run-dir` exits with an error (the Tacotron routes with a model:
+tests/test_torch_webui_taco.py).
 """
 
 import dataclasses
@@ -206,6 +207,6 @@ def test_cli_stream_chunk(run_files, capsys):
 
 def test_webui_main_refuses_tacotron_and_defaults_to_the_card(weights, capsys):
     assert 'default="cuda"' in inspect.getsource(webui.main)
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit):  # a Tacotron model needs its config and its weights
         webui.main(["-c", "c.json", "-m", "run", "--taco-config", "t.json"])
-    assert "ROADMAP queue 5" in capsys.readouterr().err
+    assert "--taco-config and --taco-run-dir must be given together" in capsys.readouterr().err

@@ -7,10 +7,12 @@
 the slaney mel filterbank, computed in numpy as the JAX package does),
 `_stft_power_complex` (centre-padded, reflect), `_istft` (windowed
 overlap-add normalised by the summed squared window, the JAX package's own,
-not torch.istft), `griffin_lim` (momentum 0.99) and `decode`. FFTs are
-torch.fft, as the JAX package computes them outside any kernel.
-Griffin-Lim's initial phases are injected, or drawn from a generator.
-`encode` and resampling (the CLI's --ref) are not ported yet.
+not torch.istft), `griffin_lim` (momentum 0.99) and `decode`; the encode
+side: `_stft_power` (the window-normalised power STFT, centre-padded,
+reflect), `encode` (peak-normalise, power STFT, slaney mel, dB) and
+`resample_poly` (scipy, on the host). FFTs are torch.fft, as the JAX
+package computes them outside any kernel. Griffin-Lim's initial phases
+are injected, or drawn from a generator.
 """
 
 from __future__ import annotations
@@ -41,6 +43,14 @@ def m_fwd(mel_db):
 
 def m_rev(mel_net):
     return mel_net * 100.0 - 100.0
+
+
+def resample_poly(wav: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
+    """Polyphase resampling on the host (scipy), float32."""
+    from scipy.signal import resample_poly as _rp
+
+    g = math.gcd(orig_sr, new_sr)
+    return _rp(wav, new_sr // g, orig_sr // g).astype(np.float32)
 
 
 class AudioFrontend:
@@ -78,6 +88,20 @@ class AudioFrontend:
         wav = wav[pad: out_len - pad]
         return wav if length is None else wav[:length]
 
+    def _stft_power(self, wave: torch.Tensor) -> torch.Tensor:
+        """[L] or [B, L] -> [.., T, F] power spectrogram, centre-padded
+        (reflect), divided by the window's squared norm; differentiable."""
+        squeeze = wave.ndim == 1
+        if squeeze:
+            wave = wave[None]
+        pad = self.n_fft // 2
+        y = torch.nn.functional.pad(wave[:, None], (pad, pad), mode="reflect")[:, 0]
+        n_frames = 1 + (y.shape[-1] - self.n_fft) // self.hop
+        frames = y[:, self._frame_index(n_frames)] * self._window
+        spec = torch.fft.rfft(frames, n=self.n_fft, dim=-1)
+        power = (spec.real ** 2 + spec.imag ** 2) / (self._win_norm ** 2)
+        return power[0] if squeeze else power
+
     def _stft_power_complex(self, wave: torch.Tensor) -> torch.Tensor:
         """[L] -> [T, F] complex STFT, centre-padded (reflect), Hann window."""
         pad = self.n_fft // 2
@@ -109,6 +133,16 @@ class AudioFrontend:
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[T, F] dB spectrogram -> waveform via Griffin-Lim."""
         return self.griffin_lim(db_to_amplitude(D_db), n_iter=n_iter, phases=phases, generator=generator)
+
+    def encode(self, wave, sr: Optional[int] = None):
+        """wave [L] (numpy or tensor) -> (D_db [T, F], M_db [T, M]) on this
+        frontend's device; `sr` other than the config's resamples first."""
+        if sr is not None and sr != self.config.sample_rate:
+            wave = resample_poly(np.asarray(wave), sr, self.config.sample_rate)
+        wave = torch.as_tensor(wave, dtype=torch.float32, device=self.device)
+        wave = wave / torch.clamp(wave.abs().max(), min=1e-8)
+        D = self._stft_power(wave)  # [T, F]
+        return amplitude_to_db(D), amplitude_to_db(D @ self._mel_fb.t())
 
     def mel_inv(self, M_db: torch.Tensor) -> torch.Tensor:
         """[T, M] dB mel -> [T, F] dB linear via the regularised pseudo-inverse."""

@@ -2,11 +2,13 @@
 `torch_tts_tpu/cli/tacotron_infer.py`).
 
 Encodes the text with the config's alphabet, decodes to --max-steps
-(trimmed at the first stop), inverts the postnet mel (m_rev, the
-pseudo-inverse of the mel filterbank) and runs Griffin-Lim. `-m` takes a
-reference-format state dict (`.pth`, bare or {"model": ...}) such as
-`models/tacotron/convert.py` writes; the PreNet's dropout masks and the
-Griffin-Lim phases come from --seed.
+(trimmed at the first stop), then either hands the postnet mel to a
+neural vocoder (--vocoder: an `infer/vocoder.py` artifact, the port's or
+the JAX package's, checked against the config's mel count, hop and sample
+rate) or inverts it (m_rev, the pseudo-inverse of the mel filterbank) and
+runs Griffin-Lim. `-m` takes a reference-format state dict (`.pth`, bare
+or {"model": ...}) such as `models/tacotron/convert.py` writes; the
+PreNet's dropout masks and the Griffin-Lim phases come from --seed.
 
 Usage:
   python -m torch_tts_tpu_torch.cli.tacotron_infer "speech synthesis is neat" \\
@@ -28,8 +30,7 @@ from torch_tts_tpu_torch.models.tacotron.model import Tacotron
 from torch_tts_tpu_torch.text.encoder import TextEncoder
 
 _NOT_PORTED = {
-    "ref": "the VAE style encoder and AudioFrontend.encode",
-    "vocoder": "the HiFi-GAN vocoder artifact path (infer/vocoder.py)",
+    "ref": "the VAE style encoder (ROADMAP queue 5)",
     "plot": "the attention plot (utils/logging_utils.py)",
 }
 
@@ -61,6 +62,7 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--griffin-lim-iters", type=int, default=32)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--vocoder", default=None, help="vocoder artifact (else Griffin-Lim)")
     for name in _NOT_PORTED:
         p.add_argument(f"--{name}", default=None, help="not ported yet")
     args = p.parse_args(argv)
@@ -79,9 +81,20 @@ def main(argv: Optional[Sequence[str]] = None):
     n_groups = int(aux["stop_lengths"][0])
     mel = y_post[0, : n_groups * cfg.model.r]  # [T, M], network domain
 
-    fe = AudioFrontend(cfg.audio, device)
-    wav = fe.decode(fe.mel_inv(m_rev(mel)), n_iter=args.griffin_lim_iters, generator=gen)
-    wav = wav.cpu().numpy()
+    if args.vocoder:
+        from torch_tts_tpu_torch.infer.vocoder import check_compat, load_vocoder
+
+        voc = load_vocoder(args.vocoder, device=device)
+        try:
+            check_compat(voc, num_mels=cfg.audio.num_mels, hop_length=cfg.audio.hop_length,
+                         sample_rate=cfg.audio.sample_rate)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        wav = voc.synth(mel[None])[0]
+    else:
+        fe = AudioFrontend(cfg.audio, device)
+        wav = fe.decode(fe.mel_inv(m_rev(mel)), n_iter=args.griffin_lim_iters, generator=gen)
+        wav = wav.cpu().numpy()
     wav = wav / max(1e-6, float(np.abs(wav).max())) * 0.9
     write_wav(args.output, wav, cfg.audio.sample_rate)
     print(f"wrote {args.output}: {len(wav) / cfg.audio.sample_rate:.2f}s ({n_groups} decoder steps)")

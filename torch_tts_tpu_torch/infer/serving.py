@@ -91,6 +91,33 @@ def tier_for(batch_tiers: Sequence[int], n: int) -> int:
     return batch_tiers[idx]
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`; to the card, a copy from pinned memory
+    started without waiting."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """t on the host; from the card, a copy started without waiting, into
+    pinned memory (valid once the stream's next recorded event is)."""
+    if t.device.type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def recorded_event(device: torch.device):
+    """A CUDA event recorded on the device's current stream (None off the card)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 @dataclass
 class SynthesisResult:
     audio: np.ndarray  # [n_samples] float32
@@ -221,20 +248,6 @@ class Synthesizer:
         ids = text_to_sequence(text, list(self.cfg.data.text_cleaners))
         return intersperse(ids, 0) if self.cfg.data.add_blank else ids
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(a)
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
-
-    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
-        """t on the host; from the card, a copy started without waiting, into
-        pinned memory (valid once the stream's next recorded event is)."""
-        if t.device.type != "cuda":
-            return t
-        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        return out.copy_(t, non_blocking=True)
-
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
@@ -278,22 +291,20 @@ class Synthesizer:
             xl[row] = len(ids)
         sid_t = None
         if sid is not None:
-            sid_t = self._to_device(np.asarray(list(sid) + [0] * (tier - B), np.int64))
+            sid_t = to_device(np.asarray(list(sid) + [0] * (tier - B), np.int64), self.device)
         with torch.inference_mode():
             audio, attn, _, _, y_lengths = self.model.infer(
-                self._to_device(x), self._to_device(xl), sid=sid_t, noise_scale=scales[0],
+                to_device(x, self.device), to_device(xl, self.device), sid=sid_t,
+                noise_scale=scales[0],
                 length_scale=scales[1], noise_scale_w=scales[2], max_frames=max_frames,
                 generator=self._generator(seed))
             audio = audio[:B, :, 0]
             if self.transfer_dtype == "int16":
                 audio = torch.round(torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
-            host = {"audio": self._to_host(audio), "y_lengths": self._to_host(y_lengths[:B])}
+            host = {"audio": to_host(audio), "y_lengths": to_host(y_lengths[:B])}
             if return_attn:
-                host["attn"] = self._to_host(attn[:B])
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+                host["attn"] = to_host(attn[:B])
+        event = recorded_event(self.device)
         self.shapes_run.add((tier, pad_text, max_frames))
         return {"host": host, "event": event, "B": B}
 
@@ -371,9 +382,9 @@ class Synthesizer:
         pad_text, max_frames = self._bucket_for(len(encoded))
         x = np.zeros((1, pad_text), np.int64)
         x[0, :len(encoded)] = encoded
-        sid_t = None if sid is None else self._to_device(np.asarray([sid], np.int64))
+        sid_t = None if sid is None else to_device(np.asarray([sid], np.int64), self.device)
         z, g, y_mask, y_lengths = self.model.infer_latents(
-            self._to_device(x), self._to_device(np.asarray([len(encoded)], np.int64)),
+            to_device(x, self.device), to_device(np.asarray([len(encoded)], np.int64), self.device),
             sid=sid_t, noise_scale=noise_scale, length_scale=length_scale,
             noise_scale_w=noise_scale_w, max_frames=max_frames,
             generator=self._generator(seed))

@@ -35,10 +35,11 @@ _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """Add one to `wrapper.launches`, the count of its kernel's launches."""
+def count_launch(wrapper, n: int = 1) -> None:
+    """Add n (one by default) to `wrapper.launches`, the count of its
+    kernel's launches."""
     with _COUNT_LOCK:
-        wrapper.launches += 1
+        wrapper.launches += n
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {

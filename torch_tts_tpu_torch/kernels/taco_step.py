@@ -37,6 +37,9 @@ give the whole batch's result; each launch streams the weights once more.
 The kernel's launch has no grid-wide barrier: its dependencies are counters
 in a small device buffer that persists across launches, one buffer per
 (device, stream), with the number of launches made on it (`_counters`).
+Launches take a lock around reading that number and enqueueing, so host
+threads that decode at once on one stream (a server's batcher and its
+stream handlers) enqueue their launches in the order of their numbers.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. `taco_step_fused_via_plain` and
@@ -47,6 +50,7 @@ launches (one per row group).
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -215,6 +219,7 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 _COUNTERS = {}  # (device index, stream) -> [the kernel's counters, launches made on them]
+_LAUNCH_LOCK = threading.Lock()  # a launch's number and its place in the stream go together
 
 
 def _counters(dev: torch.device, stream: torch.cuda.Stream):
@@ -306,7 +311,7 @@ def prepare_cuda(y_in, state: TacoStepState, memory, mmask, prenet_masks, small:
     keep = (ins, masks, sm, bg, outs, scratch)  # the pointers' tensors live as long as launch
 
     def launch(_keep=keep):
-        with torch.cuda.device(dev):
+        with torch.cuda.device(dev), _LAUNCH_LOCK:
             stream = torch.cuda.current_stream(dev)
             counters = _counters(dev, stream)
             for rows, ptr_arr in ptr_arrs:
@@ -352,7 +357,7 @@ def taco_step_fused(y_in, state: TacoStepState, memory, mmask, wts: TacoStepWeig
     if _device_of(y_in, "taco_step_fused") == "cpu":
         return taco_step_fused_via_plain(y_in, state, memory, mmask, wts, p_zoneout, prenet_masks)
     n, out = _step_cuda(y_in, state, memory, mmask, prenet_masks, wts, p_zoneout)
-    taco_step_fused.launches += n
+    build.count_launch(taco_step_fused, n)
     return out
 
 
@@ -366,7 +371,7 @@ def taco_step_streamed(y_in, state: TacoStepState, memory, mmask, packed: TacoSt
                                             prenet_masks)
     _check_n_tile(packed, n_tile)
     n, out = _step_cuda(y_in, state, memory, mmask, prenet_masks, packed, p_zoneout)
-    taco_step_streamed.launches += n
+    build.count_launch(taco_step_streamed, n)
     return out
 
 

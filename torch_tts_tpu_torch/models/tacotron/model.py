@@ -14,14 +14,19 @@ at inference (the original recipe): each step's two keep masks come from
 attention ignores the memory mask, as the JAX model does (see
 ops/tacotron_attention.py).
 
+The streaming surface of the JAX model: `encode`, `decode_init`,
+`decode_chunk` and `apply_postnet`. The whole decode and a chunk share one
+step loop, so a chunked decode equals the whole one exactly when each
+step gets the same masks.
+
 On a CUDA device each step is one `kernels/taco_step.py:taco_step_streamed`
-launch, with the big LSTM matrices packed once per decode; on the CPU, or
-with `Decoder.use_kernel = False`, each step runs the cell module.
+launch per row group of at most 8, with the big LSTM matrices packed once
+per model (`Decoder.packed_weights`); on the CPU, or with
+`Decoder.use_kernel = False`, each step runs the cell module.
 
 Not ported yet, and raising NotImplementedError: training and teacher
-forcing (`forward`), `decode_chunk`/streaming, the VAE/GST style
-encoders, the tacotron1/tacotron2 decoder cells, the CBHG encoder and the
-other postnets.
+forcing (`forward`), the VAE/GST style encoders, the tacotron1/tacotron2
+decoder cells, the CBHG encoder and the other postnets.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from torch_tts_tpu_torch.core.config import TacotronConfig
+from torch_tts_tpu_torch.core.masks import sequence_mask
 from torch_tts_tpu_torch.kernels import taco_step as ts
 from torch_tts_tpu_torch.ops.layers import Conv1d, Embed, init_params_
 from torch_tts_tpu_torch.ops.rnn import BiLSTM, LSTMZoneoutCell
@@ -110,7 +116,12 @@ class Taco2ProdDecoderCell(nn.Module):
 
 
 class Decoder(nn.Module):
-    """The autoregressive r-frame-group decoder, to max_steps."""
+    """The autoregressive r-frame-group decoder. The whole decode (`forward`)
+    and a chunk of it (`decode_chunk`) run one step loop (`_run`) over a
+    carry (TacoStepState, previous frame) from a global step index, as the
+    JAX `_ar_step` is shared by its scan and its `decode_chunk`: given each
+    step's PreNet masks, chunks from `init_carry` give the whole decode's
+    numbers exactly."""
 
     def __init__(self, dim_ctx: int, dim_mel: int, r: int, dim_rnn=(1024, 1024), dim_pre: int = 256,
                  stop_threshold: float = -2.0):
@@ -123,11 +134,64 @@ class Decoder(nn.Module):
         # on a CUDA device, each step through the kernel (True) or the cell
         # module (False, the plain path the kernel is compared with)
         self.use_kernel = True
+        self._packed = None  # (key, pack_streamed's weights), see packed_weights
+        self.register_load_state_dict_post_hook(lambda module, keys: module.drop_packed())
+
+    def drop_packed(self):
+        self._packed = None
+
+    def packed_weights(self) -> ts.TacoStepStreamed:
+        """`pack_streamed`'s weights, packed once per model: kept until the
+        state dict is loaded, a parameter changes in place or moves
+        (the key holds each parameter's version counter and address)."""
+        params = tuple(self.parameters())
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if self._packed is None or self._packed[0] != key:
+            with torch.no_grad():
+                packed = ts.pack_streamed(ts.weights_from_state_dict(self.state_dict(), prefix=""))
+            self._packed = (key, packed)
+        return self._packed[1]
 
     def draw_prenet_masks(self, steps: int, B: int, device, generator: torch.Generator) -> torch.Tensor:
         """[steps, 2, B, P] bool keep masks, P(keep) = 1 - p."""
         keep = 1.0 - ts.PRENET_DROPOUT
         return torch.rand(steps, 2, B, self.dim_pre, generator=generator, device=device) < keep
+
+    def init_carry(self, memory: torch.Tensor):
+        """The decode's first carry: (learned initial state, zero frame)."""
+        B, L, _ = memory.shape
+        state = self.decoder_cell.initial_state(B, L, self.dim_ctx, memory.device)
+        return state, torch.zeros(B, self.dim_mel, device=memory.device)
+
+    def _run(self, carry, memory: torch.Tensor, prenet_masks: torch.Tensor,
+             step_inputs: Optional[torch.Tensor] = None):
+        """len(prenet_masks) steps from `carry` -> (carry, y [B, n, r*D_mel],
+        s [B, n, r], w [B, n, L]). Step j takes prenet_masks[j] ([2, B, P])
+        and, with step_inputs [B, n, D_mel], its frame step_inputs[:, j]."""
+        state, y_in = carry
+        B, L, _ = memory.shape
+        cell = self.decoder_cell
+        use_kernel = memory.device.type == "cuda" and self.use_kernel
+        if use_kernel:
+            packed = self.packed_weights()
+            ones = torch.ones(B, L, device=memory.device)
+        ys, ss, ws = [], [], []
+        for j in range(prenet_masks.shape[0]):
+            if step_inputs is not None:
+                y_in = step_inputs[:, j]
+            masks = (prenet_masks[j, 0], prenet_masks[j, 1])
+            if use_kernel:
+                y_t, s_t, state = ts.taco_step_streamed(y_in, state, memory, ones, packed,
+                                                        cell.p_zoneout, prenet_masks=masks)
+            else:
+                state, out = cell(state, y_in, memory, masks)
+                y_t = F.leaky_relu(self.fc_mel(out), 0.01)
+                s_t = self.fc_stop(out)
+            ys.append(y_t)
+            ss.append(s_t)
+            ws.append(state.w)
+            y_in = y_t.reshape(B, self.r, self.dim_mel)[:, -1]
+        return (state, y_in), torch.stack(ys, 1), torch.stack(ss, 1), torch.stack(ws, 1)
 
     def forward(self, memory: torch.Tensor, max_steps: int = 400,
                 prenet_masks: Optional[torch.Tensor] = None,
@@ -140,41 +204,28 @@ class Decoder(nn.Module):
         step_inputs: [B, S, D_mel], the input frame of each step in place of
         the previous step's last frame (zeros at step 0 otherwise); a way to
         hold two paths to the same inputs step by step."""
-        B, L, _ = memory.shape
-        S, dev = max_steps, memory.device
+        B, S = memory.shape[0], max_steps
         if prenet_masks is None:
             if generator is None:
                 raise ValueError("Decoder: the PreNet's dropout needs prenet_masks or a generator")
-            prenet_masks = self.draw_prenet_masks(S, B, dev, generator)
-        cell = self.decoder_cell
-        state = cell.initial_state(B, L, self.dim_ctx, dev)
-        use_kernel = dev.type == "cuda" and self.use_kernel
-        if use_kernel:
-            packed = ts.pack_streamed(ts.weights_from_state_dict(self.state_dict(), prefix=""))
-            ones = torch.ones(B, L, device=dev)
-        y_in = torch.zeros(B, self.dim_mel, device=dev)
-        ys, ss, ws = [], [], []
-        for t in range(S):
-            if step_inputs is not None:
-                y_in = step_inputs[:, t]
-            masks = (prenet_masks[t, 0], prenet_masks[t, 1])
-            if use_kernel:
-                y_t, s_t, state = ts.taco_step_streamed(y_in, state, memory, ones, packed,
-                                                        cell.p_zoneout, prenet_masks=masks)
-            else:
-                state, out = cell(state, y_in, memory, masks)
-                y_t = F.leaky_relu(self.fc_mel(out), 0.01)
-                s_t = self.fc_stop(out)
-            ys.append(y_t)
-            ss.append(s_t)
-            ws.append(state.w)
-            y_in = y_t.reshape(B, self.r, self.dim_mel)[:, -1]
-        y = torch.stack(ys, 1).reshape(B, S * self.r, self.dim_mel)
-        s_groups = torch.stack(ss, 1)  # [B, S, r]
+            prenet_masks = self.draw_prenet_masks(S, B, memory.device, generator)
+        _, y, s_groups, w = self._run(self.init_carry(memory), memory, prenet_masks[:S],
+                                      step_inputs)
         stopped = s_groups.min(dim=-1).values < self.stop_threshold
         first = torch.argmax(stopped.to(torch.int32), dim=1) + 1
         stop_lengths = torch.where(stopped.any(dim=1), first, torch.full_like(first, S))
-        return y, s_groups.reshape(B, S * self.r, 1), torch.stack(ws, 1), stop_lengths
+        return (y.reshape(B, S * self.r, self.dim_mel), s_groups.reshape(B, S * self.r, 1), w,
+                stop_lengths)
+
+    def decode_chunk(self, memory: torch.Tensor, carry, prenet_masks: torch.Tensor):
+        """The free-running decode continued for len(prenet_masks) = K groups
+        from `carry` (init_carry's or a previous chunk's) -> (carry,
+        y [B, K*r, D_mel], stopped [B, K] per-group stop flags, w [B, K, L]).
+        prenet_masks [K, 2, B, P] are the masks of the chunk's global steps."""
+        B, K = memory.shape[0], prenet_masks.shape[0]
+        carry, y, s_groups, w = self._run(carry, memory, prenet_masks)
+        stopped = s_groups.min(dim=-1).values < self.stop_threshold
+        return carry, y.reshape(B, K * self.r, self.dim_mel), stopped, w
 
 
 def check_supported(cfg: TacotronConfig):
@@ -209,9 +260,6 @@ class Tacotron(nn.Module):
         raise NotImplementedError("Tacotron training and teacher forcing are not ported yet; "
                                   "use Tacotron.infer")
 
-    def decode_chunk(self, *args, **kwargs):
-        raise NotImplementedError("chunked (streaming) Tacotron decoding is not ported yet")
-
     @torch.no_grad()
     def infer(self, cond: torch.Tensor, cond_lengths: torch.Tensor, max_steps: int = 400,
               prenet_masks: Optional[torch.Tensor] = None,
@@ -224,6 +272,29 @@ class Tacotron(nn.Module):
         y, s, w, stop_lengths = self.decoder(memory, max_steps, prenet_masks, generator, step_inputs)
         y_post = self.postnet(y) if self.postnet is not None else y
         return y, y_post, s, {"w": w, "stop_lengths": stop_lengths}
+
+    # -- the streaming surface (infer/taco_serving.py): the prefix once per
+    #    utterance, then chunks of the decode, the postnet over any window
+
+    @torch.no_grad()
+    def encode(self, cond: torch.Tensor, cond_lengths: torch.Tensor):
+        """ids [B, L], lengths [B] -> (memory [B, L, D], mmask [B, L]); the
+        attention does not read mmask (as the JAX model's)."""
+        return self.encoder(cond, cond_lengths), sequence_mask(cond_lengths, cond.shape[1])
+
+    def decode_init(self, memory: torch.Tensor):
+        return self.decoder.init_carry(memory)
+
+    @torch.no_grad()
+    def decode_chunk(self, memory: torch.Tensor, carry, prenet_masks: torch.Tensor):
+        """`Decoder.decode_chunk`: the masks of the chunk's global steps
+        (those of steps t0 .. t0+K-1) stand for the JAX step index."""
+        return self.decoder.decode_chunk(memory, carry, prenet_masks)
+
+    @torch.no_grad()
+    def apply_postnet(self, y: torch.Tensor) -> torch.Tensor:
+        """The postnet over any frame window [B, T, D_mel]."""
+        return self.postnet(y) if self.postnet is not None else y
 
 
 def build_tacotron(cfg: TacotronConfig, seed: int = 0, device="cuda") -> Tacotron:

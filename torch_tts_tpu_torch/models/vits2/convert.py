@@ -16,6 +16,8 @@ A multi-speaker tree's `emb_g`, `enc_p.encoder.spk_emb_linear`, `dec.cond`,
 `dp.cond` and the WN `cond_layer`s of `enc_q` and of every flow take the
 same rules (embedding, dense, conv, weight-normed conv).
 
+`generator_state_dict_from_jax_params` converts a standalone HiFi-GAN
+generator's tree (a vocoder artifact's) with the decoder's rules.
 `mpd_state_dict_from_jax_params` does the same for the multi-period
 discriminator (the JAX `export_mpd_torch_state_dict`), and
 `dur_disc_state_dict_from_jax_params` for the duration discriminators
@@ -81,13 +83,8 @@ def _placeholders(hidden: int, n_flows: int) -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_jax_params(params: Dict[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
-    """Flax VITS2 params (nested dicts of arrays) -> {torch name: tensor}.
-    `cfg` (a VITS2ModelConfig) sets the number of resblocks per stage and
-    adds the pre_conv flows' post_transformer placeholders; without it the
-    tree may be any submodule's."""
+def _convert_tree(params: Dict[str, Any], n_kernels: int) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
-    n_kernels = len(cfg.resblock_kernel_sizes) if cfg is not None else 0
 
     def emit(path, key, value):
         out[f"{_torch_name(path, n_kernels)}.{key}" if path else key] = np.asarray(value)
@@ -121,8 +118,26 @@ def state_dict_from_jax_params(params: Dict[str, Any], cfg=None) -> Dict[str, to
                     out[_torch_name(path + [k], n_kernels)] = np.asarray(v)
 
     walk(params, [])
+    return out
+
+
+def state_dict_from_jax_params(params: Dict[str, Any], cfg=None) -> Dict[str, torch.Tensor]:
+    """Flax VITS2 params (nested dicts of arrays) -> {torch name: tensor}.
+    `cfg` (a VITS2ModelConfig) sets the number of resblocks per stage and
+    adds the pre_conv flows' post_transformer placeholders; without it the
+    tree may be any submodule's."""
+    out = _convert_tree(params, len(cfg.resblock_kernel_sizes) if cfg is not None else 0)
     if cfg is not None and cfg.use_transformer_flows and cfg.transformer_flow_type == "pre_conv":
         out.update(_placeholders(cfg.hidden_channels, cfg.flow_n_flows))
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def generator_state_dict_from_jax_params(params: Dict[str, Any],
+                                         resblock_kernel_sizes) -> Dict[str, torch.Tensor]:
+    """A flax HiFi-GAN `Generator`'s params alone (a standalone vocoder's,
+    as `infer/vocoder.py` stores them) -> the names `dec.*` takes in the
+    VITS2 tree, without the prefix, for `ops/hifigan.py:Generator`."""
+    out = _convert_tree(params, len(resblock_kernel_sizes))
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 

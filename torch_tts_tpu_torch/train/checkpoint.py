@@ -6,9 +6,12 @@ holding only tensors, numbers and dicts, so `torch.load(...,
 weights_only=True)` reads it:
 
     {"step": int,
-     "model": {name: tensor}, "mpd": {...}, ["dur_disc": {...}],
+     "model": {name: tensor}, ["mpd": {...}], ["dur_disc": {...}],
      "opt_g": {"count": int, "mini_step": int, "mu": {name: tensor},
-               "nu": {...}[, "acc": {...}]}, "opt_d": {...}, ["opt_dur": {...}]}
+               "nu": {...}[, "acc": {...}]}, ["opt_d": {...}], ["opt_dur": {...}]}
+
+(A state without a discriminator, the vocoder's recon-only one, has no
+"mpd" / "opt_d".)
 
 Semantics are the JAX package's: `list_checkpoints` sorts on the step
 number, `remove_old_checkpoints` keeps the last `keep`, a save writes
@@ -46,10 +49,10 @@ def state_tree(state, copy: bool = False) -> Dict[str, Any]:
         return {k: ({n: take(t) for n, t in v.items()} if isinstance(v, dict) else v)
                 for k, v in d.items()}
 
-    tree = {"step": int(state.step), "model": module(state.model), "mpd": module(state.mpd),
-            "opt_g": opt(state.opt_g), "opt_d": opt(state.opt_d)}
-    if state.dur_disc is not None:
-        tree["dur_disc"], tree["opt_dur"] = module(state.dur_disc), opt(state.opt_dur)
+    tree = {"step": int(state.step), "model": module(state.model), "opt_g": opt(state.opt_g)}
+    for net, o in (("mpd", "opt_d"), ("dur_disc", "opt_dur")):
+        if getattr(state, net, None) is not None:
+            tree[net], tree[o] = module(getattr(state, net)), opt(getattr(state, o))
     return tree
 
 

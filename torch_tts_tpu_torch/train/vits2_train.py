@@ -83,15 +83,16 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 
 class AdamW:
     """optax.adamw(exponential_decay(lr, steps_per_epoch, lr_decay,
-    staircase=True), b1, b2, eps, weight_decay), in optax's order of
+    staircase), b1, b2, eps, weight_decay), in optax's order of
     operations, over a fixed list of parameters (updated in place); with
     accum = k > 1, wrapped as optax.MultiSteps(every_k_schedule=k).
-    `names` keys the moments in `state_dict` (indices when not given)."""
+    `names` keys the moments in `state_dict` (indices when not given).
+    The VITS2 step's schedule is a staircase; the vocoder's is smooth."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], learning_rate: float,
                  betas, eps: float, lr_decay: float, steps_per_epoch: int,
                  weight_decay: float = 0.01, accum: int = 1,
-                 names: Optional[Sequence[str]] = None):
+                 names: Optional[Sequence[str]] = None, staircase: bool = True):
         self.params = list(params)
         self.names = list(names) if names is not None else [str(i) for i in range(len(self.params))]
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -99,6 +100,7 @@ class AdamW:
         self.count = 0  # updates taken (the schedule's and Adam's count)
         self.learning_rate, self.lr_decay = learning_rate, lr_decay
         self.steps_per_epoch = max(1, steps_per_epoch)
+        self.staircase = staircase
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps, self.weight_decay = eps, weight_decay
         self.accum = max(1, int(accum))
@@ -106,7 +108,8 @@ class AdamW:
         self.acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else []
 
     def lr(self) -> float:
-        return self.learning_rate * self.lr_decay ** (self.count // self.steps_per_epoch)
+        n = self.count / self.steps_per_epoch
+        return self.learning_rate * self.lr_decay ** (int(n) if self.staircase else n)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor], apply: bool = True):
