@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
 multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
-types, Tacotron-2 inference and serving with the HiFi-GAN vocoder and its
-trainer, the bulk mel frontend, the LLTM cell) on one NVIDIA GPU.
+types, Tacotron-2 inference, serving with the HiFi-GAN vocoder and its
+trainer, and training, the bulk mel frontend, the LLTM cell) on one
+NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -178,10 +179,31 @@ Phases, each of which raises on failure (exit code 1, no result line):
    launches must equal what the dispatches imply: one
    `taco_step_streamed` per decoder step and row group, one `mrf_fused`
    per MRF stage of each vocoder call.
-13. Prints each phase's seconds, the kernels' JSON line (launches: the
+13. Tacotron training (after Tacotron serving): the full-width
+   `TacotronConfig()` (configs/tacotron-ljspeech.yaml) as JSON, a
+   synthetic corpus of TACO_TRAIN_CLIPS clips (write_corpus), their mels
+   by the port's `TacotronDataset` (no HDF5 cache: the card has no h5py)
+   on the card's `AudioFrontend`, collated by `collate_tacotron`: text
+   padded as the train CLI pads it, frames to TACO_TRAIN_FRAMES, batches of
+   TACO_TRAIN_B, the first TACO_TRAIN_EVAL clips held out. Counts zeroed,
+   `TacotronTrainer.train` for an epoch with evaluate(), a new trainer on
+   the run directory (its state equal to the checkpoint bit for bit) for a
+   second epoch, then `TacotronSynthesizer.from_run_dir` (the trainer's
+   weights exactly) decodes one text: `taco_step_streamed` launches equal
+   to what evaluate()'s and the decode's steps imply (the training
+   forward runs the cell modules: the kernel draws no zoneout, noise or
+   coin and has no backward). Then `eval_step` on the kernel against the
+   plain path (`decoder.use_kernel = False`) with the same PreNet masks:
+   w, y, y_post and the loss within TACO_EVAL_ATOL, exactly steps x
+   ceil(B / 8) launches a teacher-forced forward; eval times; a train
+   step at the batch's shape from a fresh model (host ms, then a profiled
+   step's device busy time and operations, idle share); and
+   TACO_LOSS_STEPS steps on the batch's first TACO_LOSS_FRAMES frames
+   from another: a finite and falling loss.
+14. Prints each phase's seconds, the kernels' JSON line (launches: the
    main paths', the trainer's, the multi-speaker path's, the serving
-   path's, the MB-iSTFT path's and the Tacotron serving path's;
-   launches_by_path: each path's own), then the device line last.
+   path's, the MB-iSTFT path's and the Tacotron serving and training
+   paths'; launches_by_path: each path's own), then the device line last.
 """
 
 from __future__ import annotations
@@ -331,6 +353,17 @@ TACO_STREAM_TEXT = SENTENCES[2][:110]
 TACO_AUDIO_ATOL = 1e-3
 TACO_EDGE_FRAMES = 48
 TACO_WEB_REQUESTS = 4
+# Tacotron training (`train/tacotron_train.py`): a synthetic corpus of
+# TACO_TRAIN_CLIPS clips (write_corpus), the first TACO_TRAIN_EVAL held out
+# for evaluate(); batches of TACO_TRAIN_B, text padded as the train CLI pads
+# it, frames to TACO_TRAIN_FRAMES; the loss check's steps on one batch
+# cut to its first TACO_LOSS_FRAMES frames (a step's host time follows its
+# decoder steps: about 2.3 s at 400 on the H100's host);
+# eval_step on the kernel against the plain path within TACO_EVAL_ATOL
+# (w, y, y_post and the loss; fp32 over 400 steps, as TACO_TF_ATOL)
+TACO_TRAIN_CLIPS, TACO_TRAIN_EVAL, TACO_TRAIN_B, TACO_TRAIN_FRAMES = 48, 16, 16, 400
+TACO_LOSS_STEPS, TACO_LOSS_FRAMES = 20, 128
+TACO_EVAL_ATOL = 1e-3
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -2951,33 +2984,40 @@ def mrf_stages(gen) -> int:
 def expected_taco_launches(synth):
     """Counts, while open, the launches the synthesizer's dispatches imply on
     the kernel path: one `taco_step_streamed` per decoder step and row group
-    of at most 8, one `mrf_fused` per MRF stage of each vocoder call."""
+    of at most 8, one `mrf_fused` per MRF stage of each vocoder call (none
+    without a vocoder)."""
     import threading
 
     from torch_tts_tpu_torch.kernels import taco_step as ts
 
     dec, voc = synth.model.decoder, synth.vocoder
     counts, lock = {"taco_step_streamed": 0, "mrf_fused": 0}, threading.Lock()
-    real_run, real_wave = dec._run, voc.wave
+    real_run = dec._run
 
-    def run(carry, memory, prenet_masks, step_inputs=None):
-        if dec.use_kernel:
+    def run(carry, memory, prenet_masks, step_inputs=None, **train):
+        if dec.use_kernel and not any(v is not None for v in train.values()):
             with lock:
                 counts["taco_step_streamed"] += (prenet_masks.shape[0]
                                                  * len(ts.row_groups(memory.shape[0])))
-        return real_run(carry, memory, prenet_masks, step_inputs)
+        return real_run(carry, memory, prenet_masks, step_inputs, **train)
 
-    def wave(mel):
-        if voc.generator.fuse_mrf:
-            with lock:
-                counts["mrf_fused"] += mrf_stages(voc.generator)
-        return real_wave(mel)
+    dec._run = run
+    if voc is not None:
+        real_wave = voc.wave
 
-    dec._run, voc.wave = run, wave
+        def wave(mel):
+            if voc.generator.fuse_mrf:
+                with lock:
+                    counts["mrf_fused"] += mrf_stages(voc.generator)
+            return real_wave(mel)
+
+        voc.wave = wave
     try:
         yield counts
     finally:
-        del dec._run, voc.wave
+        del dec._run
+        if voc is not None:
+            del voc.wave
 
 
 def taco_serving_kernel_checks(model, gen, device, card: str):
@@ -3319,6 +3359,238 @@ def taco_serving_phase(device, card: str, tmp: str):
     return launches
 
 
+def profile_step(fn):
+    """(device busy ms, device operations: kernels and copies, host ms) of
+    one fn() call, its busy time by torch.profiler tracing the device alone
+    (with the host's events, a Tacotron train step's 90,000 operations took
+    the trace minutes to average) and its host time on the host clock from
+    the call to the device's end, the same call's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [e for e in prof.key_averages() if e.device_type == cuda]
+    return sum(e.self_device_time_total for e in ops) / 1e3, sum(e.count for e in ops), host_ms
+
+
+def taco_training_phase(device, card: str, tmp: str):
+    """Tacotron-2 training at full width (configs/tacotron-ljspeech.yaml, the
+    dataclass defaults): the port's TacotronDataset (no cache) on a
+    synthetic corpus, TacotronTrainer for an epoch with evaluate(), a
+    resume checked bit for bit and a second epoch, the trained run
+    directory through TacotronSynthesizer.from_run_dir; then eval_step on
+    the kernel against the plain path, a train step's times at the batch's
+    shape, and the loss over TACO_LOSS_STEPS steps on one batch's first
+    TACO_LOSS_FRAMES frames. Returns the path's launch counts, equal to
+    what its decodes imply."""
+    import numpy as np
+    import torch
+
+    from torch_tts_tpu_torch.audio.frontend import AudioFrontend
+    from torch_tts_tpu_torch.cli.tacotron_infer import text_encoder
+    from torch_tts_tpu_torch.cli.tacotron_train import pad_lengths
+    from torch_tts_tpu_torch.core.config import TacotronConfig
+    from torch_tts_tpu_torch.data.tacotron_dataset import (TacotronDataset,
+                                                           TranscribedAudioDataset,
+                                                           collate_tacotron)
+    from torch_tts_tpu_torch.infer.taco_serving import TacotronSynthesizer
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+    from torch_tts_tpu_torch.models.tacotron import build_tacotron
+    from torch_tts_tpu_torch.train import checkpoint
+    from torch_tts_tpu_torch.train import tacotron_train as tt
+    from torch_tts_tpu_torch.train.vits2_trainer import step_generator, to_tensors
+    from torch_tts_tpu_torch.utils.logging_utils import Recorder
+
+    cfg = TacotronConfig()
+    r, B = cfg.model.r, TACO_TRAIN_B
+    cfg_path = os.path.join(tmp, "tacotron.json")
+    with open(cfg_path, "w") as f:
+        json.dump({k: dataclasses.asdict(getattr(cfg, k)) for k in ("audio", "text", "model")}, f)
+    corpus = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    write_corpus(corpus, TACO_TRAIN_CLIPS, cfg.audio.sample_rate, seed=11)
+    ds = TacotronDataset(TranscribedAudioDataset(corpus), text_encoder(cfg),
+                         AudioFrontend(cfg.audio, device))
+    items = [ds[i] for i in range(len(ds))]
+    pad_c, pad_x = pad_lengths(items, r, TACO_TRAIN_FRAMES)
+    longest = max(it["x"].shape[0] for it in items)
+    if pad_x != TACO_TRAIN_FRAMES or longest > pad_x:
+        raise RuntimeError(f"frames pad to {pad_x}, the longest mel has {longest}")
+
+    def batches(sel):
+        return [collate_tacotron(sel[i: i + B], pad_text_to=pad_c, pad_frames_to=pad_x, r=r)
+                for i in range(0, len(sel), B)]
+
+    train_b, eval_b = batches(items[TACO_TRAIN_EVAL:]), batches(items[:TACO_TRAIN_EVAL])
+    spe, S = len(train_b), pad_x // r
+    log(f"tacotron training phase: {len(items)} clips of {TRAINER_SECONDS[0]}-"
+        f"{TRAINER_SECONDS[1]} s written and their mels made by the port's TacotronDataset on "
+        f"the card in {time.perf_counter() - t0:.1f} s; {spe} train batches and {len(eval_b)} "
+        f"eval batch(es) of {B} x {pad_c} ids x {pad_x} frames (longest mel {longest})")
+
+    writers = []
+
+    def recorder(log_dir):
+        writers.append(Recorder())
+        return writers[-1]
+
+    def finite_log(what):
+        logged = [(tag, v) for w in writers for tag, vals in w.scalars.items() for _, v in vals]
+        if not logged or not all(math.isfinite(v) for _, v in logged):
+            raise RuntimeError(f"{what}: nothing logged or a non-finite scalar")
+        return {tag: vals[-1][1] for tag, vals in writers[-1].scalars.items()}
+
+    # --- the main path, its launches counted from here: an epoch with
+    # evaluate(), a resume and a second epoch, the run directory decoded
+    ts.taco_step_streamed.launches = 0
+    run_dir = os.path.join(tmp, "taco_run")
+    t0 = time.perf_counter()
+    tr = tt.TacotronTrainer(cfg, run_dir, make_writer=recorder, device=device)
+    tr.train(train_b, eval_b, num_epochs=1, log_interval=1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    last = finite_log("epoch 1")
+    path = checkpoint.latest_checkpoint(run_dir)
+    bad = tree_mismatches(checkpoint.load_file(path), checkpoint.state_tree(tr.state))
+    if tr.state.step != spe or bad or not path.endswith(f"ckpt_{spe}.pt"):
+        raise RuntimeError(f"epoch 1: step {tr.state.step}, checkpoint {path} differs at {bad[:5]}")
+    step_ms = [v for _, v in writers[-1].scalars["perf/step_ms"]]
+    log(f"  epoch 1: {spe} steps and evaluate() in {epoch_s:.1f} s (model init and first calls "
+        f"included), step ms on the host clock {', '.join(f'{v:.1f}' for v in step_ms)}; last "
+        f"logged loss {last['loss']:.4f}, eval/loss {last['eval/loss']:.4f} [{card}]")
+    del tr
+    writers.clear()
+    tr = tt.TacotronTrainer(cfg, run_dir, make_writer=recorder, device=device)
+    bad = tree_mismatches(checkpoint.state_tree(tr.state), checkpoint.load_file(path))
+    if tr.state.step != spe or bad:
+        raise RuntimeError(f"the resume did not restore the saved state: step {tr.state.step}, "
+                           f"{bad[:5]}")
+    tr.train(train_b, eval_b, num_epochs=2, log_interval=1)
+    torch.cuda.synchronize()
+    last = finite_log("epoch 2")
+    if tr.state.step != 2 * spe or checkpoint.latest_checkpoint(run_dir) != \
+            checkpoint.checkpoint_path(run_dir, 2 * spe):
+        raise RuntimeError(f"epoch 2 ended at step {tr.state.step}, not {2 * spe}")
+    log(f"  resume: step {spe}, parameters, BatchNorm buffers and the optimizer's moments and "
+        f"count equal to the checkpoint bit for bit; epoch 2 to step {tr.state.step}, last "
+        f"logged loss {last['loss']:.4f}, eval/loss {last['eval/loss']:.4f}")
+    synth = TacotronSynthesizer.from_run_dir(cfg_path, run_dir, device=device)
+    trained = tr.model.state_dict()
+    if any(not torch.equal(v, trained[k]) for k, v in synth.model.state_dict().items()):
+        raise RuntimeError("from_run_dir did not load the trainer's latest weights")
+    with expected_taco_launches(synth) as expected:
+        t = time.perf_counter()
+        res = synth.synthesize([SENTENCES[1]], seed=4)[0]
+        torch.cuda.synchronize()
+        synth_ms = (time.perf_counter() - t) * 1e3
+        want = 2 * len(eval_b) * S * len(ts.row_groups(B)) + expected["taco_step_streamed"]
+    if not len(res.audio) or not np.isfinite(res.audio).all():
+        raise RuntimeError("the trained checkpoint's decode gave empty or non-finite audio")
+    launches = {"taco_step_streamed": ts.taco_step_streamed.launches}
+    log(f"  from_run_dir: {len(res.audio) / cfg.audio.sample_rate:.2f} s of Griffin-Lim audio in "
+        f"{synth_ms:.1f} ms; launches on the path {launches} (two evaluate() calls of "
+        f"{len(eval_b)} x {S} steps x {len(ts.row_groups(B))} row groups and the decode's "
+        f"{expected['taco_step_streamed']}: {want}) [{card}]")
+    if launches["taco_step_streamed"] != want:
+        raise RuntimeError(f"taco_step_streamed launches {launches}, the decodes imply {want}")
+    del synth
+
+    # --- eval_step on the kernel against the plain path, same PreNet masks
+    model, b = tr.model, tr.batch(eval_b[0])
+    draws = model.draw(B, pad_c, S, torch.Generator(device=device).manual_seed(9), train=False)
+
+    def evaluate(path):
+        model.decoder.use_kernel = path == "kernel"
+        with torch.no_grad():
+            y, y_post, _, _ = model(b["c"], b["c_lengths"], b["x"], b["x_lengths"], draws=draws)
+        metrics, w = tt.eval_step(model, b, draws=draws)
+        return {"w": w, "y": y, "y_post": y_post, "loss": metrics["loss"]}
+
+    t_part = time.perf_counter()
+    n0 = ts.taco_step_streamed.launches
+    got = evaluate("kernel")
+    torch.cuda.synchronize()
+    n_kernel = ts.taco_step_streamed.launches - n0
+    ref = evaluate("plain")
+    torch.cuda.synchronize()
+    errs = {k: float((got[k] - ref[k]).abs().max()) for k in got}
+    log(f"  eval_step kernel vs plain (B={B}, {S} teacher-forced steps): max |d| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (bound {TACO_EVAL_ATOL:g}); loss {float(got['loss']):.5f}; taco_step_streamed "
+        f"launches {n_kernel} (2 x {S} x {len(ts.row_groups(B))}), plain path "
+        f"{ts.taco_step_streamed.launches - n0 - n_kernel}")
+    if not all(v <= TACO_EVAL_ATOL for v in errs.values()):
+        raise RuntimeError("eval_step on the kernel disagrees with the plain path")
+    if n_kernel != 2 * S * len(ts.row_groups(B)) or ts.taco_step_streamed.launches != n0 + n_kernel:
+        raise RuntimeError("eval_step did not run each step as one launch per row group")
+    # a teacher-forced forward's host ms (evaluate() runs two), the paths in
+    # turns; then one profiled eval_step on each path: its device busy ms
+    # and, on the host clock, that same call's ms
+    times = {}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        times.setdefault(path, []).append(wall_ms(lambda: evaluate(path), warmup=0, reps=1) / 2)
+    prof = {}
+    for path in ("kernel", "plain"):
+        model.decoder.use_kernel = path == "kernel"
+        prof[path] = profile_step(lambda: tt.eval_step(model, b, draws=draws))
+    model.decoder.use_kernel = True
+    log(f"  eval_step ms on the host clock (B={B}, {S} steps, turns): " + ", ".join(
+        f"{p} {', '.join(f'{t:.1f}' for t in tt)}" for p, tt in times.items())
+        + "; a profiled eval_step: " + ", ".join(
+            f"{p} {h:.1f} ms host, busy {busy:.1f} ms in {n} device operations, idle share "
+            f"{max(0.0, 1 - busy / h):.2f}" for p, (busy, n, h) in prof.items())
+        + f"; the checks and times {time.perf_counter() - t_part:.1f} s [{card}]")
+    del tr, model, b, got, ref
+    torch.cuda.empty_cache()
+
+    # --- a train step at the batch's shape from a fresh model: host time
+    # (two steps, the second timed), then one profiled step
+    t_part = time.perf_counter()
+    state = tt.create_train_state(build_tacotron(cfg, seed=1, device=device))
+    b = to_tensors(train_b[0], device)
+
+    def timed_step(i, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = tt.train_step(state, batch, generator=step_generator(1, i, device))
+        loss = float(m["loss"])
+        return loss, (time.perf_counter() - t) * 1e3
+
+    first_ms = timed_step(0, b)[1]
+    step_ms = timed_step(1, b)[1]
+    busy_step, ops, prof_ms = profile_step(lambda: tt.train_step(
+        state, b, generator=step_generator(1, 2, device)))
+    log(f"  train step (B={B}, {pad_c} ids, {pad_x} frames): {step_ms:.1f} ms on the host clock "
+        f"(the fresh model's first {first_ms:.1f}); a profiled step: {prof_ms:.1f} ms on the "
+        f"host clock, device busy {busy_step:.1f} ms, {ops} device operations (kernels and "
+        f"copies), idle share {max(0.0, 1 - busy_step / prof_ms):.2f} (that step's busy over "
+        f"its host ms); {time.perf_counter() - t_part:.1f} s with the model's init and the "
+        f"profile [{card}]")
+
+    # --- the loss over TACO_LOSS_STEPS steps on that batch's first
+    # TACO_LOSS_FRAMES frames, from another fresh model
+    state = tt.create_train_state(build_tacotron(cfg, seed=2, device=device))
+    n = TACO_LOSS_FRAMES
+    short = dict(b, x=b["x"][:, :n].contiguous(), x_lengths=b["x_lengths"].clamp(max=n))
+    runs = [timed_step(i, short) for i in range(TACO_LOSS_STEPS)]
+    losses = [v for v, _ in runs]
+    log(f"  {TACO_LOSS_STEPS} train steps on one batch (B={B}, {n} frames): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (min {min(losses):.4f}); step "
+        f"{statistics.median(ms for _, ms in runs[1:]):.1f} ms median on the host clock [{card}]")
+    if not all(math.isfinite(v) for v in losses) or \
+            not statistics.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"the training loss is not finite or did not fall: {losses}")
+    del state, b, short
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -3375,15 +3647,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         by_path["tacotron serving"] = timed("tacotron serving", taco_serving_phase, device, card,
                                             tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["tacotron training"] = timed("tacotron training", taco_training_phase, device,
+                                             card, tmp)
     by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
     by_path["lltm"] = timed("lltm", lltm_phase, device, card)
     # launches: the last of these paths that runs the kernel (wn_group: the
     # train step's), plus the trainer's, the multi-speaker path's, the
-    # serving path's, the MB-iSTFT path's and the Tacotron serving path's
+    # serving path's, the MB-iSTFT path's and the Tacotron serving and
+    # training paths'
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for p in ("trainer", "multi-speaker", "serving", "mb-istft", "tacotron serving"):
+    for p in ("trainer", "multi-speaker", "serving", "mb-istft", "tacotron serving",
+              "tacotron training"):
         for n, c in by_path[p].items():
             launches[n] += c
     # the fused step is on no model path: its count is the kernel phase's

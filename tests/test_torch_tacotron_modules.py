@@ -2,7 +2,8 @@
 the JAX package: the LSTM zoneout cell, the packed BiLSTM and
 reverse_padded on ragged lengths, the attention and the PreNet, mel_inv
 and Griffin-Lim, the config loader, the variants that are not ported
-(training; `decode_chunk` is ported, tests/test_torch_taco_chunk.py),
+(training is ported, tests/test_torch_tacotron_train*.py; `decode_chunk`,
+tests/test_torch_taco_chunk.py),
 and the CLI on the CPU (`--vocoder`: tests/test_torch_vocoder_train.py;
 the whole model: tests/test_torch_tacotron.py, whose helpers these tests
 share).
@@ -170,7 +171,7 @@ def test_unported_variants_raise():
             build_tacotron(cfg, device="cpu")
     tiny = _cfgs(tcfg, 1)
     model = build_tacotron(tiny, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="draws or a generator"):
         model(torch.zeros(1, 3, dtype=torch.int64), torch.tensor([3]))
     with pytest.raises(ValueError, match="generator"):
         model.infer(torch.ones(1, 3, dtype=torch.int64), torch.tensor([3]), max_steps=2)

@@ -6,18 +6,24 @@ Encodes the text with the config's alphabet, decodes to --max-steps
 neural vocoder (--vocoder: an `infer/vocoder.py` artifact, the port's or
 the JAX package's, checked against the config's mel count, hop and sample
 rate) or inverts it (m_rev, the pseudo-inverse of the mel filterbank) and
-runs Griffin-Lim. `-m` takes a reference-format state dict (`.pth`, bare
-or {"model": ...}) such as `models/tacotron/convert.py` writes; the
-PreNet's dropout masks and the Griffin-Lim phases come from --seed.
+runs Griffin-Lim. The weights: `-m`, a reference-format state dict
+(`.pth`, bare or {"model": ...}) such as `models/tacotron/convert.py`
+writes, or `--run-dir`, the latest checkpoint of a `cli/tacotron_train.py`
+run (random weights, with a warning, when it has none); exactly one of the
+two. The PreNet's dropout masks and the Griffin-Lim phases come from
+--seed. Not ported: --ref (the VAE style encoder) and --plot.
 
 Usage:
   python -m torch_tts_tpu_torch.cli.tacotron_infer "speech synthesis is neat" \\
       configs/tacotron-ljspeech.yaml -m tacotron.pth -o out.wav
+  python -m torch_tts_tpu_torch.cli.tacotron_infer "speech synthesis is neat" \\
+      configs/tacotron-ljspeech.yaml --run-dir runs/tacotron -o out.wav
 """
 
 from __future__ import annotations
 
 import argparse
+import logging
 from typing import Optional, Sequence
 
 import numpy as np
@@ -30,17 +36,23 @@ from torch_tts_tpu_torch.models.tacotron.model import Tacotron
 from torch_tts_tpu_torch.text.encoder import TextEncoder
 
 _NOT_PORTED = {
-    "ref": "the VAE style encoder (ROADMAP queue 5)",
-    "plot": "the attention plot (utils/logging_utils.py)",
+    "ref": "the VAE style encoder (ROADMAP queue 5.2)",
+    "plot": "the attention plot's PNG writer (utils/logging_utils.py renders it in numpy)",
 }
 
 
 def load_model(cfg: TacotronConfig, checkpoint: str, device) -> Tacotron:
-    """Tacotron for `cfg` with the state dict in `checkpoint` loaded
-    strictly, on `device`, in eval mode."""
-    blob = torch.load(checkpoint, map_location="cpu", weights_only=True)
-    sd = blob["model"] if isinstance(blob.get("model"), dict) else blob
-    sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+    """Tacotron for `cfg` with the state dict in `checkpoint` (a `.pth`, or
+    a run directory's latest `ckpt_<step>.pt`) loaded strictly, on `device`,
+    in eval mode; a run directory without a checkpoint gives the seeded
+    random weights of `build_tacotron`, with a warning."""
+    from torch_tts_tpu_torch.infer.serving import load_generator_state
+    from torch_tts_tpu_torch.models.tacotron.model import build_tacotron
+
+    sd = load_generator_state(checkpoint)
+    if sd is None:
+        logging.warning("no checkpoint in %s: random weights", checkpoint)
+        return build_tacotron(cfg, device=device)
     model = Tacotron(cfg, 1 + len(cfg.text.alphabet))
     model.load_state_dict(sd, strict=True)
     return model.to(device).eval()
@@ -56,7 +68,9 @@ def main(argv: Optional[Sequence[str]] = None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("text")
     p.add_argument("config", help="YAML or JSON Tacotron config")
-    p.add_argument("-m", "--model", required=True, help="reference-format state dict (.pth)")
+    weights = p.add_mutually_exclusive_group(required=True)
+    weights.add_argument("-m", "--model", help="reference-format state dict (.pth)")
+    weights.add_argument("--run-dir", help="a tacotron_train run directory: its latest checkpoint")
     p.add_argument("-o", "--output", default="output.wav")
     p.add_argument("--max-steps", type=int, default=400)
     p.add_argument("--griffin-lim-iters", type=int, default=32)
@@ -72,7 +86,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
     cfg = load_tacotron_config(args.config)
     device = torch.device(args.device)
-    model = load_model(cfg, args.model, device)
+    model = load_model(cfg, args.model or args.run_dir, device)
     ids = text_encoder(cfg).encode(args.text)
     c = torch.tensor([ids], dtype=torch.int64, device=device)
     c_lengths = torch.tensor([len(ids)], dtype=torch.int64, device=device)

@@ -2,19 +2,21 @@
 
 - `LSTMCell`: torch.nn.LSTMCell's names and gate order (i, f, g, o), with
   the JAX cell's order of sums: x @ w_ih + h @ w_hh + b_ih + b_hh.
-- `LSTMZoneoutCell`: the same cell with zoneout's deterministic eval
-  blend, p * prev + (1 - p) * new, on h and c (the JAX module's
-  `deterministic=True` branch; the training masks are not ported yet).
+- `LSTMZoneoutCell`: the same cell with zoneout: at eval the deterministic
+  blend p * prev + (1 - p) * new on h and c; in training, given keep masks
+  (the JAX module's `uniform((H,)) < p`, one for h and one for c, each
+  shared over the batch), the previous h or c where the mask is set.
 - `reverse_padded`: reverse each sequence within its length.
 - `BiLSTM`: torch.nn.LSTM, bidirectional, over a packed sequence, so the
   backward direction starts at each item's last valid step as the JAX
-  version's `reverse_padded` scan does; output zero past each length.
+  version's `reverse_padded` scan does; output zero past each length;
+  differentiable (no in-place writes).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,13 +59,19 @@ class LSTMZoneoutCell(LSTMCell):
         super().__init__(input_size, hidden_size, bias)
         self.p_zoneout = p_zoneout
 
-    def forward(self, carry, x):
+    def forward(self, carry, x, keep_prev: Optional[torch.Tensor] = None):
+        """keep_prev: None (the eval blend) or the training masks [2, H]
+        (h's, c's): True keeps the previous value."""
         h_new, c_new = super().forward(carry, x)
         p = self.p_zoneout
         if p:
             h_prev, c_prev = carry
-            h_new = p * h_prev + (1.0 - p) * h_new
-            c_new = p * c_prev + (1.0 - p) * c_new
+            if keep_prev is not None:
+                h_new = torch.where(keep_prev[0], h_prev, h_new)
+                c_new = torch.where(keep_prev[1], c_prev, c_new)
+            else:
+                h_new = p * h_prev + (1.0 - p) * h_new
+                c_new = p * c_prev + (1.0 - p) * c_new
         return h_new, c_new
 
 

@@ -1,7 +1,7 @@
 """Tacotron attention (port of `torch_tts_tpu/ops/tacotron_attention.py`):
-`initial_att_weights` and `StepwiseMonotonicAttention` in deterministic
-mode. The training sigmoid noise and the other attention types are not
-ported yet.
+`initial_att_weights` and `StepwiseMonotonicAttention`, with the training
+sigmoid noise (the caller's standard normal draws, times 1.0, added to the
+energies). The other attention types are not ported yet.
 
 The JAX module takes a `cmask` and ignores it: its only sink is
 e[:, -1] = 1e4 at the last (possibly padded) position, so in a ragged batch
@@ -10,6 +10,8 @@ that it gives the JAX model's numbers.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -36,14 +38,22 @@ class StepwiseMonotonicAttention(nn.Module):
     one-element parameter, kept as a buffer so its state dict loads; the
     JAX module has no use for it either."""
 
+    SIGMOID_NOISE = 1.0  # the training noise's scale
+
     def __init__(self, dim_input: int, dim_context: int):
         super().__init__()
         self.query_layer = Linear(dim_input, dim_context, bias=False)
         self.register_buffer("bias", torch.ones(1))
 
-    def forward(self, x: torch.Tensor, w: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        """x [B, D_in], w [B, L], memory [B, L, D_ctx] -> new w [B, L]."""
+    def forward(self, x: torch.Tensor, w: torch.Tensor, memory: torch.Tensor,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, D_in], w [B, L], memory [B, L, D_ctx] -> new w [B, L];
+        noise [B, L]: the training draws (standard normal), else None."""
         q = self.query_layer(x)
-        e = torch.einsum("bld,bd->bl", memory, q).clone()
-        e[:, -1] = 1e4  # sink: always stay at the last position
+        e = torch.einsum("bld,bd->bl", memory, q)
+        if noise is not None:
+            e = e + self.SIGMOID_NOISE * noise
+        # sink: always stay at the last position (no in-place write, so
+        # autograd keeps the energies it saved)
+        e = torch.cat([e[:, :-1], torch.full_like(e[:, -1:], 1e4)], 1)
         return shift_monotonic(w, isru_sigmoid(e))

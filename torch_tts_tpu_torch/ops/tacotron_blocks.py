@@ -2,12 +2,13 @@
 `torch_tts_tpu/ops/tacotron_blocks.py`).
 
 `isru`, `isrlu`, `isru_sigmoid`; `Linear` (torch names `weight` [out, in],
-`bias`); eval-mode `BatchNorm` with running statistics (flax's order of
-operations: (x - mean) * rsqrt(var + eps) * scale + bias); `PreNet`, whose
+`bias`); `BatchNorm` over (batch, time), on its running statistics or, in
+training, on the batch's (flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`);
+`dropout_with_mask`, the JAX `Dropout` given its keep mask; `PreNet`, whose
 dropout stays on at inference in the Taco2Prod decoder and takes its keep
-masks from the caller; `MelPostnet` (eval: dropout off, BN on running
-statistics). `CBHG`, `MelPostnet2`, `Taco1PostNet` and `Upsampler` are not
-ported yet.
+masks from the caller; `MelPostnet` (in training: batch statistics and
+`Dropout(0.1)` after each ISRU, its masks from the caller). `CBHG`,
+`MelPostnet2`, `Taco1PostNet` and `Upsampler` are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,9 +54,18 @@ class Linear(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last axis with running statistics;
-    `affine=False` has no weight/bias (the encoder's third BN). Buffers
-    carry torch.nn.BatchNorm1d's names, `num_batches_tracked` included."""
+    """BatchNorm over the last axis; `affine=False` has no weight/bias (the
+    encoder's third BN). Buffers carry torch.nn.BatchNorm1d's names,
+    `num_batches_tracked` included.
+
+    batch_stats=True is flax's training mode: the statistics of every axis
+    but the last, padding frames included (the JAX model passes no mask),
+    var = max(0, E[x^2] - E[x]^2) (biased; flax's fast variance), the
+    output through them with their gradient, and the running statistics
+    updated to MOMENTUM * running + (1 - MOMENTUM) * batch. (torch's
+    F.batch_norm would update running_var with the unbiased variance.)"""
+
+    MOMENTUM = 0.9
 
     def __init__(self, num_features: int, affine: bool = True, eps: float = 1e-5):
         super().__init__()
@@ -69,11 +79,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        if not batch_stats:
+            y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+            if self.weight is not None:
+                y = y * self.weight + self.bias
+            return y
+        dims = tuple(range(x.dim() - 1))
+        mean = x.mean(dims)
+        var = torch.clamp(torch.square(x).mean(dims) - torch.square(mean), min=0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            self.num_batches_tracked += 1
+        mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
-            y = y * self.weight + self.bias
-        return y
+            mul = mul * self.weight
+        y = (x - mean) * mul
+        return y + self.bias if self.bias is not None else y
 
 
 def dropout_with_mask(x: torch.Tensor, keep_mask: Optional[torch.Tensor], p: float) -> torch.Tensor:
@@ -103,7 +127,11 @@ class PreNet(nn.Module):
 
 class MelPostnet(nn.Module):
     """Tacotron-2 conv postnet with ISRU activations and a residual output:
-    x + fc_out(isru(bn(conv(...)))), `conv.{i}.0` the conv, `conv.{i}.1` the BN."""
+    x + fc_out(isru(bn(conv(...)))), `conv.{i}.0` the conv, `conv.{i}.1` the BN.
+    In training, `Dropout(P_DROPOUT)` after each ISRU with the caller's keep
+    masks, one [B, T, dim_hidden] per layer."""
+
+    P_DROPOUT = 0.1
 
     def __init__(self, dim_mel: int, dim_hidden: int = 512, kernel_size: int = 5, num_layers: int = 3):
         super().__init__()
@@ -114,9 +142,13 @@ class MelPostnet(nn.Module):
             for i in range(num_layers))
         self.fc_out = Linear(dim_hidden, dim_mel, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, T, dim_mel] -> [B, T, dim_mel]."""
+    def forward(self, x: torch.Tensor, batch_stats: bool = False,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        """x [B, T, dim_mel] -> [B, T, dim_mel]; batch_stats: BN in training
+        mode; dropout_masks: None (no dropout) or one keep mask a layer."""
         y = x
-        for conv, bn in self.conv:
-            y = isru(bn(conv(y.transpose(1, 2)).transpose(1, 2)))
+        for i, (conv, bn) in enumerate(self.conv):
+            y = isru(bn(conv(y.transpose(1, 2)).transpose(1, 2), batch_stats))
+            if dropout_masks is not None:
+                y = dropout_with_mask(y, dropout_masks[i], self.P_DROPOUT)
         return x + self.fc_out(y)

@@ -87,12 +87,16 @@ class AdamW:
     operations, over a fixed list of parameters (updated in place); with
     accum = k > 1, wrapped as optax.MultiSteps(every_k_schedule=k).
     `names` keys the moments in `state_dict` (indices when not given).
-    The VITS2 step's schedule is a staircase; the vocoder's is smooth."""
+    The VITS2 step's schedule is a staircase; the vocoder's is smooth.
+    clip_norm: optax.clip_by_global_norm(clip_norm) chained before adamw
+    (inside MultiSteps, so on the window's mean gradient): g / |g| *
+    clip_norm when |g| >= clip_norm (the Tacotron step's 1.0)."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], learning_rate: float,
                  betas, eps: float, lr_decay: float, steps_per_epoch: int,
                  weight_decay: float = 0.01, accum: int = 1,
-                 names: Optional[Sequence[str]] = None, staircase: bool = True):
+                 names: Optional[Sequence[str]] = None, staircase: bool = True,
+                 clip_norm: Optional[float] = None):
         self.params = list(params)
         self.names = list(names) if names is not None else [str(i) for i in range(len(self.params))]
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -103,6 +107,7 @@ class AdamW:
         self.staircase = staircase
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps, self.weight_decay = eps, weight_decay
+        self.clip_norm = clip_norm
         self.accum = max(1, int(accum))
         self.mini_step = 0  # micro-steps in the open window
         self.acc = [torch.zeros_like(p) for p in self.params] if self.accum > 1 else []
@@ -126,6 +131,13 @@ class AdamW:
                 return
             self.mini_step = 0
             grads = self.acc
+        if self.clip_norm is not None:
+            # optax: select(|g| < max_norm, g, (g / |g|) * max_norm)
+            g_norm = global_norm(grads)
+            keep = g_norm < self.clip_norm
+            den = torch.where(keep, torch.ones_like(g_norm), g_norm)
+            num = torch.where(keep, torch.ones_like(g_norm), torch.full_like(g_norm, self.clip_norm))
+            grads = [g / den * num for g in grads]
         lr = self.lr()
         self.count += 1
         b1, b2 = self.b1, self.b2
