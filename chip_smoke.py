@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
 multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
 types, Tacotron-2 inference, serving with the HiFi-GAN vocoder and its
-trainer, and training, the bulk mel frontend, the LLTM cell) on one
-NVIDIA GPU.
+trainer, and training, the bulk mel frontend, the LLTM cell, the int8
+decoder) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -200,10 +200,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    step's device busy time and operations, idle share); and
    TACO_LOSS_STEPS steps on the batch's first TACO_LOSS_FRAMES frames
    from another: a finite and falling loss.
-14. Prints each phase's seconds, the kernels' JSON line (launches: the
+14. int8 decoder (after MB-iSTFT): configs/vits2-ljspeech.yaml with
+   `quantize_decoder: true` (`int8_config`; pack_narrow_convs as shipped,
+   so conv_pre, up_0, up_1 and the C=256 and C=128 banks, 39 convs, are
+   int8 and the C=64 and C=32 stages fp on the MRF kernel) and the
+   MB-iSTFT config likewise (all 39 trunk convs int8), seeded. A conv of
+   C_in = 80, a shape the conv kernel does not take, must raise on the
+   card. At every conv of a B=1 `infer` (recorded around `ops.quant.int8_conv1d_quantized`)
+   the activation quantizer kernel must equal its plain version (x_q and
+   s_x) and the int8 conv kernel agree within INT8_CONV_RTOL of the peak;
+   each timed beside its bound, its plain version and fp32 cuDNN
+   `F.conv1d` at the same shape (the kernels line gives one call at each
+   kernel's dominant shape, and the infer's sums as `*_per_infer`). Then, counts zeroed, `infer` at B=1 and
+   B=8 (MB-iSTFT B=1): int8 launches equal to the decoder calls times the
+   int8 convs, `mrf_fused` one a fp stage of each unmasked decode; against
+   the plain int8 path (`int8_plain_path`) within AUDIO_ATOL; against the
+   fp32 model on the same weights: SNR, host and device-busy ms, in turns.
+15. Prints each phase's seconds, the kernels' JSON line (launches: the
    main paths', the trainer's, the multi-speaker path's, the serving
-   path's, the MB-iSTFT path's and the Tacotron serving and training
-   paths'; launches_by_path: each path's own), then the device line last.
+   path's, the MB-iSTFT path's, the int8 decoder's and the Tacotron
+   serving and training paths'; launches_by_path: each path's own), then
+   the device line last.
 """
 
 from __future__ import annotations
@@ -298,6 +315,19 @@ RESBLOCK2 = dict(resblock="2", resblock_kernel_sizes=(3, 5, 7),
 # the inference phase's host and device-busy ms per (model, B, path), printed
 # beside the MB-iSTFT model's
 INFER_TIMES = {}
+# the int8 decoder: configs/vits2-ljspeech.yaml's (and the MB-iSTFT
+# config's) changes for `quantize_decoder`; pack_narrow_convs as the YAML
+# ships it. The int8 conv against its plain version within INT8_CONV_RTOL
+# of the output's peak: the int32 sums are exact, the fp32 epilogue is the
+# same operations in the same order (no fused multiply-add)
+INT8 = dict(quantize_decoder=True, pack_narrow_convs=True)
+INT8_CONV_RTOL = 1e-6
+# calls in the CUDA graph that times an int8 kernel (and fp32 cuDNN), and
+# its plain version
+INT8_GRAPH, INT8_GRAPH_PLAIN = 20, 3
+# the int8 kernels' fields of the kernels line beyond the common ones
+INT8_FIELDS = ("shape", "shape_calls", "calls_per_infer", "ms_per_infer", "plain_ms_per_infer",
+               "bound_ms_per_infer", "fp32_conv_ms", "fp32_conv_ms_per_infer")
 # fault 1's card check: widths no shipped config has, which the WN kernels
 # (hidden 128) and the MRF kernel (a 16-channel last stage) do not take
 NARROW = dict(hidden_channels=128, upsample_initial_channel=256)
@@ -308,6 +338,8 @@ NARROW = dict(hidden_channels=128, upsample_initial_channel=256)
 # backward, the LLTM gate product)
 PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
+# dense int8 tensor-core operations (the int8 conv's bound)
+PEAK_INT8_OPS = 1979e12
 # mel_spectrogram_auto's threshold sweep: 8 clips of these many samples
 MEL_AUTO_LENGTHS = (2048, 8192, 32768, 220500)
 # the serving path: the Synthesizer's buckets (None: serving.DEFAULT_BUCKETS)
@@ -478,6 +510,22 @@ def check_audio(audio, y_lengths, hop: int, what: str, max_frames: int = MAX_FRA
     tail = audio[:, :, 0] * (pos >= (y_lengths.to(torch.int64) * hop)[:, None])
     if bool(tail.abs().max() > 0):
         raise RuntimeError(f"{what}: audio past y_lengths*hop is not zero")
+
+
+def bench_infer(model, B: int, device, seed=None, **kw):
+    """`infer` at the bench shapes (T_X ids, lengths T_X (8 - i) / 8,
+    MAX_FRAMES), noise from a generator seeded by `seed` (default B); kw
+    goes to `infer` (sid)."""
+    import torch
+
+    from torch_tts_tpu_torch.text import symbols
+
+    g = torch.Generator().manual_seed(100 + B)
+    x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
+    lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
+    gen = torch.Generator(device=device).manual_seed(B if seed is None else seed)
+    return model.infer(x, lengths, noise_scale=0.667, noise_scale_w=0.8, max_frames=MAX_FRAMES,
+                       generator=gen, **kw)
 
 
 def kernel_phase(device, card: str):
@@ -1141,7 +1189,6 @@ def lltm_phase(device, card: str):
 def slice_phase(device, card: str, tmp: str):
     import torch
 
-    from torch_tts_tpu_torch.text import symbols
     from torch_tts_tpu_torch.cli import vits2_infer
     from torch_tts_tpu_torch.core.config import VITS2Config
     from torch_tts_tpu_torch.kernels.mrf_fused import mrf_fused
@@ -1167,18 +1214,6 @@ def slice_phase(device, card: str, tmp: str):
                    "data": {**dataclasses.asdict(cfg.data), **dataclasses.asdict(cfg.audio)}}, f)
     hop, sr = cfg.audio.hop_length, cfg.audio.sampling_rate
 
-    def bench_inputs(B):
-        g = torch.Generator().manual_seed(100 + B)
-        x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
-        lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
-        return x, lengths
-
-    def run(B, seed):
-        x, lengths = bench_inputs(B)
-        gen = torch.Generator(device=device).manual_seed(seed)
-        return model.infer(x, lengths, noise_scale=0.667, noise_scale_w=0.8,
-                           max_frames=MAX_FRAMES, generator=gen)
-
     # --- main path, kernels on
     mrf_fused.launches = 0
     wn_group.launches = 0
@@ -1193,7 +1228,7 @@ def slice_phase(device, card: str, tmp: str):
             raise RuntimeError(f"request {i}: WAV size does not match the audio")
     outs = {}
     for B in (1, 8):
-        audio, attn, y_mask, aux, y_lengths = run(B, seed=B)
+        audio, attn, y_mask, aux, y_lengths = bench_infer(model, B, device)
         check_audio(audio, y_lengths, hop, f"bench B={B}")
         outs[B] = (audio, y_lengths)
         log(f"  bench B={B}: audio {tuple(audio.shape)}, y_lengths {y_lengths.tolist()}")
@@ -1206,7 +1241,7 @@ def slice_phase(device, card: str, tmp: str):
     # --- same inputs and noise through the plain path
     use_model_path(model, "plain")
     for B in (1, 8):
-        audio, attn, y_mask, aux, y_lengths = run(B, seed=B)
+        audio, attn, y_mask, aux, y_lengths = bench_infer(model, B, device)
         check_audio(audio, y_lengths, hop, f"plain B={B}")
         if not torch.equal(y_lengths, outs[B][1]):
             raise RuntimeError("plain path gave other durations")
@@ -1223,11 +1258,11 @@ def slice_phase(device, card: str, tmp: str):
         times = {}
         for path in ("plain", "kernel", "kernel", "plain"):
             use_model_path(model, path)
-            times.setdefault(path, []).append(wall_ms(lambda: run(B, seed=B)))
+            times.setdefault(path, []).append(wall_ms(lambda: bench_infer(model, B, device)))
         for path, ts in times.items():
             ms = statistics.median(ts)
             use_model_path(model, path)
-            busy = profile_busy_ms(lambda: run(B, seed=B))
+            busy = profile_busy_ms(lambda: bench_infer(model, B, device))
             INFER_TIMES["HiFi-GAN", B, path] = (ms, busy)
             log(f"  infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: {ms:.2f} ms/call, "
                 f"{B * audio_s / (ms / 1e3):.1f}x real time; device busy {busy:.2f} ms/call [{card}]")
@@ -1235,9 +1270,10 @@ def slice_phase(device, card: str, tmp: str):
     return launches
 
 
-def profile_busy_ms(fn) -> float:
+def profile_busy_ms(fn, kernel: str = ""):
     """Device busy time of one fn() call in ms (torch.profiler, the sum of
-    device self time)."""
+    device self time); with `kernel`, (that time, the launches the profiler
+    saw of device kernels whose name holds `kernel`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1246,7 +1282,9 @@ def profile_busy_ms(fn) -> float:
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == cuda) / 1e3
+    evs = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in evs) / 1e3
+    return (busy, sum(e.count for e in evs if kernel in e.key)) if kernel else busy
 
 
 def tacotron_phase(device, card: str, tmp: str):
@@ -1930,19 +1968,12 @@ def ms_infer(model, cfg, device, card: str):
     the plain path; two speakers give different audio."""
     import torch
 
-    from torch_tts_tpu_torch.text import symbols
-
     hop = cfg.audio.hop_length
     sids = {1: [5], 8: [13 * i for i in range(8)]}
 
     def run(B, sid=None, seed=None):
-        g = torch.Generator().manual_seed(100 + B)
-        x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
-        lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
-        sid = torch.tensor(sids[B] if sid is None else sid, device=device)
-        gen = torch.Generator(device=device).manual_seed(B if seed is None else seed)
-        return model.infer(x, lengths, sid=sid, noise_scale=0.667, noise_scale_w=0.8,
-                           max_frames=MAX_FRAMES, generator=gen)
+        return bench_infer(model, B, device, seed=seed,
+                           sid=torch.tensor(sids[B] if sid is None else sid, device=device))
 
     use_model_path(model, "kernel")
     with conditioned_wn_forwards() as gl:
@@ -2642,17 +2673,10 @@ def mb_infer(model, cfg, device, card: str):
     the HiFi-GAN model's of the inference phase."""
     import torch
 
-    from torch_tts_tpu_torch.text import symbols
-
     hop = cfg.audio.hop_length
 
     def run(B):
-        g = torch.Generator().manual_seed(100 + B)
-        x = torch.randint(1, len(symbols), (B, T_X), generator=g).to(device)
-        lengths = torch.tensor([T_X * (8 - i) // 8 for i in range(B)]).to(device)
-        return model.infer(x, lengths, noise_scale=0.667, noise_scale_w=0.8,
-                           max_frames=MAX_FRAMES,
-                           generator=torch.Generator(device=device).manual_seed(B))
+        return bench_infer(model, B, device)
 
     use_model_path(model, "kernel")
     outs, launches = counted(lambda: {B: run(B) for B in (1, 8)})
@@ -2962,6 +2986,325 @@ def mbistft_phase(device, card: str, tmp: str):
                                          "maximum_path")):
         raise RuntimeError(f"a kernel of the MB-iSTFT path did not launch: {launches}")
     return launches
+
+
+@contextlib.contextmanager
+def int8_plain_path():
+    """While open, the int8 convolutions run their plain versions on the
+    card (the wrappers' torch ops), not the kernels: the plain int8 path."""
+    from torch_tts_tpu_torch.kernels import int8_conv
+
+    real = int8_conv.quantize_act, int8_conv.int8_conv1d
+
+    def plain_conv(x_q, s_x, w_q, s_w, bias, padding=(0, 0), dilation=1, phases=1, stride=1):
+        return int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, padding, dilation, phases)
+
+    int8_conv.quantize_act, int8_conv.int8_conv1d = int8_conv.quantize_act_plain, plain_conv
+    try:
+        yield
+    finally:
+        int8_conv.quantize_act, int8_conv.int8_conv1d = real
+
+
+@contextlib.contextmanager
+def int8_conv_calls():
+    """While open, records each distinct int8 conv (key: B, C_in, T,
+    columns, taps, dilation, padding, phases) with its first call's inputs
+    and its number of calls."""
+    from torch_tts_tpu_torch.ops import quant
+
+    real, calls = quant.int8_conv1d_quantized, {}
+
+    def recording(x, w_q, s_w, bias, padding, dilation=1, phases=1):
+        N, k, C_in = w_q.shape
+        key = (x.shape[0], C_in, x.shape[2], N, k, dilation, tuple(padding), phases)
+        if key not in calls:
+            calls[key] = dict(n=0, args=(x.clone(), w_q, s_w, bias))
+        calls[key]["n"] += 1
+        return real(x, w_q, s_w, bias, padding, dilation, phases)
+
+    quant.int8_conv1d_quantized = recording
+    try:
+        yield calls
+    finally:
+        quant.int8_conv1d_quantized = real
+
+
+def int8_counted(fn):
+    """fn() with the int8 and the other kernels' counters set to 0 just
+    before -> (its result, the counts just after)."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import int8_conv
+
+    counters = {"quantize_act": int8_conv.quantize_act, "int8_conv1d": int8_conv.int8_conv1d,
+                **kernel_counters()}
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: c.launches for n, c in counters.items()}
+
+
+def int8_config():
+    """configs/vits2-ljspeech.yaml with `quantize_decoder: true`, from the
+    dataclass defaults (the card has no PyYAML; a CPU test holds the two
+    equal)."""
+    from torch_tts_tpu_torch.core.config import VITS2Config
+
+    base = VITS2Config()
+    return dataclasses.replace(
+        base, model=dataclasses.replace(base.model, **INT8),
+        data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
+
+
+def int8_convs(dec) -> int:
+    """The decoder's int8 convolutions (a transposed conv is int8 on its
+    subpixel geometry only)."""
+    from torch_tts_tpu_torch.ops.layers import Conv1d, ConvTranspose1d
+
+    return sum(m.quant is not None and (isinstance(m, Conv1d) or m.subpixel)
+               for m in dec.modules() if isinstance(m, (Conv1d, ConvTranspose1d)))
+
+
+def int8_kernel_checks(calls, card: str, timed_: bool = True):
+    """Each recorded conv: the quantizer kernel against its plain version
+    (x_q and s_x equal), the conv kernel against its plain version (within
+    INT8_CONV_RTOL of the output's peak). With timed_, each kernel, its
+    plain version and fp32 cuDNN `F.conv1d` at the same shape (TF32 off; a
+    yardstick the port never calls) timed by CUDA events around replays of
+    a CUDA graph of INT8_GRAPH calls (INT8_GRAPH_PLAIN for the plain
+    versions): no host between launches, since a call is a few
+    microseconds of device work (and torch.profiler, over many short
+    sessions, lost device events), beside the kernel's bound. -> per
+    kernel, ms, plain_ms and bound of one call at its dominant shape (the
+    recorded shape whose calls take the most kernel time), and the sums
+    over all the recorded calls (each shape times its number of calls)
+    under names of their own (`*_per_infer`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from torch_tts_tpu_torch.kernels import int8_conv
+
+    tot = {n: dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, ops_ms=0.0, bytes_ms=0.0, calls=0,
+                   top=None) for n in ("quantize_act", "int8_conv1d")}
+    fp32_ms = 0.0
+    for key, rec in sorted(calls.items()):
+        B, C_in, T, N, k, d, pad, phases = key
+        x, w_q, s_w, bias = rec["args"]
+        n = rec["n"]
+        with torch.no_grad():
+            x_q, s_x = int8_conv.quantize_act(x)
+            x_qp, s_xp = int8_conv.quantize_act_plain(x)
+            q_err = float((x_q.float() - x_qp.float()).abs().max())
+            if q_err != 0 or float(s_x) != float(s_xp):
+                raise RuntimeError(f"quantize_act {key}: x_q or s_x differs from its plain "
+                                   f"version (|x_q - plain| {q_err}, s_x {float(s_x)!r} against "
+                                   f"{float(s_xp)!r})")
+            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d, phases)
+            y_p = int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, pad, d, phases)
+            err, peak = float((y - y_p).abs().max()), float(y_p.abs().max())
+            if not err <= INT8_CONV_RTOL * peak or not bool(torch.isfinite(y).all()):
+                raise RuntimeError(f"int8_conv1d {key}: max |kernel - plain| {err:.3e} is over "
+                                   f"{INT8_CONV_RTOL:g} x the peak {peak:.3e}")
+            tot["quantize_act"]["max_abs_err"] = max(tot["quantize_act"]["max_abs_err"], q_err)
+            tot["int8_conv1d"]["max_abs_err"] = max(tot["int8_conv1d"]["max_abs_err"], err)
+            if not timed_:
+                continue
+            w_fp = torch.randn(N, C_in, k, device=x.device)
+            t_q = graph_ms(lambda: int8_conv.quantize_act(x), n=INT8_GRAPH)
+            t_qp = graph_ms(lambda: int8_conv.quantize_act_plain(x), n=INT8_GRAPH_PLAIN)
+            t_c = graph_ms(lambda: int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d,
+                                                         phases), n=INT8_GRAPH)
+            t_cp = graph_ms(lambda: int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, pad, d,
+                                                                phases), n=INT8_GRAPH_PLAIN)
+            t_fp = graph_ms(lambda: F.conv1d(F.pad(x, pad), w_fp, None, dilation=d),
+                            n=INT8_GRAPH)
+        M, K = B * (T + pad[0] + pad[1] - d * (k - 1)), k * C_in
+        ops = 2.0 * M * N * K
+        conv_parts = (ops / PEAK_INT8_OPS * 1e3,
+                      (B * T * C_in + N * K + 4 * M * N + 4 * N * 2) / PEAK_BYTES_PER_S * 1e3)
+        q_parts = (4.0 * B * C_in * T / PEAK_FP32_FLOPS * 1e3,
+                   5.0 * B * C_in * T / PEAK_BYTES_PER_S * 1e3)
+        log(f"  int8 {key} x{n}: quantize {t_q:.4f} / plain {t_qp:.4f} / bound "
+            f"{max(q_parts):.4f}; conv {t_c:.4f} / plain {t_cp:.4f} / fp32 cuDNN {t_fp:.4f} / "
+            f"bound {max(conv_parts):.4f} ({ops / max(t_c, 1e-9) / 1e9:.0f} TOPS)")
+        for name, t, tp, parts in (("quantize_act", t_q, t_qp, q_parts),
+                                   ("int8_conv1d", t_c, t_cp, conv_parts)):
+            s = tot[name]
+            s["ms"] += n * t
+            s["plain_ms"] += n * tp
+            by = "operations" if parts[0] >= parts[1] else "bytes"
+            s["ops_ms" if by == "operations" else "bytes_ms"] += n * max(parts)
+            s["calls"] += n
+            if s["top"] is None or n * t > s["top"]["calls"] * s["top"]["ms"]:
+                s["top"] = dict(shape=list(key[:6]) + [list(pad), phases], calls=n, ms=t,
+                                plain_ms=tp, bound=(max(parts), by), fp32_conv_ms=t_fp)
+        fp32_ms += n * t_fp
+    if not timed_:
+        log(f"  int8 kernels at {len(calls)} conv shapes: x_q and s_x equal to the plain "
+            f"version's, the conv within {tot['int8_conv1d']['max_abs_err']:.3e} of it")
+        return None
+    stats = {}
+    for name, s in tot.items():
+        by = "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes"
+        top = s["top"]
+        stats[name] = dict(ms=top["ms"], plain_ms=top["plain_ms"], max_abs_err=s["max_abs_err"],
+                           bound=top["bound"], library_ms=None, shape=top["shape"],
+                           shape_calls=top["calls"], calls_per_infer=s["calls"],
+                           ms_per_infer=s["ms"], plain_ms_per_infer=s["plain_ms"],
+                           bound_ms_per_infer=s["ops_ms"] + s["bytes_ms"])
+        log(f"  {name}, a call at its dominant shape {top['shape']} (x{top['calls']}): kernel "
+            f"{top['ms']:.4f} ms, plain {top['plain_ms']:.4f} ms, bound {top['bound'][0]:.4f} ms "
+            f"({top['bound'][1]}); the {s['calls']} calls of one B=1 int8 infer ({len(calls)} "
+            f"shapes; key B, C_in, T, columns, taps, dilation, padding, phases; ms over a CUDA "
+            f"graph): kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
+            f"{stats[name]['bound_ms_per_infer']:.4f} ms ({by}); max error "
+            f"{s['max_abs_err']:.3e} [{card}]")
+    conv = stats["int8_conv1d"]
+    conv["fp32_conv_ms"] = tot["int8_conv1d"]["top"]["fp32_conv_ms"]
+    conv["fp32_conv_ms_per_infer"] = fp32_ms
+    log(f"  fp32 cuDNN F.conv1d at the same shapes (TF32 off, over a CUDA graph): a call at the "
+        f"conv's dominant shape {conv['fp32_conv_ms']:.4f} ms, the infer's calls {fp32_ms:.4f} "
+        f"ms [{card}]")
+    return stats
+
+
+def int8_infer_checked(model, cfg, device, what: str, batches):
+    """`infer` at the bench shapes on the int8 kernels, counted: the int8
+    launches equal the decoder calls times the decoder's int8 convs, the MRF
+    kernel one launch per fp ResBlock1 stage of each unmasked decode (the
+    patch window decodes masked), one WN group a flow. The same inputs
+    through the plain int8 path must give equal durations and audio within
+    AUDIO_ATOL of its peak. -> (outputs by B, launches)."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
+    from torch_tts_tpu_torch.ops import hifigan
+
+    dec, hop = model.dec, cfg.audio.hop_length
+    n_int8 = int8_convs(dec)
+    fp_mrf = sum(b.quant is None and isinstance(b, hifigan.ResBlock1)
+                 and mrf_kernel.supports(b.channels, dec.max_taps)
+                 for b in dec.resblocks[::dec.num_kernels])
+    decodes = {"all": 0, "unmasked": 0}
+    real_forward = dec.forward
+
+    def counting_forward(x, x_mask=None, g=None):
+        decodes["all"] += 1
+        decodes["unmasked"] += x_mask is None
+        return real_forward(x, x_mask=x_mask, g=g)
+
+    dec.forward = counting_forward
+    try:
+        outs, launches = int8_counted(lambda: {B: bench_infer(model, B, device) for B in batches})
+    finally:
+        del dec.forward
+    want = {"quantize_act": decodes["all"] * n_int8, "int8_conv1d": decodes["all"] * n_int8,
+            "mrf_fused": decodes["unmasked"] * fp_mrf,
+            "wn_group": len(batches) * cfg.model.flow_n_flows}
+    got = {n: launches[n] for n in want}
+    log(f"  {what} int8 infer B={', '.join(map(str, batches))}: {decodes['all']} decoder calls "
+        f"({decodes['unmasked']} unmasked) x {n_int8} int8 convs; launches {got} (expected "
+        f"{want})")
+    if got != want or not decodes["all"]:
+        raise RuntimeError(f"{what}: int8 infer launched {got}, not {want}")
+    with int8_plain_path():
+        for B in batches:
+            audio, _, _, _, y_lengths = bench_infer(model, B, device)
+            check_audio(outs[B][0], outs[B][4], hop, f"{what} int8 B={B}")
+            if not torch.equal(y_lengths, outs[B][4]):
+                raise RuntimeError(f"{what}: the plain int8 path gave other durations")
+            rel = mb_rel_diff(outs[B][0], audio)
+            log(f"  {what} int8 infer B={B}: y_lengths {y_lengths.tolist()}; max |kernels - "
+                f"plain int8 path| / max(1, max |plain|) = {rel:.3e} (bound {AUDIO_ATOL:g})")
+            if rel > AUDIO_ATOL:
+                raise RuntimeError(f"{what}: the int8 kernels and the plain int8 path disagree")
+    return outs, got
+
+
+def int8_against_fp32(q_model, fp_model, outs, cfg, device, card: str, what: str, batches):
+    """The int8 model against the fp32 one on the same weights and inputs:
+    the SNR of the int8 audio over the fp32 audio's valid samples; host ms
+    and device-busy ms a call, fp32, int8, int8, fp32 in turns."""
+    import torch
+
+    hop = cfg.audio.hop_length
+    for B in batches:
+        audio_q, y_len = outs[B][0], outs[B][4]
+        audio_fp, _, _, _, y_fp = bench_infer(fp_model, B, device)
+        if not torch.equal(y_fp, y_len):
+            raise RuntimeError(f"{what}: the int8 and the fp32 model gave other durations")
+        valid = (torch.arange(audio_fp.shape[1], device=device)[None, :]
+                 < (y_len.to(torch.int64) * hop)[:, None])
+        sig = float((audio_fp[:, :, 0] ** 2 * valid).sum())
+        err = float(((audio_q - audio_fp)[:, :, 0] ** 2 * valid).sum())
+        snr = 10 * math.log10(sig / max(err, 1e-30))
+        models = {"fp32": fp_model, "int8": q_model}
+        times = {}
+        for path in ("fp32", "int8", "int8", "fp32"):
+            times.setdefault(path, []).append(
+                wall_ms(lambda: bench_infer(models[path], B, device), warmup=1, reps=3))
+        for path, ts in times.items():
+            busy, seen = profile_busy_ms(lambda: bench_infer(models[path], B, device),
+                                         "int8_conv_kernel")
+            log(f"  {what} infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: "
+                f"{statistics.median(ts):.2f} ms/call on the host clock (turns "
+                f"{', '.join(f'{t:.2f}' for t in ts)}), device busy {busy:.2f} ms ({seen} int8 "
+                f"conv launches seen by the profiler) [{card}]")
+        log(f"  {what} B={B}: SNR of the int8 audio against the fp32 audio {snr:.2f} dB "
+            f"(seeded weights: no quality claim)")
+
+
+def int8_phase(device, card: str):
+    """The int8 decoder (`quantize_decoder: true`) at full width:
+    configs/vits2-ljspeech.yaml (`pack_narrow_convs` on, as shipped: the
+    C=64 and C=32 stages stay fp) and the MB-iSTFT config, seeded. Both
+    kernels against their plain versions at every conv of a B=1 `infer`;
+    then, counts zeroed, `infer` at B=1 and B=8 (HiFi-GAN) and B=1
+    (MB-iSTFT) with their launch counts, against the plain int8 path, and
+    against the fp32 model on the same weights (SNR, host and busy ms).
+    -> (the path's launch counts, the kernels' stats)."""
+    import torch
+
+    from torch_tts_tpu_torch.ops import quant
+
+    mb = mbistft_config()
+    cfgs = {"HiFi-GAN": int8_config(),
+            "MB-iSTFT": dataclasses.replace(mb, model=dataclasses.replace(mb.model, **INT8))}
+    os.environ.pop("TTS_FUSED_WN", None)
+    # C_in = 80 is not a multiple of the conv kernel's 32-byte K steps: on
+    # the card that raises (a CUDA tensor never takes the plain version)
+    with torch.no_grad():
+        x, w = torch.randn(1, 80, 64, device=device), torch.randn(96, 80, 7, device=device)
+        try:
+            quant.int8_conv1d(x, w, padding=(3, 3))
+        except ValueError as e:
+            log(f"int8 phase: C_in=80 on the card raises, as it must: {e}")
+        else:
+            raise RuntimeError("int8_conv1d took C_in=80 on the card without raising")
+    launches, stats = {}, None
+    for what, cfg in cfgs.items():
+        t0 = time.perf_counter()
+        q_model = seeded_synthesizer(cfg, device)
+        fp_model = seeded_synthesizer(dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, quantize_decoder=False)), device)
+        log(f"int8 phase, {what}: {INT8}, {int8_convs(q_model.dec)} int8 convs in the decoder, "
+            f"seeded init of both models {time.perf_counter() - t0:.1f} s")
+        with int8_conv_calls() as calls:
+            bench_infer(q_model, 1, device)
+        # the kernels line's figures: one B=1 HiFi-GAN infer's calls
+        checked = int8_kernel_checks(calls, card, timed_=what == "HiFi-GAN")
+        stats = checked or stats
+        batches = (1, 8) if what == "HiFi-GAN" else (1,)
+        outs, got = int8_infer_checked(q_model, cfg, device, what, batches)
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        int8_against_fp32(q_model, fp_model, outs, cfg, device, card, what, batches)
+        del q_model, fp_model, outs
+        torch.cuda.empty_cache()
+    log(f"  launch counts on the int8 path: {launches}")
+    return launches, stats
 
 
 def taco_path(synth, path: str):
@@ -3644,6 +3987,8 @@ def main():
         by_path["serving"] = timed("serving", serving_phase, device, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["mb-istft"] = timed("mb-istft", mbistft_phase, device, card, tmp)
+    by_path["int8 decoder"], int8_stats = timed("int8 decoder", int8_phase, device, card)
+    stats.update(int8_stats)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["tacotron serving"] = timed("tacotron serving", taco_serving_phase, device, card,
                                             tmp)
@@ -3659,10 +4004,10 @@ def main():
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for p in ("trainer", "multi-speaker", "serving", "mb-istft", "tacotron serving",
-              "tacotron training"):
+    for p in ("trainer", "multi-speaker", "serving", "mb-istft", "int8 decoder",
+              "tacotron serving", "tacotron training"):
         for n, c in by_path[p].items():
-            launches[n] += c
+            launches[n] = launches.get(n, 0) + c
     # the fused step is on no model path: its count is the kernel phase's
     launches["taco_step_fused"] = stats["taco_step_fused"]["launches"]
     by_path["kernel phase"] = {"taco_step_fused": launches["taco_step_fused"]}
@@ -3682,15 +4027,25 @@ def main():
                "mel_spectrogram_fused": ("torch_tts_tpu_torch/csrc/stft_mel.cu",
                                          "torch_tts_tpu/kernels/stft.py:47"),
                "lltm": ("torch_tts_tpu_torch/csrc/gated_cell.cu",
-                        "torch_tts_tpu/kernels/gated_cell.py:81")}
+                        "torch_tts_tpu/kernels/gated_cell.py:81"),
+               # no Pallas counterpart: XLA work in the JAX package's int8 decoder
+               "quantize_act": ("torch_tts_tpu_torch/csrc/int8_conv.cu",
+                                "torch_tts_tpu/ops/quant.py:47"),
+               "int8_conv1d": ("torch_tts_tpu_torch/csrc/int8_conv.cu",
+                               "torch_tts_tpu/ops/quant.py:54")}
     # library_ms: the torch.stft mel's device busy time for the STFT+mel
     # kernel (whose ms and plain_ms are device busy times too); no single
-    # PyTorch call computes any of the other functions
+    # PyTorch call computes any of the other functions (PyTorch has no int8
+    # convolution on the card: the int8 conv's fp32_conv_ms is fp32 cuDNN at
+    # the same shape, a yardstick). The int8 kernels' ms, plain_ms and
+    # bound_ms are one call at their dominant `shape` (timed over CUDA
+    # graphs); the *_per_infer fields sum the calls of one B=1 int8 infer
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     launches_by_path={p: c[n] for p, c in by_path.items() if n in c},
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],
                     plain_ms=stats[n]["plain_ms"], bound_ms=stats[n]["bound"][0],
-                    bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"))
+                    bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"),
+                    **{k: v for k, v in stats[n].items() if k in INT8_FIELDS})
                for n, (src, rep) in sources.items()]
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; total {time.perf_counter() - t0:.1f} s with the build")

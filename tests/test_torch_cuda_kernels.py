@@ -610,3 +610,49 @@ def test_lltm_kernel_repeats_its_bits(cuda_device, B, I, H):
     args = _lltm_inputs(torch.Generator().manual_seed(B + H), cuda_device, B, I, H)
     for a, b in zip(gc._lltm_forward_cuda(*args), gc._lltm_forward_cuda(*args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,T,N,k,d,pad,phases", [
+    (1, 192, 1024, 512, 7, 1, (3, 3), 1), (2, 256, 777, 256, 11, 5, (25, 25), 1),
+    (1, 512, 300, 2048, 3, 1, (1, 1), 8), (3, 256, 129, 1024, 5, 1, (2, 2), 4),
+    (2, 32, 1000, 32, 3, 3, (3, 3), 1), (1, 64, 50, 96, 3, 1, (2, 0), 2),
+])
+def test_int8_kernels_match_plain(cuda_device, B, C, T, N, k, d, pad, phases):
+    """The quantizer gives the plain version's x_q and s_x exactly; the
+    int8 conv its output bit for bit (exact int32 sums, the same fp32
+    epilogue), ragged rows, columns and asymmetric padding included."""
+    from torch_tts_tpu_torch.kernels import int8_conv
+    from torch_tts_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(B * T + N)
+    x = _randn(g, cuda_device, B, C, T, scale=0.3)
+    w_q, s_w = quant.conv_weights(_randn(g, cuda_device, N, C, k, scale=0.05))
+    bias = _randn(g, cuda_device, N // phases)
+    with torch.no_grad():
+        x_q, s_x = int8_conv.quantize_act(x)
+        x_qp, s_xp = int8_conv.quantize_act_plain(x)
+        assert torch.equal(x_q, x_qp) and float(s_x) == float(s_xp)
+        for b in (bias, None):
+            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, b, pad, d, phases)
+            torch.testing.assert_close(
+                y, int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, b, pad, d, phases),
+                rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_int8_conv_raises_on_a_shape_it_does_not_take(cuda_device):
+    """C_in = 80 is not a multiple of the kernel's 32-byte K steps: on the
+    card the quantized conv raises (no plain version on a CUDA tensor) and
+    launches no conv."""
+    from torch_tts_tpu_torch.kernels import int8_conv
+    from torch_tts_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(80)
+    x = _randn(g, cuda_device, 1, 80, 64)
+    w = _randn(g, cuda_device, 96, 80, 7, scale=0.05)
+    assert not int8_conv.supports(80, 96, 7, 1)
+    before = int8_conv.int8_conv1d.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="not taken by the kernel"):
+        quant.int8_conv1d(x, w, padding=(3, 3))
+    assert int8_conv.int8_conv1d.launches == before

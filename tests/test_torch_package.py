@@ -152,7 +152,8 @@ def test_build_dir_is_keyed_by_sources():
     d = build.library_dir()
     assert d.parent == ROOT / "build" / "torch_kernels" and len(d.name) == 16
     assert sorted(p.name for p in build.CSRC.glob("*.cu")) == [
-        "gated_cell.cu", "mas.cu", "mrf_fused.cu", "stft_mel.cu", "taco_step.cu", "wn_stack.cu"]
+        "gated_cell.cu", "int8_conv.cu", "mas.cu", "mrf_fused.cu", "stft_mel.cu", "taco_step.cu",
+        "wn_stack.cu"]
 
 
 def test_cli_writes_wav_on_cpu(tmp_path):

@@ -23,7 +23,9 @@ compiled in a thread.
 - The eval step against the JAX `make_eval_step` (rtol 1e-4).
 - The converter's names and shapes against the JAX exporter's, loaded
   with strict=True; configs/vits2-ljspeech-mbistft.yaml against
-  chip_smoke.py's dataclass copy, and the hop check.
+  chip_smoke.py's dataclass copy, and the hop check; the config with
+  `quantize_decoder` builds its int8 trunk with the same state dict and
+  infers (tests/test_torch_int8_infer.py holds that against JAX).
 """
 
 import dataclasses
@@ -313,5 +315,30 @@ def test_shipped_mbistft_config_builds_and_matches_chip_smoke():
     assert [b.channels for b in model.dec.resblocks] == [256] * 3 + [128] * 3
     with pytest.raises(ValueError, match="hop_length"):
         dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, subbands=2)).check()
-    with pytest.raises(NotImplementedError, match="quantize_decoder"):
-        SynthesizerTrn(100, 80, dataclasses.replace(cfg.model, quantize_decoder=True))
+    with torch.device("meta"):
+        q8 = SynthesizerTrn(100, cfg.posterior_channels,
+                            dataclasses.replace(cfg.model, quantize_decoder=True))
+    assert q8.dec.conv_pre.quant == "int8" and all(u.quant == "int8" and u.subpixel
+                                                   for u in q8.dec.ups)
+    assert {k: v.shape for k, v in q8.state_dict().items()} == {
+        k: v.shape for k, v in model.state_dict().items()}
+
+
+def test_mbistft_model_infers_with_quantize_decoder(setup):
+    """The int8 trunk (every conv but conv_post) on the same weights: the
+    same durations and attn as JAX's fp model, finite audio within the
+    int8 error of it; tests/test_torch_int8_infer.py holds it against JAX's
+    int8 model."""
+    cfg = _configs()[1]
+    model = _port_model(setup, dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, quantize_decoder=True))).eval()
+    audio, attn, _, _, y_lengths = model.infer(
+        torch.from_numpy(setup["ids_infer"].astype(np.int64)), torch.tensor(INFER_LENGTHS),
+        noise_scale=0.667, length_scale=LENGTH_SCALE, max_frames=MF_HIGH,
+        prior_noise=_tc(setup["prior"][MF_HIGH]))
+    r_audio, r_attn, _, _, r_len = setup["jax"][MF_HIGH]
+    np.testing.assert_array_equal(y_lengths.numpy(), r_len)
+    np.testing.assert_array_equal(attn.numpy(), r_attn)
+    assert torch.isfinite(audio).all()
+    err = float(np.abs(audio.numpy() - r_audio).max())
+    assert 0 < err < 0.2 * float(np.abs(r_audio).max())

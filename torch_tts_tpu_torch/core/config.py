@@ -5,8 +5,10 @@ Tacotron parts), so one YAML/JSON file configures both packages. Kept as a separ
 because importing `torch_tts_tpu.core` pulls in jax.
 
 The defaults equal the `model:` section of `configs/vits2-ljspeech.yaml`
-apart from `pack_narrow_convs`, a TPU lane-packing switch that this package
-accepts and ignores. The Tacotron defaults equal
+apart from `pack_narrow_convs`, a TPU lane-packing switch (the YAML's true,
+the JAX default's false). This package packs nothing; the switch only
+selects, under `quantize_decoder`, which HiFi-GAN stages are int8, as in
+the JAX package (`ops/hifigan.py:int8_stages`). The Tacotron defaults equal
 `configs/tacotron-ljspeech.yaml` apart from `character_map`. PyYAML is
 imported only inside the loaders, for a `.yaml` file, so building a config
 from the defaults or loading a `.json` one needs nothing beyond the
@@ -74,8 +76,11 @@ class VITS2ModelConfig:
     use_mel_posterior_encoder: bool = True
     use_duration_discriminator: bool = False
     duration_discriminator_type: str = "dur_disc_1"
-    # accepted for config compatibility, ignored: a TPU lane-packing layout
+    # a TPU lane-packing layout; here it only picks the int8 decoder's stages:
+    # with it, the HiFi-GAN stages narrower than 128 channels stay fp
     pack_narrow_convs: bool = False
+    # int8 W8A8 dynamic-quant inference of the decoder's convolutions
+    # (ops/quant.py, kernels/int8_conv.py); approximate, never for training
     quantize_decoder: bool = False
     # decoder ResBlock1 banks with C <= 128 run through kernels/mrf_fused.py
     # when no gradient is needed (inference); training runs the plain

@@ -370,7 +370,9 @@ class Synthesizer:
         bucket and one window's decode instead of the whole decode. The
         concatenated chunks equal `synthesize([text])[0].audio` with
         float32 transfer (the same bucket, seed and exact length) within
-        float reassociation (2e-5 on the plain path)."""
+        float reassociation (2e-5 on the plain path); with the int8 decoder
+        each window has its own activation scales, so the chunks equal the
+        JAX package's stream, not `synthesize` (`infer/streaming.py`)."""
         return self._stream_ids(self.encode_text(text), chunk_frames, context_frames,
                                 noise_scale, length_scale, noise_scale_w, sid, seed)
 

@@ -28,6 +28,12 @@ at least 128 frames in a longer max_frames: the masked frames past the end
 give conv_post's bias as log-magnitudes, which the iSTFT and the PQMF
 carry back across the end).
 
+With the int8 decoder (`quantize_decoder`) each window quantizes its
+activations with its own per-tensor scales, so neither equality above
+holds: a stream then equals the JAX package's stream of the same windows
+(and an unmasked window still equals its all-ones masked decode), not the
+whole decode.
+
 The decoder's ResBlock1 banks take the MRF kernel only when the decode is
 unmasked (`ops/hifigan.py`). A window whose mask is all ones decodes to the
 same values without it, so when the caller passes the host's `lengths` (the
@@ -72,7 +78,8 @@ class _WindowedStream:
                x_mask: Optional[torch.Tensor] = None,
                lengths: Optional[Sequence[int]] = None) -> Iterator[torch.Tensor]:
         """z [B, T, C] -> [B, n, 1] audio chunks whose concatenation, T *
-        factor samples long, equals the whole masked decode with the samples
+        factor samples long, equals (with the fp decoder; module docstring)
+        the whole masked decode with the samples
         where x_mask is 0 zeroed (`infer`'s exact-length semantics). Without
         x_mask every frame is valid. `lengths` (host ints, one a row) lets
         windows that end within every row decode unmasked."""

@@ -68,6 +68,11 @@ _SIGNATURES = {
     "tts_lltm_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
     # B, I, H, stream
     "tts_lltm_launch_floor": (_I,) * 3 + (_P,),
+    # x, x_q, scale (s_x and a scratch word), B, C, T, stream
+    "tts_int8_quantize": (_P,) * 3 + (_I,) * 3 + (_P,),
+    # x_q, s_x, w_q, s_w, bias (or null), out, B, T, C_in, N, k, dilation,
+    # pad_lo, T_out, phases, stream
+    "tts_int8_conv1d": (_P,) * 6 + (_I,) * 9 + (_P,),
 }
 
 

@@ -35,8 +35,11 @@ with `decoder_type: mb_istft`, the `MultiBandISTFTGenerator`; the flows are
 the plain VITS1 couplings (`use_transformer_flows=False`) or any of the
 five VITS2 transformer flow types (`AVAILABLE_FLOW_TYPES`); SDP (both
 directions) or the deterministic duration predictor; MAS
-(`kernels/mas.py`); speaker conditioning. Not ported: the int8 decoder
-(`quantize_decoder`, which raises).
+(`kernels/mas.py`); speaker conditioning; the int8 decoder
+(`quantize_decoder`: W8A8 dynamic quantization of the decoder's wide
+convolutions, inference only, on the kernels of `kernels/int8_conv.py`; the
+HiFi-GAN stages it covers follow `pack_narrow_convs` as in the JAX
+package, see `ops/hifigan.py`).
 """
 
 from __future__ import annotations
@@ -390,8 +393,6 @@ class SynthesizerTrn(nn.Module):
         super().__init__()
         c = cfg
         self.segment_frames = segment_frames
-        if c.quantize_decoder:
-            raise NotImplementedError("the int8 decoder (quantize_decoder) is not ported")
         if c.decoder_type not in ("hifigan", "mb_istft"):
             raise ValueError(f"unknown decoder_type {c.decoder_type!r}")
         self.cfg = cfg
@@ -407,9 +408,12 @@ class SynthesizerTrn(nn.Module):
             self.dec = MultiBandISTFTGenerator(*dec_args, subbands=c.subbands,
                                                istft_n_fft=c.gen_istft_n_fft,
                                                istft_hop=c.gen_istft_hop_size,
-                                               fuse_mrf=c.fuse_mrf, gin_channels=gin)
+                                               fuse_mrf=c.fuse_mrf, gin_channels=gin,
+                                               quant_int8=c.quantize_decoder)
         else:
-            self.dec = Generator(*dec_args, fuse_mrf=c.fuse_mrf, gin_channels=gin)
+            self.dec = Generator(*dec_args, fuse_mrf=c.fuse_mrf, gin_channels=gin,
+                                 quant_int8=c.quantize_decoder,
+                                 pack_narrow=c.pack_narrow_convs)
         self.enc_q = PosteriorEncoder(spec_channels, c.inter_channels, c.hidden_channels,
                                       5, 1, c.posterior_wn_layers, gin_channels=gin)
         self.flow = FlowBlock(c.inter_channels, c.hidden_channels, 5, 1, 4,
@@ -609,8 +613,12 @@ class SynthesizerTrn(nn.Module):
         """Decode padded latents with exact-length semantics: the bulk is
         decoded unmasked, one masked window of _PATCH_WINDOW frames ending
         at each item's length is decoded again and its last half pasted
-        over the bulk, then samples past the length are zeroed. The same
-        values as a fully masked decode, at the cost of one small window."""
+        over the bulk, then samples past the length are zeroed. With the fp
+        decoder, the same values as a fully masked decode, at the cost of
+        one small window. With the int8 decoder each of the two decodes
+        quantizes its activations with its own per-tensor scales (the bulk's
+        span the padded tail and the whole batch), so the result is JAX's
+        for the same batch and max_frames, not a fully masked decode's."""
         T, W = max_frames, self._PATCH_WINDOW
         if T <= W:
             o = self.dec(zm, x_mask=y_mask, g=g)

@@ -9,6 +9,11 @@ Every layer that owns parameters has `reset_parameters_(generator)`; the
 model-level `init_params_` calls them in module order, so one seeded
 `torch.Generator` fixes all initial weights. `Dropout` draws its masks
 from an explicit generator too (`set_dropout_generator`).
+
+`Conv1d` and `ConvTranspose1d` take `quant="int8"`: W8A8 inference through
+`ops/quant.py` (the transposed conv on its subpixel route only). Their
+parameters and state dict are the same as without it; the int8 weights and
+scales are made once per parameter state and cached on the module.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from torch_tts_tpu_torch.ops import quant as quant_ops
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator):
@@ -35,10 +42,42 @@ def _weight_normed(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v * (g / torch.clamp(_norm_keep0(v), min=1e-12))
 
 
-class Conv1d(nn.Module):
+def _check_quant(quant: Optional[str]) -> Optional[str]:
+    if quant not in (None, "int8"):
+        raise ValueError(f"unknown quant {quant!r} (None or 'int8')")
+    return quant
+
+
+class _Int8Cache:
+    """The int8 weights and scales of a module (`make()` under no_grad),
+    made at first use and again when a weight parameter has changed: new
+    storage or device (`.to()`), an in-place update (its version), or
+    `load_state_dict` (which drops them). JAX folds them into constants
+    under jit."""
+
+    _q8 = None
+
+    def _weight_params(self):
+        return (self.weight_g, self.weight_v) if hasattr(self, "weight_v") else (self.weight,)
+
+    def int8_weights(self, make):
+        key = tuple((p.device, p.data_ptr(), None if p.is_inference() else p._version)
+                    for p in self._weight_params())
+        if self._q8 is None or self._q8[0] != key:
+            with torch.no_grad():
+                self._q8 = (key, *make())
+        return self._q8[1:]
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._q8 = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+
+class Conv1d(_Int8Cache, nn.Module):
     """1-D conv. `padding` is a symmetric count or a (left, right) pair;
     `weight_norm` stores (weight_g, weight_v); `zero_init` starts at zero as
-    the reference's projection convs do."""
+    the reference's projection convs do. `quant="int8"`: W8A8 inference
+    (`ops/quant.py`, JAX `Conv1d(quant="int8")`), ungrouped, stride 1."""
 
     def __init__(
         self,
@@ -52,8 +91,12 @@ class Conv1d(nn.Module):
         weight_norm: bool = False,
         zero_init: bool = False,
         stride: int = 1,
+        quant: Optional[str] = None,
     ):
         super().__init__()
+        self.quant = _check_quant(quant)
+        if quant is not None and (groups != 1 or stride != 1):
+            raise ValueError("the int8 conv has no grouped or strided form")
         self.kernel_size = kernel_size
         self.stride = stride
         self.padding = (padding, padding) if isinstance(padding, int) else tuple(padding)
@@ -95,6 +138,10 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lo, hi = self.padding
+        if self.quant is not None:
+            w_q, s_w = self.int8_weights(lambda: quant_ops.conv_weights(self.effective_weight()))
+            return quant_ops.int8_conv1d_quantized(x, w_q, s_w, self.bias, self.padding,
+                                                   self.dilation)
         if lo == hi:
             return F.conv1d(x, self.effective_weight(), self.bias, stride=self.stride,
                             padding=lo, dilation=self.dilation, groups=self.groups)
@@ -159,16 +206,25 @@ def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator
     return module
 
 
-class ConvTranspose1d(nn.Module):
+class ConvTranspose1d(_Int8Cache, nn.Module):
     """Weight-normed transposed conv, torch output size
     (T - 1) * stride - 2 * padding + kernel_size. weight_v is [in, out, k]
-    and the norm is taken per input channel, as torch's weight_norm does."""
+    and the norm is taken per input channel, as torch's weight_norm does.
+
+    `quant="int8"` takes effect on the subpixel geometry only (stride > 1
+    and kernel_size - stride - 2 * padding == 0, JAX's auto rule): the
+    transposed conv is a dense stride-1 conv with stride * out columns, one
+    per (output channel, phase), quantized with a scale per column, whose
+    phases interleave into the output (JAX `_subpixel`). Other geometries,
+    and the fp route, run `F.conv_transpose1d`."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0, quant: Optional[str] = None):
         super().__init__()
         self.stride = stride
         self.padding = padding
+        self.kernel_size = kernel_size
+        self.quant = _check_quant(quant)
         self.fan_in = out_channels * kernel_size
         self.weight_g = nn.Parameter(torch.ones(in_channels, 1, 1))
         self.weight_v = nn.Parameter(torch.zeros(in_channels, out_channels, kernel_size))
@@ -181,9 +237,46 @@ class ConvTranspose1d(nn.Module):
             self.weight_g.copy_(_norm_keep0(self.weight_v))
         _uniform_(self.bias, bound, generator)
 
+    def effective_weight(self) -> torch.Tensor:
+        """[in, out, k] weight, weight norm applied."""
+        return _weight_normed(self.weight_g, self.weight_v)
+
+    @property
+    def subpixel(self) -> bool:
+        """Whether the output is exactly stride times the input (JAX's auto
+        rule for its subpixel route)."""
+        return self.stride > 1 and self.kernel_size - self.stride - 2 * self.padding == 0
+
+    def _subpixel_taps(self):
+        """(q_max, q_min, a [W_len, stride]): the dense kernel's window
+        offsets and, for window position w and phase r, the transposed
+        kernel's tap (q_max - w) * stride + r + padding (JAX `_subpixel`)."""
+        k, u, p = self.kernel_size, self.stride, self.padding
+        q_min, q_max = -((p + u - 1) // u), (k - 1 - p) // u
+        w = torch.arange(q_max - q_min + 1)
+        return q_max, q_min, (q_max - w)[:, None] * u + torch.arange(u)[None, :] + p
+
+    def subpixel_weight(self) -> torch.Tensor:
+        """The dense stride-1 kernel [out * stride, in, W_len], row o *
+        stride + r holding phase r's taps of output channel o (JAX's DK
+        [W_len, in, stride * out], whose columns are ordered (phase, out))."""
+        _, _, a = self._subpixel_taps()
+        k = self.kernel_size
+        w = self.effective_weight()  # [in, out, k]
+        kg = w[:, :, a.clamp(0, k - 1).to(w.device)]  # [in, out, W_len, u]
+        valid = ((a >= 0) & (a < k)).to(w.device)
+        kg = torch.where(valid, kg, torch.zeros((), dtype=w.dtype, device=w.device))
+        c_in, c_out = w.shape[:2]
+        return kg.permute(1, 3, 0, 2).reshape(c_out * self.stride, c_in, a.shape[0])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = _weight_normed(self.weight_g, self.weight_v)
-        return F.conv_transpose1d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        if self.quant is not None and self.subpixel:
+            q_max, q_min, _ = self._subpixel_taps()
+            w_q, s_w = self.int8_weights(lambda: quant_ops.conv_weights(self.subpixel_weight()))
+            return quant_ops.int8_conv1d_quantized(x, w_q, s_w, self.bias, (q_max, -q_min),
+                                                   phases=self.stride)
+        return F.conv_transpose1d(x, self.effective_weight(), self.bias, stride=self.stride,
+                                  padding=self.padding)
 
 
 class LayerNorm(nn.Module):

@@ -137,6 +137,10 @@ class MultiBandISTFTGenerator(nn.Module):
     output is multiplied by it at sample rate; the PQMF's 63 taps still
     reach about 31 samples across an item's end, so a padded decode equals
     an exact-length one away from that edge, as in the JAX package.
+
+    `quant_int8`: the JAX int8 trunk (W8A8, inference only, `ops/quant.py`):
+    conv_pre, every transposed conv and every resblock conv are int8;
+    `cond`, conv_post and the iSTFT / PQMF head stay fp.
     """
 
     def __init__(self, initial_channel: int, resblock: str = "1",
@@ -146,7 +150,7 @@ class MultiBandISTFTGenerator(nn.Module):
                  upsample_initial_channel: int = 512,
                  upsample_kernel_sizes: Sequence[int] = (16, 16),
                  subbands: int = 4, istft_n_fft: int = 16, istft_hop: int = 4,
-                 fuse_mrf: bool = False, gin_channels: int = 0):
+                 fuse_mrf: bool = False, gin_channels: int = 0, quant_int8: bool = False):
         super().__init__()
         if istft_n_fft - istft_hop < istft_n_fft // 2:
             raise ValueError("the iSTFT's center trim needs n_fft - hop >= n_fft // 2")
@@ -155,15 +159,17 @@ class MultiBandISTFTGenerator(nn.Module):
         self.subbands, self.istft_n_fft, self.istft_hop = subbands, istft_n_fft, istft_hop
         self.fuse_mrf = fuse_mrf
         self.max_taps = max(resblock_kernel_sizes)
-        self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7, padding=3)
+        q8 = "int8" if quant_int8 else None
+        self.conv_pre = Conv1d(initial_channel, upsample_initial_channel, 7, padding=3, quant=q8)
         self.ups = nn.ModuleList()
         self.resblocks = nn.ModuleList()
         ch = upsample_initial_channel
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ch = upsample_initial_channel // (2 ** (i + 1))
-            self.ups.append(ConvTranspose1d(2 * ch, ch, k, stride=u, padding=(k - u) // 2))
+            self.ups.append(ConvTranspose1d(2 * ch, ch, k, stride=u, padding=(k - u) // 2,
+                                            quant=q8))
             self.resblocks.extend(make_bank(resblock, ch, resblock_kernel_sizes,
-                                            resblock_dilation_sizes))
+                                            resblock_dilation_sizes, quant=q8))
         self.fbins = istft_n_fft // 2 + 1
         self.conv_post = Conv1d(ch, subbands * 2 * self.fbins, 7, padding=3)
         if gin_channels > 0:

@@ -75,6 +75,10 @@ def check_supported(cfg: VITS2Config):
         raise NotImplementedError("bf16 training is not ported")
     if m.use_spectral_norm:
         raise NotImplementedError("spectral norm is not ported")
+    if m.quantize_decoder:
+        raise ValueError("quantize_decoder is an inference-only mode (a rounded activation "
+                         "passes no gradient; the JAX package never trains it): train with it "
+                         "off and set it for inference")
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
