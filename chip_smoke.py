@@ -3,7 +3,7 @@
 multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
 types, Tacotron-2 inference, serving with the HiFi-GAN vocoder and its
 trainer, and training, the bulk mel frontend, the LLTM cell, the int8
-decoder) on one NVIDIA GPU.
+decoder, bf16 VITS2 training) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -204,9 +204,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    `quantize_decoder: true` (`int8_config`; pack_narrow_convs as shipped,
    so conv_pre, up_0, up_1 and the C=256 and C=128 banks, 39 convs, are
    int8 and the C=64 and C=32 stages fp on the MRF kernel) and the
-   MB-iSTFT config likewise (all 39 trunk convs int8), seeded. A conv of
-   C_in = 80, a shape the conv kernel does not take, must raise on the
-   card. At every conv of a B=1 `infer` (recorded around `ops.quant.int8_conv1d_quantized`)
+   MB-iSTFT config likewise (all 39 trunk convs int8), seeded. Convs of
+   C_in = 80 and 81 (off the kernel's 32-channel K step: rows padded) must
+   equal their plain versions bit for bit. At every conv of a B=1 `infer` (recorded around `ops.quant.int8_conv1d_quantized`)
    the activation quantizer kernel must equal its plain version (x_q and
    s_x) and the int8 conv kernel agree within INT8_CONV_RTOL of the peak;
    each timed beside its bound, its plain version and fp32 cuDNN
@@ -216,11 +216,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    int8 convs, `mrf_fused` one a fp stage of each unmasked decode; against
    the plain int8 path (`int8_plain_path`) within AUDIO_ATOL; against the
    fp32 model on the same weights: SNR, host and device-busy ms, in turns.
-15. Prints each phase's seconds, the kernels' JSON line (launches: the
-   main paths', the trainer's, the multi-speaker path's, the serving
-   path's, the MB-iSTFT path's, the int8 decoder's and the Tacotron
-   serving and training paths'; launches_by_path: each path's own), then
-   the device line last.
+15. bf16 training (after the trainer): the bf16 variants of the WN
+   forward (with its saves) and backward at the train shape (B=8, T=1000)
+   against their plain versions in bf16 within BF16_KERNEL_RTOL of the
+   output's peak, and against the fp32 plain versions on the same bf16
+   values within BF16_FP32_RTOL, the backward's bits twice, each timed
+   beside its bound at bf16's 989 TFLOP/s. Then, counts zeroed, three
+   `ddp` steps of the default config with `use_bf16`: exactly 4 bf16 WN
+   groups (the posterior encoder), 4 fp32 ones (the flows, whose x the
+   fp32 attention promotes, as in JAX) and one MAS a step, fp32 masters;
+   a step on the kernels against the plain path (loss terms within
+   BF16_LOSS_RTOL); a multi-speaker step (d_gl through the bf16 backward:
+   emb_g's rows); the train CLI with `use_bf16` for an epoch and a resume
+   for a second, checked bit for bit; then a bf16 and an fp32 step on the
+   same weights and batch in turns: host ms, a profiled step's device
+   busy ms, idle share, operations and largest kernels.
+16. Prints each phase's seconds, the kernels' JSON line (launches: the
+   main paths', the trainer's, the bf16 path's, the multi-speaker path's,
+   the serving path's, the MB-iSTFT path's, the int8 decoder's and the
+   Tacotron serving and training paths'; launches_by_path: each path's
+   own; the bf16 WN variants as rows of their own, with their shape),
+   then the device line last.
 """
 
 from __future__ import annotations
@@ -340,6 +356,12 @@ PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 # dense int8 tensor-core operations (the int8 conv's bound)
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
+# bf16 kernels: of the output's peak, against the plain version in bf16
+# (it rounds every op; measured 6-9e-3 on the H100) and against the fp32
+# plain version on the same bf16 values (measured 3-4e-3)
+BF16_KERNEL_RTOL, BF16_FP32_RTOL = 2.0 ** -5, 2.0 ** -6
+BF16_LOSS_RTOL = 5e-2  # the bf16 step's loss terms, kernel path against plain
 # mel_spectrogram_auto's threshold sweep: 8 clips of these many samples
 MEL_AUTO_LENGTHS = (2048, 8192, 32768, 220500)
 # the serving path: the Synthesizer's buckets (None: serving.DEFAULT_BUCKETS)
@@ -411,6 +433,14 @@ def product_bound(name: str, flops: float, nbytes: float, card: str):
     simt = bound(flops, nbytes)[0]
     log(f"  {name}: bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.1f} GFLOP at 3xTF32's "
         f"{PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s); fp32 SIMT bound {simt:.4f} ms [{card}]")
+    return b
+
+
+def bf16_bound(name: str, flops: float, nbytes: float, card: str):
+    """The bound of a bf16 kernel at the bf16 tensor-core rate."""
+    b = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  {name}: bound {b[0]:.4f} ms ({b[1]}, {flops / 1e9:.1f} GFLOP at bf16's "
+        f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, {nbytes / 1e6:.1f} MB) [{card}]")
     return b
 
 
@@ -1570,6 +1600,363 @@ def train_phase(device, card: str):
     del state
     torch.cuda.empty_cache()
     return launches
+
+
+def bf16_check(name: str, out, ref, rtol: float) -> float:
+    """Check a bf16 kernel's output against a plain version, within rtol of
+    the plain output's peak; -> max |d|."""
+    import torch
+
+    err = float((out.float() - ref.float()).abs().max())
+    peak = float(ref.float().abs().max())
+    ok = err <= rtol * peak and bool(torch.isfinite(out).all())
+    log(f"  {name}: max_abs_err={err:.3e}, {err / peak:.2e} of the peak {peak:.3e}; tolerance "
+        f"{rtol:.2e} of the peak -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"{name}: the bf16 kernel disagrees with its plain version")
+    return err
+
+
+def bf16_kernel_checks(device, card: str):
+    """The bf16 WN kernels at the train step's shape against their plain
+    versions in bf16 (and the fp32 plain versions on the same bf16 values),
+    timed beside their bounds at bf16's rate. -> the kernels' stats."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import wn_stack
+    from torch_tts_tpu_torch.kernels.wn_stack import (wn_group, wn_group_backward,
+                                                      wn_group_backward_plain, wn_group_plain)
+
+    g = torch.Generator().manual_seed(17)
+    H, L, k = WN_SHAPE["H"], WN_SHAPE["L"], WN_SHAPE["k"]
+    B, T = TRAIN_B, TRAIN_TY
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    def args(lengths, with_gl):
+        mask = (torch.arange(T)[None, :] < torch.tensor(lengths)[:, None]).float()[:, :, None]
+        w_rs, b_rs = randn(L, H, 2 * H, scale=0.5 / H ** 0.5), randn(L, 2 * H, scale=0.1)
+        w_rs[-1, :, :H], b_rs[-1, :H] = 0, 0
+        a = (randn(B, T, H), mask.to(device), randn(B, L, 2 * H) if with_gl else None,
+             randn(L, k, H, 2 * H, scale=0.5 / (k * H) ** 0.5), randn(L, 2 * H, scale=0.1),
+             w_rs, b_rs)
+        return tuple(None if t is None else t.bfloat16().contiguous() for t in a)
+
+    def widened(a):
+        return tuple(None if t is None else t.float() for t in a)
+
+    log(f"bf16 kernel checks (B={B}, T={T}, H={H}, L={L}, k={k}; tolerances of the output's "
+        f"peak: {BF16_KERNEL_RTOL:.2e} against the plain version in bf16, which rounds every "
+        f"op, {BF16_FP32_RTOL:.2e} against the fp32 plain version on the same bf16 values):")
+    stats, errs = {}, []
+    cases = (([T] * B, False), ([T - 37 * i for i in range(B)], True))
+    for lengths, with_gl in cases:
+        a = args(lengths, with_gl)
+        out, ref, ref32 = wn_group(*a), wn_group_plain(*a), wn_group_plain(*widened(a))
+        for n, o, r, r32 in zip(("x_out", "skip"), out, ref, ref32):
+            what = f"wn_group bf16 B={B}{' gl' * with_gl} {n}"
+            if o.dtype != torch.bfloat16:
+                raise RuntimeError(f"{what}: {o.dtype}, not bf16")
+            errs.append(bf16_check(what, o, r, BF16_KERNEL_RTOL))
+            bf16_check(what + " (fp32 plain)", o, r32, BF16_FP32_RTOL)
+    a = args([T] * B, False)
+    t_k = cuda_ms(lambda: wn_stack._forward_cuda(*a, save=True))
+    t_p = cuda_ms(lambda: wn_group_plain(*a))
+    flops = 2.0 * B * T * H * 2 * H * (k + 1) * L
+    # bf16 x, mask, weights and outputs; the saves (x_i, x_in) fp32
+    nbytes = 2.0 * (3 * B * T * H + B * T + L * (k + 2) * H * 2 * H) + 4.0 * L * B * T * 3 * H
+    stats["wn_group_bf16"] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p,
+                                  bound=bf16_bound("wn_group bf16 saving forward", flops, nbytes,
+                                                   card), shape=[B, T, H, L, k])
+    log(f"  wn_group bf16 saving forward B={B} T={T}: kernel {t_k:.3f} ms, plain (bf16) "
+        f"{t_p:.3f} ms [{card}]")
+
+    names = ("d_x", "d_gl", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs")
+    errs = []
+    for lengths, with_gl in cases:
+        a = args(lengths, with_gl)
+        d_xo, d_sk = randn(B, T, H).bfloat16(), randn(B, T, H).bfloat16()
+        saved = wn_stack._forward_cuda(*a, save=True)[2]
+        got = wn_group_backward(*a, d_xo, d_sk, saved=saved)
+        want = wn_group_backward_plain(*a, d_xo, d_sk)
+        want32 = wn_group_backward_plain(*widened(a), d_xo.float(), d_sk.float())
+        for n, x, y, y32 in zip(names, got, want, want32):
+            if y is None:
+                continue
+            what = f"wn_group_backward bf16 B={B}{' gl' * with_gl} {n}"
+            if x.dtype != torch.bfloat16:
+                raise RuntimeError(f"{what}: {x.dtype}, not bf16")
+            errs.append(bf16_check(what, x, y, BF16_KERNEL_RTOL))
+            bf16_check(what + " (fp32 plain)", x, y32, BF16_FP32_RTOL)
+        again = wn_group_backward(*a, d_xo, d_sk, saved=saved)
+        if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
+            raise RuntimeError("wn_group_backward bf16: two runs on the same inputs differ")
+    log("  wn_group_backward bf16: two runs equal bit for bit -> ok")
+    t_k = cuda_ms(lambda: wn_group_backward(*a, d_xo, d_sk, saved=saved))
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (a[0], a[2], *a[3:])]
+        out = wn_group_plain(ins[0], a[1], *ins[1:])
+        t_p = cuda_ms(lambda: torch.autograd.grad(out, ins, (d_xo, d_sk), retain_graph=True))
+    # reads the fp32 saves, bf16 cotangents, mask and weights; writes bf16 d_x and gradients
+    nbytes = (4.0 * L * B * T * 3 * H + 2.0 * (3 * B * T * H + B * T + B * L * 2 * H)
+              + 2.0 * 2 * (L * (k + 1) * H * 2 * H + 2 * L * 2 * H))
+    stats["wn_group_backward_bf16"] = dict(
+        max_abs_err=max(errs), ms=t_k, plain_ms=t_p, shape=[B, T, H, L, k],
+        bound=bf16_bound("wn_group_backward bf16", 2 * flops, nbytes, card))
+    log(f"  wn_group_backward bf16 B={B} T={T} gl: kernel {t_k:.3f} ms, plain (autograd of the "
+        f"plain group in bf16) {t_p:.3f} ms [{card}]")
+    return stats
+
+
+def bf16_train_phase(device, card: str, tmp: str):
+    """bf16 training (`train.use_bf16`) of the default config at full width:
+    the bf16 WN kernels against their plain versions; counts zeroed, three
+    `ddp` steps on the kernels (the posterior encoder's WN on the bf16
+    kernels, the flows' on the fp32 ones: the fp32 attention promotes their
+    x, as in JAX); the step on the kernels against the plain path; one
+    multi-speaker step (d_gl from the bf16 backward); the train CLI with
+    `use_bf16` for two epochs, resumed bit for bit; then a bf16 step against
+    an fp32 step on the same weights and batch, in turns. -> (the path's
+    launch counts, the bf16 kernels' stats)."""
+    import torch
+
+    from torch_tts_tpu_torch.cli import vits2_train as cli
+    from torch_tts_tpu_torch.core.config import VITS2Config
+    from torch_tts_tpu_torch.data.dataset import TextAudioDataset
+    from torch_tts_tpu_torch.data.sampler import DistributedBucketSampler
+    from torch_tts_tpu_torch.kernels import mas
+    from torch_tts_tpu_torch.kernels.wn_stack import wn_group, wn_group_backward
+    from torch_tts_tpu_torch.models.vits2 import model as model_module
+    from torch_tts_tpu_torch.text import symbols
+    from torch_tts_tpu_torch.train import checkpoint
+    from torch_tts_tpu_torch.train.vits2_trainer import BUCKET_BOUNDARIES
+    from torch_tts_tpu_torch.train.vits2_train import (build_dur_disc, build_mpd,
+                                                       create_train_state, train_step)
+    from torch_tts_tpu_torch.utils.logging_utils import Recorder
+
+    stats = bf16_kernel_checks(device, card)
+    counters = {"wn_group_bf16": (wn_group, "launches_bf16"),
+                "wn_group_backward_bf16": (wn_group_backward, "launches_bf16"),
+                "wn_group": (wn_group, "launches"),
+                "wn_group_backward": (wn_group_backward, "launches"),
+                "maximum_path": (mas.maximum_path, "launches")}
+
+    def zero():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+
+    def read():
+        torch.cuda.synchronize()
+        return {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+
+    def bf16(c):
+        return dataclasses.replace(c, train=dataclasses.replace(c.train, use_bf16=True))
+
+    def use_path(path):
+        os.environ["TTS_FUSED_WN"] = "1" if path == "kernel" else "0"
+        model_module.maximum_path = (mas.maximum_path if path == "kernel"
+                                     else mas.maximum_path_via_plain)
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def fresh_state(c):
+        return create_train_state(c, seeded_synthesizer(c, device),
+                                  build_mpd(c, seed=1, device=device),
+                                  dur_disc=build_dur_disc(c, seed=2, device=device))
+
+    def masters_ok(state, what):
+        opts = [o for o in (state.opt_g, state.opt_d, state.opt_dur) if o is not None]
+        bad = [n for o in opts for n, p, mu in zip(o.names, o.params, o.mu)
+               if p.dtype != torch.float32 or mu.dtype != torch.float32
+               or not bool(torch.isfinite(p).all())]
+        log(f"  {what}: master parameters and moments fp32 and finite -> "
+            f"{'ok' if not bad else 'FAIL ' + str(bad[:3])}")
+        if bad:
+            raise RuntimeError(f"{what}: master parameters not fp32 and finite: {bad[:3]}")
+
+    def finite(history, what):
+        for i, m in enumerate(history):
+            log(f"  {what} {i}: " + ", ".join(f"{k}={v:.4f}" for k, v in m.items()))
+            if m["nonfinite"] or not all(map(math.isfinite, m.values())):
+                raise RuntimeError(f"{what} {i}: non-finite loss or gradient")
+
+    cfg = bf16(VITS2Config())
+    hop = cfg.audio.hop_length
+    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
+    g = torch.Generator().manual_seed(0)
+    batch = {"x": torch.randint(1, len(symbols), (B, T_x), generator=g),
+             "x_lengths": torch.full((B,), T_x),
+             "spec": torch.randn(B, T_y, cfg.posterior_channels, generator=g),
+             "spec_lengths": torch.full((B,), T_y),
+             "wav": torch.randn(B, T_y * hop, 1, generator=g) * 0.1}
+    batch = {k: v.to(device) for k, v in batch.items()}
+
+    # --- main path: three ddp steps in bf16 through the kernels
+    use_path("kernel")
+    state = fresh_state(cfg)
+    before = [p.detach().clone() for p in state.opt_g.params + state.opt_d.params]
+    zero()
+    history = [train_step(cfg, state, batch, generator=gen(i)) for i in range(TRAIN_STEPS)]
+    launches = read()
+    log(f"bf16 train phase: default config, use_bf16, B={B} T_x={T_x} T_y={T_y}; launch counts "
+        f"({TRAIN_STEPS} steps): {launches}")
+    finite(history, "bf16 step")
+    want = {"wn_group_bf16": 4 * TRAIN_STEPS, "wn_group_backward_bf16": 4 * TRAIN_STEPS,
+            "wn_group": 4 * TRAIN_STEPS, "wn_group_backward": 4 * TRAIN_STEPS,
+            "maximum_path": TRAIN_STEPS}
+    if launches != want:
+        raise RuntimeError(f"bf16 steps launched {launches}, not the posterior encoder's 4 bf16 "
+                           f"groups, the flows' 4 fp32 groups and one MAS a step: {want}")
+    masters_ok(state, "after 3 bf16 steps")
+    moved = [float((p.detach() - q).abs().max()) for p, q in
+             zip(state.opt_g.params + state.opt_d.params, before)]
+    log(f"  parameters moved: {sum(m > 0 for m in moved)} of {len(moved)} tensors")
+    if sum(m > 0 for m in moved) < 0.9 * len(moved):
+        raise RuntimeError("the bf16 steps left most parameters where they were")
+    del state, before
+
+    # --- one step from one fresh state on each path, the same noise
+    res = {}
+    for path in ("kernel", "plain"):
+        use_path(path)
+        st = fresh_state(cfg)
+        res[path] = train_step(cfg, st, batch, generator=gen(100))
+        del st
+    use_path("kernel")
+    for key in res["kernel"]:
+        mk, mp = res["kernel"][key], res["plain"][key]
+        d = abs(mk - mp)
+        log(f"  bf16 step {key}: kernel {mk:.6f} plain {mp:.6f} |d|={d:.3e} "
+            f"({d / max(abs(mp), 1e-30):.2e} of plain)")
+        if not (math.isfinite(mk) and math.isfinite(mp)) or (
+                key.startswith("loss") and d > BF16_LOSS_RTOL * abs(mp) + LOSS_ATOL):
+            raise RuntimeError(f"bf16 step {key}: kernel path and plain path disagree beyond "
+                               f"{BF16_LOSS_RTOL}")
+
+    # --- multi-speaker: the posterior encoder's WN conditioned, d_gl from the
+    # bf16 backward
+    mcfg = bf16(multispeaker_config())
+    mbatch = dict(batch, sid=torch.arange(B, device=device) * 13 % mcfg.model.n_speakers)
+    st = fresh_state(mcfg)
+    grads, step = {}, st.opt_g.step
+    st.opt_g.step = lambda gr, apply=True: (grads.update(g=gr), step(gr, apply))[1]
+    zero()
+    m = train_step(mcfg, st, mbatch, generator=gen(3))
+    counts = read()
+    finite([m], "multi-speaker bf16 step")
+    by_name = dict(zip(st.opt_g.names, grads["g"]))
+    emb = by_name["emb_g.weight"]
+    rows = int((emb.abs().sum(1) > 0).sum())
+    log(f"  multi-speaker bf16 step: launches {counts}; emb_g's gradient fp32, non-zero in "
+        f"{rows} rows (the batch's {len(set(mbatch['sid'].tolist()))} speakers)")
+    if (counts["wn_group_backward_bf16"] != 4 or emb.dtype != torch.float32 or rows == 0
+            or not bool(torch.isfinite(emb).all())):
+        raise RuntimeError(f"multi-speaker bf16 step: {counts}, emb_g {emb.dtype}, {rows} rows")
+    masters_ok(st, "multi-speaker bf16 step")
+    for n, c in counts.items():
+        launches[n] += c
+    del st, grads
+    torch.cuda.empty_cache()
+
+    # --- the train CLI with use_bf16: an epoch, then a resume for a second
+    tcfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, text_cleaners=("transliteration_cleaners",)))
+    corpus = os.path.join(tmp, "corpus")
+    write_corpus(corpus, TRAINER_CLIPS, tcfg.audio.sampling_rate)
+    full = TextAudioDataset.from_ljspeech(corpus, tcfg.audio, tcfg.data)
+    train_items, _ = cli.split_train_val(full.items, 100, 1234)
+    lengths = TextAudioDataset(train_items, tcfg.audio, tcfg.data).lengths
+    spe = len(DistributedBucketSampler(lengths, tcfg.train.batch_size, BUCKET_BOUNDARIES))
+    raw = {"model": dataclasses.asdict(tcfg.model),
+           "data": {**dataclasses.asdict(tcfg.data), **dataclasses.asdict(tcfg.audio)},
+           "train": {**dataclasses.asdict(tcfg.train), "log_interval": 1, "eval_interval": spe}}
+    config = os.path.join(tmp, "bf16.json")
+    with open(config, "w") as f:
+        json.dump(raw, f)
+    run_dir = os.path.join(tmp, "run_bf16")
+
+    def run(epochs):
+        zero()
+        tr = cli.main(["-c", config, "-m", run_dir, "--data-root", corpus, "--epochs",
+                       str(epochs), "--device", str(device)], make_writer=lambda d: Recorder())
+        return tr, read()
+
+    t0 = time.perf_counter()
+    tr, counts = run(1)
+    path = checkpoint.latest_checkpoint(run_dir)
+    saved = checkpoint.load_file(path)
+    bad = tree_mismatches(saved, checkpoint.state_tree(tr.state))
+    floats = [v for v in _tree_tensors(saved) if v.is_floating_point()]
+    log(f"  train CLI, use_bf16, epoch 1: {spe} steps in {time.perf_counter() - t0:.1f} s with "
+        f"the data's first pass and evaluate(); launches {counts}; checkpoint "
+        f"{os.path.basename(path)} holds the state ({'ok' if not bad else bad[:3]}), its "
+        f"{len(floats)} float tensors all fp32: {all(v.dtype == torch.float32 for v in floats)}")
+    if (tr.state.step != spe or bad or not tr.cfg.train.use_bf16
+            or not all(v.dtype == torch.float32 for v in floats)):
+        raise RuntimeError(f"bf16 trainer epoch 1: step {tr.state.step}, mismatches {bad[:3]}")
+    for n, c in counts.items():
+        launches[n] += c
+    del tr, saved
+    restore, restored = checkpoint.restore_checkpoint, {}
+
+    def checked_restore(p, state, lenient=True):
+        out = restore(p, state, lenient)
+        restored["step"] = state.step
+        restored["mismatches"] = tree_mismatches(checkpoint.state_tree(state),
+                                                 checkpoint.load_file(p))
+        return out
+
+    checkpoint.restore_checkpoint = checked_restore
+    try:
+        tr, counts = run(2)
+    finally:
+        checkpoint.restore_checkpoint = restore
+    if restored.get("step") != spe or restored["mismatches"] or tr.state.step != 2 * spe:
+        raise RuntimeError(f"the bf16 resume did not restore the saved state: {restored}")
+    log(f"  train CLI, use_bf16, resume: step {restored['step']}, the state equal to the "
+        f"checkpoint bit for bit -> ok; epoch 2 to step {tr.state.step}; launches {counts}")
+    masters_ok(tr.state, "bf16 trainer")
+    for n, c in counts.items():
+        launches[n] += c
+    del tr
+    torch.cuda.empty_cache()
+
+    # --- a bf16 step against an fp32 step on the same weights and batch, in turns
+    cfg32 = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_bf16=False))
+    states = {"fp32": fresh_state(cfg32), "bf16": fresh_state(cfg)}
+    cfgs = {"fp32": cfg32, "bf16": cfg}
+    times = {}
+    for what in ("fp32", "bf16", "bf16", "fp32"):
+        times.setdefault(what, []).append(wall_ms(
+            lambda: train_step(cfgs[what], states[what], batch, generator=gen(7)),
+            warmup=1, reps=2))
+    for what in ("fp32", "bf16"):
+        zero()
+        busy, ops, host, top = profile_breakdown(
+            lambda: train_step(cfgs[what], states[what], batch, generator=gen(8)))
+        c = read()
+        log(f"  train step B={B} T_y={T_y} {what}: host {statistics.median(times[what]):.1f} "
+            f"ms/step (turns {', '.join(f'{t:.1f}' for t in times[what])}); a profiled step: "
+            f"device busy {busy:.1f} ms in {host:.1f} ms of host (idle share "
+            f"{1 - busy / host:.2f}), {ops} device operations; WN launches "
+            f"{ {n: v for n, v in c.items() if n.startswith('wn')} } [{card}]")
+        log(f"    {what} step's device time by kernel (the largest {len(top)}): " + "; ".join(
+            f"{name[:60]} {ms:.1f} ms x{n}" for name, ms, n in top))
+    del states
+    torch.cuda.empty_cache()
+    log(f"  launch counts on the bf16 train path (3 steps, a multi-speaker step, the trainer's "
+        f"two epochs): {launches}")
+    return launches, stats
+
+
+def _tree_tensors(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _tree_tensors(v)
+        elif hasattr(v, "is_floating_point"):
+            yield v
 
 
 def write_corpus(root: str, n: int, sr: int, seed: int = 0):
@@ -3273,16 +3660,28 @@ def int8_phase(device, card: str):
     cfgs = {"HiFi-GAN": int8_config(),
             "MB-iSTFT": dataclasses.replace(mb, model=dataclasses.replace(mb.model, **INT8))}
     os.environ.pop("TTS_FUSED_WN", None)
-    # C_in = 80 is not a multiple of the conv kernel's 32-byte K steps: on
-    # the card that raises (a CUDA tensor never takes the plain version)
-    with torch.no_grad():
-        x, w = torch.randn(1, 80, 64, device=device), torch.randn(96, 80, 7, device=device)
-        try:
-            quant.int8_conv1d(x, w, padding=(3, 3))
-        except ValueError as e:
-            log(f"int8 phase: C_in=80 on the card raises, as it must: {e}")
-        else:
-            raise RuntimeError("int8_conv1d took C_in=80 on the card without raising")
+    # C_in off the kernel's 32-channel K step: the quantizer's rows padded
+    # with zeros, the weights packed with zero rows; both kernels equal
+    # their plain versions exactly, as at every other shape
+    from torch_tts_tpu_torch.kernels import int8_conv
+
+    g = torch.Generator().manual_seed(80)
+    for c_in in (80, 81):
+        x = (torch.randn(2, c_in, 100, generator=g) * 0.3).to(device)
+        w_q, s_w = quant.conv_weights((torch.randn(96, c_in, 7, generator=g) * 0.05).to(device))
+        bias = torch.randn(96, generator=g).to(device)
+        with torch.no_grad():
+            x_q, s_x = int8_conv.quantize_act(x)
+            x_qp, s_xp = int8_conv.quantize_act_plain(x)
+            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, (3, 3))
+            yp = int8_conv.int8_conv1d_plain(x_qp, s_xp, w_q, s_w, bias, (3, 3))
+        torch.cuda.synchronize()
+        same = torch.equal(x_q, x_qp) and float(s_x) == float(s_xp) and torch.equal(y, yp)
+        log(f"int8 phase: C_in={c_in} (rows of {int8_conv.padded_channels(c_in)} channels on "
+            f"the card): x_q, s_x and the conv equal to their plain versions bit for bit -> "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise RuntimeError(f"the int8 kernels at C_in={c_in} differ from their plain versions")
     launches, stats = {}, None
     for what, cfg in cfgs.items():
         t0 = time.perf_counter()
@@ -3708,6 +4107,13 @@ def profile_step(fn):
     (with the host's events, a Tacotron train step's 90,000 operations took
     the trace minutes to average) and its host time on the host clock from
     the call to the device's end, the same call's."""
+    return profile_breakdown(fn, 0)[:3]
+
+
+def profile_breakdown(fn, n: int = 8):
+    """`profile_step`'s (device busy ms, operations, host ms) of one fn()
+    call, and its n largest device operations by name: (name, ms, count).
+    torch.profiler traces the device alone (see `profile_step`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3719,7 +4125,10 @@ def profile_step(fn):
         host_ms = (time.perf_counter() - t) * 1e3
     cuda = torch.autograd.DeviceType.CUDA
     ops = [e for e in prof.key_averages() if e.device_type == cuda]
-    return sum(e.self_device_time_total for e in ops) / 1e3, sum(e.count for e in ops), host_ms
+    top = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in ops),
+                 key=lambda r: -r[1])[:n]
+    return (sum(e.self_device_time_total for e in ops) / 1e3, sum(e.count for e in ops),
+            host_ms, top)
 
 
 def taco_training_phase(device, card: str, tmp: str):
@@ -3982,6 +4391,10 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         by_path["trainer"] = timed("trainer", trainer_phase, device, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
+        by_path["bf16 train"], bf16_stats = timed("bf16 train", bf16_train_phase, device, card,
+                                                  tmp)
+    stats.update(bf16_stats)
+    with tempfile.TemporaryDirectory() as tmp:
         by_path["multi-speaker"] = timed("multi-speaker", multispeaker_phase, device, card, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         by_path["serving"] = timed("serving", serving_phase, device, card, tmp)
@@ -4004,7 +4417,7 @@ def main():
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
-    for p in ("trainer", "multi-speaker", "serving", "mb-istft", "int8 decoder",
+    for p in ("trainer", "bf16 train", "multi-speaker", "serving", "mb-istft", "int8 decoder",
               "tacotron serving", "tacotron training"):
         for n, c in by_path[p].items():
             launches[n] = launches.get(n, 0) + c
@@ -4018,6 +4431,11 @@ def main():
                             "torch_tts_tpu/kernels/wn_stack.py:156"),
                "wn_group_backward": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
                                      "torch_tts_tpu/kernels/wn_stack.py:330"),
+               # the bf16 variants of the same TPU kernels (bf16 training)
+               "wn_group_bf16": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
+                                 "torch_tts_tpu/kernels/wn_stack.py:156"),
+               "wn_group_backward_bf16": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
+                                          "torch_tts_tpu/kernels/wn_stack.py:330"),
                "maximum_path": ("torch_tts_tpu_torch/csrc/mas.cu",
                                 "torch_tts_tpu/kernels/mas_pallas.py:77"),
                "taco_step_fused": ("torch_tts_tpu_torch/csrc/taco_step.cu",

@@ -12,7 +12,10 @@ log-mel of the STFT+mel kernel is held within 1e-3 abs of its plain version
 gradients: per tensor, max |kernel - plain| <= 1e-4 * max |plain| + 1e-5
 (sums over up to B*T frames in another order). The Taco2Prod step with
 bf16 LSTM matrices is held against the plain step given the same
-bf16-rounded matrices in fp32, so its tolerance stays the fp32 one.
+bf16-rounded matrices in fp32, so its tolerance stays the fp32 one. The
+bf16 WN kernels: within 2^-5 of the output's peak of their plain versions in
+bf16 (which round after every op), and within 2^-6 of the fp32 plain
+versions on the same bf16 values.
 """
 
 import pytest
@@ -222,6 +225,102 @@ def test_wn_group_autograd_runs_the_backward_kernel(cuda_device):
     for i, (a, b) in enumerate(zip(args, ref)):
         if i != 1:
             _assert_grad_close(f"arg {i}", a.grad, b.grad)
+
+
+BF16_RTOL = 2.0 ** -5  # of the peak: the bf16 kernels against their plain versions in bf16
+BF16_FP32_RTOL = 2.0 ** -6  # ... and against the fp32 plain versions on the same bf16 values
+
+
+def _bf16(args):
+    return tuple(None if a is None else a.bfloat16().contiguous() for a in args)
+
+
+def _widened(args):
+    return tuple(None if a is None else a.float() for a in args)
+
+
+def _assert_peak_close(name, got, want, rtol):
+    err = float((got.float() - want.float()).abs().max())
+    peak = float(want.float().abs().max())
+    assert err <= rtol * peak, f"{name}: max abs error {err:.3e} > {rtol:.2e} x {peak:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,B,T,L,k", [
+    (cluster, *case) for cluster in wn.FORWARD_CLUSTERS for case in WN_FORWARD_CASES
+    if wn.forward_smem_bytes(cluster, case[3]) <= wn.SMEM_BYTES])
+def test_wn_bf16_forward_matches_plain(cuda_device, cluster, B, T, L, k):
+    """The bf16 forward (each cluster size, gl, ragged lengths, with and
+    without saves) against the plain group in bf16 and the fp32 plain group
+    on the same bf16 values; bf16 outputs, fp32 saves, a bf16 launch count."""
+    frames = wn.WINDOW - 2 * L * ((k - 1) // 2)
+    g = torch.Generator().manual_seed(B * T + k + 1)
+    args = _bf16(_wn_args(g, cuda_device, B, T, 192, L, k=k, with_gl=True))
+    want, want32 = wn_group_plain(*args), wn_group_plain(*_widened(args))
+    want_x, want_xin = _plain_layer_saves(*_widened(args))
+    p = wn.ForwardPlan(cluster, frames, B * -(-T // frames))
+    for save in (False, True):
+        before = (wn_group.launches, wn_group.launches_bf16)
+        x_out, skip, saved = wn._forward_cuda(*args, save=save, plan=p)
+        assert (wn_group.launches, wn_group.launches_bf16) == (before[0], before[1] + 1)
+        for name, a, b, b32 in zip(("x_out", "skip"), (x_out, skip), want, want32):
+            assert a.dtype == torch.bfloat16
+            _assert_peak_close(name, a, b, BF16_RTOL)
+            _assert_peak_close(name + " (fp32 plain)", a, b32, BF16_FP32_RTOL)
+        if save:
+            assert saved[0].dtype == saved[1].dtype == torch.float32
+            _assert_peak_close("x_i", saved[0], want_x, BF16_FP32_RTOL)
+            _assert_peak_close("x_in", saved[1], want_xin, BF16_FP32_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,L,with_gl", [(8, 1000, 4, True), (3, 77, 3, False), (1, 5, 2, True)])
+def test_wn_bf16_backward_matches_plain(cuda_device, B, T, L, with_gl):
+    """The bf16 backward against autograd of the plain group in bf16 and in
+    fp32 on the same values; every gradient bf16; the same bits twice."""
+    g = torch.Generator().manual_seed(B * T + L + 1)
+    args = _bf16(_wn_args(g, cuda_device, B, T, 192, L, with_gl=with_gl))
+    d_xo, d_sk = (_randn(g, cuda_device, B, T, 192).bfloat16() for _ in range(2))
+    before = (wn_group_backward.launches, wn_group_backward.launches_bf16)
+    got = wn_group_backward(*args, d_xo, d_sk)
+    assert (wn_group_backward.launches, wn_group_backward.launches_bf16) == (
+        before[0], before[1] + 1)
+    want = wn_group_backward_plain(*args, d_xo, d_sk)
+    want32 = wn_group_backward_plain(*_widened(args), d_xo.float(), d_sk.float())
+    again = wn_group_backward(*args, d_xo, d_sk)
+    for name, a, b, b32, a2 in zip(("d_x", "d_gl", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs"),
+                                   got, want, want32, again):
+        if b is None:
+            assert a is None
+            continue
+        assert a.dtype == torch.bfloat16 and torch.equal(a, a2)
+        _assert_peak_close(name, a, b, BF16_RTOL)
+        _assert_peak_close(name + " (fp32 plain)", a, b32, BF16_FP32_RTOL)
+
+
+@pytest.mark.cuda
+def test_wn_bf16_autograd_and_refusals(cuda_device):
+    """A bf16 group under autograd runs both bf16 kernels; wn_stack casts
+    the weights to x's dtype; a mix of dtypes or fp16 at the kernel raises."""
+    g = torch.Generator().manual_seed(11)
+    args = [a.requires_grad_() if a is not None and i != 1 else a
+            for i, a in enumerate(_bf16(_wn_args(g, cuda_device, 2, 128, 192, 4, with_gl=True)))]
+    before = (wn_group.launches_bf16, wn_group_backward.launches_bf16)
+    x_out, skip = wn_group(*args)
+    (x_out.float().square().sum() + skip.float().sum()).backward()
+    assert (wn_group.launches_bf16, wn_group_backward.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    assert all(a.grad.dtype == torch.bfloat16 for i, a in enumerate(args) if i != 1)
+    plain = _wn_args(g, cuda_device, 2, 64, 192, 4)
+    mixed = (plain[0].bfloat16(), *plain[1:])
+    with pytest.raises(ValueError):
+        wn_group(*mixed)
+    with pytest.raises(ValueError):
+        wn_group(*(None if a is None else a.half() for a in plain))
+    out = wn_stack(plain[0], *_bf16(plain[1:]))
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, wn_stack(plain[0], *_widened(_bf16(plain[1:]))),
+                               rtol=RTOL, atol=ATOL)
 
 
 def _mas_batch(g, device, B, T_y, T_x, ties=False):
@@ -617,11 +716,14 @@ def test_lltm_kernel_repeats_its_bits(cuda_device, B, I, H):
     (1, 192, 1024, 512, 7, 1, (3, 3), 1), (2, 256, 777, 256, 11, 5, (25, 25), 1),
     (1, 512, 300, 2048, 3, 1, (1, 1), 8), (3, 256, 129, 1024, 5, 1, (2, 2), 4),
     (2, 32, 1000, 32, 3, 3, (3, 3), 1), (1, 64, 50, 96, 3, 1, (2, 0), 2),
+    (1, 80, 64, 96, 7, 1, (3, 3), 1), (2, 81, 100, 48, 3, 2, (2, 2), 2), (2, 1, 33, 8, 3, 1, (1, 1), 1),
 ])
 def test_int8_kernels_match_plain(cuda_device, B, C, T, N, k, d, pad, phases):
     """The quantizer gives the plain version's x_q and s_x exactly; the
     int8 conv its output bit for bit (exact int32 sums, the same fp32
-    epilogue), ragged rows, columns and asymmetric padding included."""
+    epilogue), ragged rows, columns and asymmetric padding included, and
+    C_in off the 32-channel K step (rows padded with zeros); contiguous
+    unpadded x_q and w_q too (copied into padded rows)."""
     from torch_tts_tpu_torch.kernels import int8_conv
     from torch_tts_tpu_torch.ops import quant
 
@@ -635,24 +737,26 @@ def test_int8_kernels_match_plain(cuda_device, B, C, T, N, k, d, pad, phases):
         assert torch.equal(x_q, x_qp) and float(s_x) == float(s_xp)
         for b in (bias, None):
             y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, b, pad, d, phases)
-            torch.testing.assert_close(
-                y, int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, b, pad, d, phases),
-                rtol=0, atol=0)
+            want = int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, b, pad, d, phases)
+            torch.testing.assert_close(y, want, rtol=0, atol=0)
+            y2 = int8_conv.int8_conv1d(x_qp, s_xp, w_q.contiguous(), s_w, b, pad, d, phases)
+            torch.testing.assert_close(y2, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
 def test_int8_conv_raises_on_a_shape_it_does_not_take(cuda_device):
-    """C_in = 80 is not a multiple of the kernel's 32-byte K steps: on the
-    card the quantized conv raises (no plain version on a CUDA tensor) and
-    launches no conv."""
+    """k * C_in past the kernel's int32 bound (4095 channels, padded to
+    4096, times 33 taps): on the card the quantized conv raises (no plain
+    version on a CUDA tensor) and launches no conv. C_in = 80 is taken
+    (test_int8_kernels_match_plain)."""
     from torch_tts_tpu_torch.kernels import int8_conv
     from torch_tts_tpu_torch.ops import quant
 
     g = torch.Generator().manual_seed(80)
-    x = _randn(g, cuda_device, 1, 80, 64)
-    w = _randn(g, cuda_device, 96, 80, 7, scale=0.05)
-    assert not int8_conv.supports(80, 96, 7, 1)
+    x = _randn(g, cuda_device, 1, 4095, 40)
+    w = _randn(g, cuda_device, 16, 4095, 33, scale=0.05)
+    assert not int8_conv.supports(4095, 16, 33, 1) and int8_conv.supports(80, 96, 7, 1)
     before = int8_conv.int8_conv1d.launches
     with torch.no_grad(), pytest.raises(ValueError, match="not taken by the kernel"):
-        quant.int8_conv1d(x, w, padding=(3, 3))
+        quant.int8_conv1d(x, w, padding=(16, 16))
     assert int8_conv.int8_conv1d.launches == before

@@ -253,15 +253,36 @@ def test_int8_wrappers_refuse_a_gradient_and_a_stride():
 
 def test_supports_takes_every_decoder_shape():
     """The int8 convs of the shipped configs (C_in; columns incl. phases;
-    taps) are taken; a C_in off the 32-byte K step, or a K whose int32 sums
-    could overflow, is not."""
+    taps) are taken, and so is a C_in off the 32-byte K step (padded to
+    it); a K whose int32 sums could overflow (counted at the padded width),
+    or no dilation, is not. conv_weights packs w_q's rows at the padded
+    width with zeros past C_in, which `padded_rows` reads in place; a
+    tensor with rows C_in apart is copied into such a buffer."""
     shipped = [(192, 512, 7), (512, 8 * 256, 3), (256, 8 * 128, 3), (512, 4 * 256, 5),
                (256, 4 * 128, 5), (128, 2 * 64, 3), (64, 2 * 32, 3)]
     shipped += [(c, c, k) for c in (256, 128, 64, 32) for k in KS]
     for c_in, n, k in shipped:
         for d in DILATIONS:
             assert int8_conv.supports(c_in, n, k, d), (c_in, n, k, d)
-    assert not int8_conv.supports(16, 16, 3, 1)
-    assert not int8_conv.supports(48, 16, 3, 1)
+    for c_in in (1, 16, 48, 80, 81):
+        assert int8_conv.supports(c_in, 16, 3, 1), c_in
     assert not int8_conv.supports(4096, 16, 33, 1)
+    assert not int8_conv.supports(4095, 16, 33, 1)  # 4096 padded channels x 33 taps
+    assert int8_conv.supports(4095, 16, 32, 1)
     assert not int8_conv.supports(64, 16, 3, 0)
+    assert [int8_conv.padded_channels(c) for c in (1, 32, 33, 80, 81, 96)] == [
+        32, 32, 64, 96, 96, 96]
+    g = torch.Generator().manual_seed(81)
+    w_q, s_w = quant.conv_weights(torch.randn(24, 81, 7, generator=g))
+    assert w_q.shape == (24, 7, 81) and w_q.stride() == (7 * 96, 96, 1)
+    assert int8_conv.padded_rows(w_q) is w_q
+    base = w_q.as_strided((24, 7, 96), (7 * 96, 96, 1))
+    assert torch.equal(base[..., 81:], torch.zeros(24, 7, 15, dtype=torch.int8))
+    np.testing.assert_array_equal(w_q.numpy(), quant.quantize_weight_per_channel(
+        torch.randn(24, 81, 7, generator=torch.Generator().manual_seed(81)))[0].numpy()
+        .transpose(0, 2, 1))
+    dense = w_q.contiguous()
+    copy = int8_conv.padded_rows(dense)
+    assert copy is not dense and copy.stride() == w_q.stride() and torch.equal(copy, dense)
+    assert torch.equal(copy.as_strided((24, 7, 96), (7 * 96, 96, 1))[..., 81:],
+                       torch.zeros(24, 7, 15, dtype=torch.int8))

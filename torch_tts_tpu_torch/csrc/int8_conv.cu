@@ -14,7 +14,9 @@
 //   the whole tensor, on the device, as max(...) * fp32(1 / 127) (XLA's form
 //   of the JAX package's division by the constant 127 under jit);
 //   x_q = clip(rint(x / s_x), -127, 127) (IEEE division, round half to
-//   even, as jnp.round and torch.round).
+//   even, as jnp.round and torch.round). x_q's rows are C rounded up to 32
+//   apart, zero past C, so that the conv below takes any C_in: the wrapper
+//   passes the padded width, and w_q's rows are padded with zeros to match.
 // - conv: x_q [B, T, C_in] int8, w_q [N, k, C_in] int8, s_w [N] fp32, bias
 //   [N / phases] fp32 or null. N = C_out * phases, column n = o * phases + r.
 //   acc[b, t, n] = sum_j sum_c x_q[b, t + j * dil - pad_lo, c] * w_q[n, j, c]
@@ -275,10 +277,11 @@ __global__ void __launch_bounds__(kThreads) absmax_kernel(const float* __restric
   }
 }
 
-// x [B, C, T] -> x_q [B, T, C]; grid (T / 32, C / 32, B), block (32, 8)
+// x [B, C, T] -> x_q [B, T, Cp], rows Cp (C rounded up to 32) apart, zero
+// past C; grid (T / 32, Cp / 32, B), block (32, 8)
 __global__ void quantize_kernel(const float* __restrict__ x, int8_t* __restrict__ xq,
                                 const unsigned* __restrict__ amax, float* __restrict__ s_out,
-                                int C, int T) {
+                                int C, int Cp, int T) {
   __shared__ float tile[32][33];
   const int b = blockIdx.z, c0 = blockIdx.y * 32, t0 = blockIdx.x * 32;
   const float a = __uint_as_float(*amax);
@@ -291,12 +294,12 @@ __global__ void quantize_kernel(const float* __restrict__ x, int8_t* __restrict_
     tile[i][threadIdx.x] = (c < C && t < T) ? xb[(long long)c * T + t] : 0.0f;
   }
   __syncthreads();
-  int8_t* qb = xq + (long long)b * T * C;
+  int8_t* qb = xq + (long long)b * T * Cp;
   for (int i = threadIdx.y; i < 32; i += 8) {
     const int t = t0 + i, c = c0 + threadIdx.x;
-    if (t < T && c < C) {
+    if (t < T && c < Cp) {  // the tile holds 0 past C, which quantizes to 0
       const float q = fminf(fmaxf(rintf(__fdiv_rn(tile[threadIdx.x][i], s)), -127.0f), 127.0f);
-      qb[(long long)t * C + c] = static_cast<int8_t>(__float2int_rn(q));
+      qb[(long long)t * Cp + c] = static_cast<int8_t>(__float2int_rn(q));
     }
   }
 }
@@ -328,12 +331,14 @@ cudaError_t launch_conv(const int8_t* xq, const float* sx, const int8_t* wq, con
 
 }  // namespace
 
-// The activation quantizer on `stream`: x [B, C, T] fp32 -> x_q [B, T, C]
-// int8; scale holds two words: [0] s_x (written), [1] the max |x| bits
+// The activation quantizer on `stream`: x [B, C, T] fp32 -> x_q [B, T, Cp]
+// int8, Cp = C rounded up to a multiple of 32 (the conv's K step), zero
+// past C; scale holds two words: [0] s_x (written), [1] the max |x| bits
 // (scratch). Returns the CUDA error (0 on success).
-extern "C" int tts_int8_quantize(const float* x, int8_t* xq, float* scale, int B, int C, int T,
-                                 void* stream) {
-  if (B < 1 || C < 1 || T < 1 || C > 65535 * 32 || B > 65535) return (int)cudaErrorInvalidValue;
+extern "C" int tts_int8_quantize(const float* x, int8_t* xq, float* scale, int B, int C, int Cp,
+                                 int T, void* stream) {
+  if (B < 1 || C < 1 || T < 1 || Cp != (C + 31) / 32 * 32 || Cp > 65535 * 32 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   unsigned* amax = reinterpret_cast<unsigned*>(scale + 1);
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned), s);
@@ -348,13 +353,14 @@ extern "C" int tts_int8_quantize(const float* x, int8_t* xq, float* scale, int B
   absmax_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(x, n, amax);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((T + 31) / 32), (unsigned)((C + 31) / 32), (unsigned)B);
-  quantize_kernel<<<grid, dim3(32, 8), 0, s>>>(x, xq, amax, scale, C, T);
+  const dim3 grid((unsigned)((T + 31) / 32), (unsigned)(Cp / 32), (unsigned)B);
+  quantize_kernel<<<grid, dim3(32, 8), 0, s>>>(x, xq, amax, scale, C, Cp, T);
   return (int)cudaGetLastError();
 }
 
-// The int8 conv on `stream` (contract above). C_in a multiple of 32, N a
-// multiple of phases, k * C_in at most 131072 (int32 sums of 127^2
+// The int8 conv on `stream` (contract above). C_in a multiple of 32 (the
+// wrapper passes any other width padded: rows of x_q and w_q that far
+// apart, the weights zero past the real channels), N a multiple of phases, k * C_in at most 131072 (int32 sums of 127^2
 // products). Returns the CUDA error (0 on success).
 extern "C" int tts_int8_conv1d(const int8_t* xq, const float* sx, const int8_t* wq,
                                const float* sw, const float* bias, float* out, int B, int T,

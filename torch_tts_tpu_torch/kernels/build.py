@@ -35,11 +35,11 @@ _BUILD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, n: int = 1) -> None:
-    """Add n (one by default) to `wrapper.launches`, the count of its
-    kernel's launches."""
+def count_launch(wrapper, n: int = 1, attr: str = "launches") -> None:
+    """Add n (one by default) to `wrapper.launches` (or the counter `attr`
+    names: a variant's own count), the count of its kernel's launches."""
     with _COUNT_LOCK:
-        wrapper.launches += n
+        setattr(wrapper, attr, getattr(wrapper, attr) + n)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -47,13 +47,15 @@ _SIGNATURES = {
     # w_ptrs, b_ptrs (host int64), stream
     "tts_mrf_fused_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # x, mask, gl, w_in, b_in, w_rs, b_rs, x_out, skip_out, save_x, save_xin,
-    # wsplit, B, T, H, L, k, cluster, stream
+    # wsplit, B, T, H, L, k, cluster, stream (the same for the bf16 variant)
     "tts_wn_group_forward": (_P,) * 12 + (_I,) * 6 + (_P,),
-    # cluster, k, out (host int32)
-    "tts_wn_forward_max_clusters": (_I,) * 2 + (_P,),
+    "tts_wn_group_forward_bf16": (_P,) * 12 + (_I,) * 6 + (_P,),
+    # cluster, k, bf16, out (host int32)
+    "tts_wn_forward_max_clusters": (_I,) * 3 + (_P,),
     # mask, w_in, w_rs, save_x, save_xin, d_xo, d_sk, d_x, d_gl, d_w_in, d_b_in,
-    # d_w_rs, d_b_rs, work, B, T, H, L, k, stream
+    # d_w_rs, d_b_rs, work, B, T, H, L, k, stream (the same for the bf16 variant)
     "tts_wn_group_backward": (_P,) * 14 + (_I,) * 5 + (_P,),
+    "tts_wn_group_backward_bf16": (_P,) * 14 + (_I,) * 5 + (_P,),
     # neg_cent, t_ys, t_xs, path, bits, B, T_y, T_x, stream
     "tts_mas_forward": (_P,) * 5 + (_I,) * 3 + (_P,),
     # rows, bits, rec, n_rows, T_x, stream
@@ -68,8 +70,8 @@ _SIGNATURES = {
     "tts_lltm_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
     # B, I, H, stream
     "tts_lltm_launch_floor": (_I,) * 3 + (_P,),
-    # x, x_q, scale (s_x and a scratch word), B, C, T, stream
-    "tts_int8_quantize": (_P,) * 3 + (_I,) * 3 + (_P,),
+    # x, x_q, scale (s_x and a scratch word), B, C, C_pad (x_q's row stride), T, stream
+    "tts_int8_quantize": (_P,) * 3 + (_I,) * 4 + (_P,),
     # x_q, s_x, w_q, s_w, bias (or null), out, B, T, C_in, N, k, dilation,
     # pad_lo, T_out, phases, stream
     "tts_int8_conv1d": (_P,) * 6 + (_I,) * 9 + (_P,),

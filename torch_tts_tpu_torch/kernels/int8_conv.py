@@ -12,7 +12,10 @@ design are in its header.
   fp32 tensor on x's device). s_x = max(max |x| over the whole tensor,
   1e-12) * fp32(1 / 127) (`symmetric_scale`), x_q = clip(round(x / s_x),
   -127, 127) with IEEE division and round half to even (jnp.round and
-  torch.round). x_q is channels-last, the conv's K axis contiguous.
+  torch.round). x_q is channels-last, the conv's K axis contiguous; on the
+  card its rows are `padded_channels(C)` apart, zero past C (a [B, T, C]
+  view of a [B, T, padded_channels(C)] buffer), so that the conv's 32-byte
+  K steps cover any C.
 - `int8_conv1d(x_q, s_x, w_q, s_w, bias, padding, dilation, phases)`: x_q
   [B, T, C_in] int8, w_q [N, k, C_in] int8, s_w [N] fp32, bias [N / phases]
   fp32 or None, padding (lo, hi) -> [B, N / phases, T_out * phases] fp32,
@@ -21,7 +24,13 @@ design are in its header.
   (zero outside [0, T)), exact in int32, column n = o * phases + r gives
   out[b, o, t * phases + r] = float(acc) * (s_x * s_w[n]) (+ bias[o]).
   phases = 1 is a conv in the port's [B, C, T] layout; phases = u is the
-  subpixel transposed conv's dense product with its depth-to-space.
+  subpixel transposed conv's dense product with its depth-to-space. Any
+  C_in >= 1: on the card the kernel runs over padded_channels(C_in)
+  channels, reading x_q's and w_q's rows that far. A tensor whose rows are
+  C_in apart is copied into a zero-padded buffer first; one already
+  padded (x_q from `quantize_act`, w_q from `ops/quant.conv_weights`) is
+  read in place, and w_q's channels past C_in must then be zero (they
+  cancel whatever x_q holds there), as `conv_weights` writes them.
 
 Dispatch: a CPU tensor takes the plain version (`quantize_act_plain`,
 `int8_conv1d_plain`); a CUDA tensor launches the kernel or raises. Both
@@ -35,6 +44,7 @@ takes the plain version). `quantize_act.launches` and
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -47,7 +57,7 @@ EPS = 1e-12
 # constant 127 into a product with its fp32 reciprocal (eager JAX divides),
 # and jit is how the JAX package runs its decoder
 INV_127 = float(torch.tensor(1.0) / 127.0)
-K_MULTIPLE = 32  # C_in must be a multiple of the kernel's 32-byte K steps
+K_MULTIPLE = 32  # the kernel's K steps: 32 channels (bytes) of int8
 MAX_K = 131072  # k * C_in: int32 sums of up to this many 127^2 products
 
 
@@ -70,12 +80,35 @@ def check_no_grad(*tensors: Optional[torch.Tensor]) -> None:
                            "torch.inference_mode(), and train with quantize_decoder off")
 
 
+def padded_channels(C: int) -> int:
+    """C rounded up to the kernel's K step: the channel stride of the card's
+    x_q and w_q rows."""
+    return -(-C // K_MULTIPLE) * K_MULTIPLE
+
+
 def supports(C_in: int, C_out: int, k: int, dilation: int) -> bool:
-    """Whether the conv kernel takes C_in input channels, C_out product
-    columns (the output channels times the phases), k taps and the
-    dilation (on the card `int8_conv1d` raises on any other shape)."""
-    return (C_in >= K_MULTIPLE and C_in % K_MULTIPLE == 0 and C_out >= 1 and k >= 1
-            and dilation >= 1 and k * C_in <= MAX_K)
+    """Whether the conv kernel takes C_in input channels (any C_in >= 1,
+    padded to `padded_channels`), C_out product columns (the output
+    channels times the phases), k taps and the dilation: at most MAX_K
+    padded channels times taps (on the card `int8_conv1d` raises on any
+    other shape)."""
+    return (C_in >= 1 and C_out >= 1 and k >= 1 and dilation >= 1
+            and k * padded_channels(C_in) <= MAX_K)
+
+
+def padded_rows(t: torch.Tensor) -> torch.Tensor:
+    """t [..., R, C] int8 (x_q or w_q) as the card's kernel reads it: rows
+    padded_channels(C) apart. `t` itself when it is laid out so (contiguous
+    rows of that stride, or a view of a buffer that holds them), else a
+    copy with zero channels past C."""
+    C = t.shape[-1]
+    Cp = padded_channels(C)
+    rows = t.numel() // C if C else 0
+    if (t.stride(-1) == 1 and all(t.stride(i) == Cp * math.prod(t.shape[i + 1:-1])
+                                  for i in range(t.dim() - 1))
+            and t.untyped_storage().nbytes() >= t.storage_offset() + rows * Cp):
+        return t
+    return F.pad(t, (0, Cp - C)).contiguous()[..., :C]
 
 
 def quantize_act_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,15 +128,16 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("quantize_act: x must be a contiguous fp32 [B, C, T] tensor")
     B, C, T = x.shape
-    x_q = torch.empty(B, T, C, dtype=torch.int8, device=x.device)
+    Cp = padded_channels(C)
+    x_q = torch.empty(B, T, Cp, dtype=torch.int8, device=x.device)
     scale = torch.empty(2, dtype=torch.float32, device=x.device)  # s_x, max |x| bits
     lib = build.load_library()
     with torch.cuda.device(x.device):
-        code = lib.tts_int8_quantize(x.data_ptr(), x_q.data_ptr(), scale.data_ptr(), B, C, T,
-                                     torch.cuda.current_stream(x.device).cuda_stream)
+        code = lib.tts_int8_quantize(x.data_ptr(), x_q.data_ptr(), scale.data_ptr(), B, C, Cp,
+                                     T, torch.cuda.current_stream(x.device).cuda_stream)
     build.check_cuda_error(code, "quantize_act")
     build.count_launch(quantize_act)
-    return x_q, scale[0]
+    return x_q[..., :C], scale[0]
 
 
 def _out_len(T: int, padding: Tuple[int, int], dilation: int, k: int) -> int:
@@ -133,10 +167,10 @@ def int8_conv1d_plain(x_q: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor,
 
 def _check_cuda_args(x_q, s_x, w_q, s_w, bias, phases, T_out):
     dev = x_q.device
-    if x_q.dtype != torch.int8 or x_q.dim() != 3 or not x_q.is_contiguous():
-        raise ValueError("int8_conv1d: x_q must be a contiguous int8 [B, T, C_in] tensor")
-    if w_q.dtype != torch.int8 or w_q.dim() != 3 or not w_q.is_contiguous():
-        raise ValueError("int8_conv1d: w_q must be a contiguous int8 [N, k, C_in] tensor")
+    if x_q.dtype != torch.int8 or x_q.dim() != 3:
+        raise ValueError("int8_conv1d: x_q must be an int8 [B, T, C_in] tensor")
+    if w_q.dtype != torch.int8 or w_q.dim() != 3:
+        raise ValueError("int8_conv1d: w_q must be an int8 [N, k, C_in] tensor")
     N, k, C_in = w_q.shape
     if x_q.shape[2] != C_in:
         raise ValueError(f"int8_conv1d: x_q has {x_q.shape[2]} channels, w_q {C_in}")
@@ -171,14 +205,16 @@ def int8_conv1d(x_q: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: to
     _check_cuda_args(x_q, s_x, w_q, s_w, bias, phases, T_out)
     if not supports(C_in, N, k, dilation):
         raise ValueError(f"int8_conv1d: C_in={C_in}, C_out={N}, k={k}, dilation={dilation} is "
-                         f"not taken by the kernel (C_in a multiple of {K_MULTIPLE}, "
-                         f"k * C_in <= {MAX_K})")
+                         f"not taken by the kernel (k * C_in padded to a multiple of "
+                         f"{K_MULTIPLE} <= {MAX_K})")
+    x_q, w_q = padded_rows(x_q), padded_rows(w_q)
     out = torch.empty(B, N // phases, T_out * phases, dtype=torch.float32, device=x_q.device)
     lib = build.load_library()
     with torch.cuda.device(x_q.device):
         code = lib.tts_int8_conv1d(
             x_q.data_ptr(), s_x.data_ptr(), w_q.data_ptr(), s_w.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(), B, T, C_in, N, k,
+            None if bias is None else bias.data_ptr(), out.data_ptr(), B, T,
+            padded_channels(C_in), N, k,
             dilation, padding[0], T_out, phases,
             torch.cuda.current_stream(x_q.device).cuda_stream)
     build.check_cuda_error(code, "int8_conv1d")

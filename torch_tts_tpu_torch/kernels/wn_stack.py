@@ -7,8 +7,13 @@ of `torch_tts_tpu_torch/csrc/wn_stack.cu`, keeping their contract: x
 [B, T, H], mask [B, T, 1], gl [B, L, 2H] per-layer conditioning or None,
 w_in [L, k, H, 2H] effective conv kernels, b_in [L, 2H], w_rs [L, H, 2H] 1x1
 res/skip kernels whose final layer has a zero residual half, b_rs [L, 2H];
-fp32. A group returns (x_out, skip * mask); `wn_stack` chains groups of at
-most four layers and returns the skip sum, as the JAX version does.
+fp32, or bf16 (bf16 training), all of one dtype. A group returns (x_out,
+skip * mask) in that dtype; `wn_stack` chains groups of at most four layers
+and returns the skip sum, as the JAX version does. `wn_stack` computes in
+x's dtype, as the Pallas kernel does (its products promote the weights to
+an fp32 x, its outputs take x's dtype): it casts the mask, gl and the
+weights to x's dtype, so an fp32 x with bf16 weights (the flows' WN under
+bf16 training, whose x the fp32 attention promotes) runs the fp32 kernels.
 
 On the card `wn_group` is a `torch.autograd.Function`. In the forward it
 launches the forward kernel; when a gradient is wanted, the kernel also
@@ -29,10 +34,22 @@ weights split into hi and lo once a call (a workspace of
 cluster size from the grid and the card's cluster occupancy. The backward is split-K by batch item, deterministic; see
 the .cu file.
 
+The bf16 variants (`tts_wn_group_forward_bf16`, `tts_wn_group_backward_bf16`)
+are the same kernels templated on the element type: bf16 operands into
+the tensor cores with fp32 accumulation, one product a 16-deep step (one
+pass, where fp32 takes three), the gate, the residual and the skip sums in
+fp32 inside the group, bf16 stores of x_out, skip and the gradients, the
+saves for the backward fp32. Bounds at the flows' training shape (B=8,
+T=1000, H=192, L=4, k=5) at bf16's 989 TFLOP/s: forward with saves 0.029
+ms, backward 0.057 ms. The plain versions run in bf16 as the JAX
+`wn_group_ref` does (every op rounded to bf16); the gradients come back in
+each input's dtype, as the Pallas backward's outputs do.
+
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. `wn_group.launches` and `wn_group_backward.launches`
-count the calls that launch their kernels (one per wrapper call; the
-forward's launches the weights' split and the group kernel).
+count the calls that launch their fp32 kernels, `.launches_bf16` their
+bf16 variants' (one per wrapper call; the forward's launches the weights'
+split and the group kernel).
 """
 
 from __future__ import annotations
@@ -48,6 +65,7 @@ import torch.nn.functional as F
 from torch_tts_tpu_torch.kernels import build
 
 SUPPORTED_HIDDEN = (192,)  # every shipped config
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)  # one dtype for every tensor of a call
 MAX_TAPS = 15  # the largest (odd) conv kernel the forward's shared memory takes
 SMEM_BYTES = 232448  # per-block dynamic shared memory limit on Hopper
 WINDOW = 64  # rows of x a forward CTA holds: one m64 tile of the products
@@ -127,10 +145,11 @@ def wn_group_backward_plain(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk):
     return tuple(grads)
 
 
-def supports(H: int, k: int) -> bool:
-    """Whether the kernels take a stack of H hidden channels and k taps:
-    the rule a model checks before it sends a WN to `wn_stack`."""
-    return H in SUPPORTED_HIDDEN and k % 2 == 1 and k <= MAX_TAPS
+def supports(H: int, k: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the kernels take a stack of H hidden channels and k taps in
+    `dtype` (fp32 or bf16): the rule a model checks before it sends a WN to
+    `wn_stack`."""
+    return H in SUPPORTED_HIDDEN and k % 2 == 1 and k <= MAX_TAPS and dtype in SUPPORTED_DTYPES
 
 
 def _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs):
@@ -138,19 +157,19 @@ def _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs):
         raise ValueError("wn_group: x must be [B, T, H] and w_in [L, k, H, 2H]")
     B, T, H = x.shape
     L, k = w_in.shape[:2]
-    if not supports(H, k):
+    if not supports(H, k, x.dtype):
         raise ValueError(f"wn_group: H={H} (supported {SUPPORTED_HIDDEN}), "
-                         f"k={k} (odd, <= {MAX_TAPS})")
+                         f"k={k} (odd, <= {MAX_TAPS}), dtype {x.dtype} (fp32 or bf16)")
     shapes = {"x": (x, (B, T, H)), "mask": (mask, (B, T, 1)), "gl": (gl, (B, L, 2 * H)),
               "w_in": (w_in, (L, k, H, 2 * H)), "b_in": (b_in, (L, 2 * H)),
               "w_rs": (w_rs, (L, H, 2 * H)), "b_rs": (b_rs, (L, 2 * H))}
     for name, (t, shape) in shapes.items():
         if t is None and name == "gl":
             continue
-        if (t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape
+        if (t.device != x.device or t.dtype != x.dtype or tuple(t.shape) != shape
                 or not t.is_contiguous() or t.data_ptr() % 16):
-            raise ValueError(f"wn_group: {name} must be a contiguous, 16-byte aligned fp32 "
-                             f"{shape} tensor on {x.device}")
+            raise ValueError(f"wn_group: {name} must be a contiguous, 16-byte aligned "
+                             f"{x.dtype} {shape} tensor on {x.device}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -158,40 +177,48 @@ def _stream(t: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def clusters_at_once(cluster: int, k: int, device_index: int) -> int:
-    """How many clusters of `cluster` forward CTAs for k taps the card
-    `device_index` holds at once (cudaOccupancyMaxActiveClusters)."""
+def clusters_at_once(cluster: int, k: int, device_index: int, bf16: bool = False) -> int:
+    """How many clusters of `cluster` forward CTAs (of the bf16 variant
+    with `bf16`) for k taps the card `device_index` holds at once
+    (cudaOccupancyMaxActiveClusters)."""
     lib = build.load_library()
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        build.check_cuda_error(lib.tts_wn_forward_max_clusters(cluster, k, ctypes.byref(n)),
-                               "wn_group (cluster occupancy)")
+        build.check_cuda_error(
+            lib.tts_wn_forward_max_clusters(cluster, k, int(bf16), ctypes.byref(n)),
+            "wn_group (cluster occupancy)")
     return n.value
 
 
-def split_weights_floats(L: int, k: int, H: int) -> int:
+def split_weights_floats(L: int, k: int, H: int, dtype: torch.dtype = torch.float32) -> int:
     """Floats of the forward's workspace: w_in and w_rs split into TF32 hi
-    and lo parts, in the order the kernel's ring takes them."""
-    return 2 * L * (k + 1) * H * 2 * H
+    and lo parts (fp32), or packed in bf16, two to a float (bf16), in the
+    order the kernel's ring takes them."""
+    n = L * (k + 1) * H * 2 * H
+    return 2 * n if dtype == torch.float32 else n // 2
 
 
 def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool, plan: Optional[ForwardPlan] = None):
-    """Forward kernels (the weights' split, the group) -> (x_out, skip,
-    saved); saved is (x_i [L, B, T, H], x_in [L, B, T, 2H]) when `save`,
-    else None. `plan` defaults to `plan_forward`'s for this card."""
+    """Forward kernels (the weights' split or bf16 packing, the group) ->
+    (x_out, skip, saved); saved is (x_i [L, B, T, H], x_in [L, B, T, 2H]),
+    fp32 in both variants, when `save`, else None. `plan` defaults to
+    `plan_forward`'s for this card."""
     B, T, H = x.shape
     L, k = w_in.shape[:2]
+    bf16 = x.dtype == torch.bfloat16
     if plan is None:
         index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        plan = plan_forward(B, T, k, L, H, one_wave=clusters_at_once(4, k, index))
+        plan = plan_forward(B, T, k, L, H, one_wave=clusters_at_once(4, k, index, bf16))
     x_out, skip = torch.empty_like(x), torch.empty_like(x)
     saved = None
     if save:
-        saved = (x.new_empty(L, B, T, H), x.new_empty(L, B, T, 2 * H))
-    wsplit = x.new_empty(split_weights_floats(L, k, H))
+        f32 = dict(dtype=torch.float32)
+        saved = (x.new_empty(L, B, T, H, **f32), x.new_empty(L, B, T, 2 * H, **f32))
+    wsplit = x.new_empty(split_weights_floats(L, k, H, x.dtype), dtype=torch.float32)
     lib = build.load_library()
     with torch.cuda.device(x.device):
-        code = lib.tts_wn_group_forward(
+        entry = lib.tts_wn_group_forward_bf16 if bf16 else lib.tts_wn_group_forward
+        code = entry(
             x.data_ptr(), mask.data_ptr(), None if gl is None else gl.data_ptr(),
             w_in.data_ptr(), b_in.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
             x_out.data_ptr(), skip.data_ptr(),
@@ -199,15 +226,21 @@ def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool, plan: Optiona
             None if saved is None else saved[1].data_ptr(), wsplit.data_ptr(),
             B, T, H, L, k, plan.cluster, _stream(x))
     build.check_cuda_error(code, "wn_group")
-    build.count_launch(wn_group)
+    build.count_launch(wn_group, attr="launches_bf16" if bf16 else "launches")
     return x_out, skip, saved
 
 
-def backward_workspace(B: int, T: int, H: int, k: int) -> int:
+def backward_workspace(B: int, T: int, H: int, k: int, L: int = 0,
+                       dtype: torch.dtype = torch.float32) -> int:
     """Floats of scratch the backward kernel takes (tts_wn_group_backward):
     d_x between layers [B, T, H], d_xin [B, T, 2H], acts [B, T, H] and the
-    per-item partial weight gradients."""
-    return B * T * 4 * H + B * (k * H + 1) * 2 * H + B * (H + 1) * 2 * H
+    per-item partial weight gradients; the bf16 variant also its inputs
+    widened to fp32 (d_xo, which then holds d_x between layers, d_sk, w_in,
+    w_rs of the L layers, and the mask)."""
+    n = B * T * 4 * H + B * (k * H + 1) * 2 * H + B * (H + 1) * 2 * H
+    if dtype == torch.bfloat16:
+        n += B * T * 2 * H + L * (k + 1) * H * 2 * H + B * T
+    return n
 
 
 def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=None):
@@ -222,8 +255,9 @@ def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=Non
     _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs)
     d_xo, d_sk = d_xo.contiguous(), d_sk.contiguous()
     for name, t in (("d_xo", d_xo), ("d_sk", d_sk)):
-        if t.shape != x.shape or t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"wn_group_backward: {name} must be fp32 {tuple(x.shape)} on {x.device}")
+        if t.shape != x.shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"wn_group_backward: {name} must be {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")
     if saved is None:
         saved = _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save=True)[2]
     B, T, H = x.shape
@@ -232,20 +266,23 @@ def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=Non
     d_gl = None if gl is None else torch.empty_like(gl)
     d_w_in, d_b_in = torch.empty_like(w_in), torch.empty_like(b_in)
     d_w_rs, d_b_rs = torch.empty_like(w_rs), torch.empty_like(b_rs)
-    work = x.new_empty(backward_workspace(B, T, H, k))
+    work = x.new_empty(backward_workspace(B, T, H, k, L, x.dtype), dtype=torch.float32)
     lib = build.load_library()
     with torch.cuda.device(x.device):
-        code = lib.tts_wn_group_backward(
+        entry = (lib.tts_wn_group_backward_bf16 if x.dtype == torch.bfloat16
+                 else lib.tts_wn_group_backward)
+        code = entry(
             mask.data_ptr(), w_in.data_ptr(), w_rs.data_ptr(), saved[0].data_ptr(),
             saved[1].data_ptr(), d_xo.data_ptr(), d_sk.data_ptr(), d_x.data_ptr(),
             None if d_gl is None else d_gl.data_ptr(), d_w_in.data_ptr(), d_b_in.data_ptr(),
             d_w_rs.data_ptr(), d_b_rs.data_ptr(), work.data_ptr(), B, T, H, L, k, _stream(x))
     build.check_cuda_error(code, "wn_group_backward")
-    build.count_launch(wn_group_backward)
+    build.count_launch(wn_group_backward,
+                       attr="launches_bf16" if x.dtype == torch.bfloat16 else "launches")
     return d_x, d_gl, d_w_in, d_b_in, d_w_rs, d_b_rs
 
 
-wn_group_backward.launches = 0
+wn_group_backward.launches = wn_group_backward.launches_bf16 = 0
 
 
 class _WNGroupFunction(torch.autograd.Function):
@@ -285,13 +322,16 @@ def wn_group(x, mask, gl, w_in, b_in, w_rs, b_rs):
     return _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save=False)[:2]
 
 
-wn_group.launches = 0
+wn_group.launches = wn_group.launches_bf16 = 0
 
 
 def wn_stack(x, mask, gl: Optional[torch.Tensor], w_in, b_in, w_rs, b_rs,
              group: int = 4) -> torch.Tensor:
     """Full WN stack -> skip sum [B, T, H] (the WN's `output * x_mask`),
-    as chained groups of at most `group` layers."""
+    as chained groups of at most `group` layers, in x's dtype: the mask, gl
+    and the weights are cast to it (differentiably)."""
+    mask, gl, w_in, b_in, w_rs, b_rs = (None if t is None else t.to(x.dtype)
+                                        for t in (mask, gl, w_in, b_in, w_rs, b_rs))
     L = w_in.shape[0]
     skip = None
     for s in range(0, L, group):

@@ -474,8 +474,10 @@ class SynthesizerTrn(nn.Module):
             if mas_noise_scale is not None:
                 if mas_noise is None:
                     mas_noise = _normal(neg_cent.shape, neg_cent, generator)
-                # population std over the whole tensor, as jnp.std
-                neg_cent = neg_cent + torch.std(neg_cent, correction=0) * mas_noise * mas_noise_scale
+                # population std over the whole tensor, as jnp.std; the noise is
+                # fp32, as JAX's scale (an fp32 array in its step) makes it
+                neg_cent = neg_cent + (torch.std(neg_cent, correction=0) * mas_noise).float() \
+                    * mas_noise_scale
             attn_mask = y_mask.transpose(1, 2) * x_mask  # [B, T_y, T_x]
             # the kernel where it takes the shape, else the plain version
             mas = (maximum_path if mas_kernel.supports(*attn_mask.shape[1:])

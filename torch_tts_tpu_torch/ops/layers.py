@@ -10,6 +10,13 @@ model-level `init_params_` calls them in module order, so one seeded
 `torch.Generator` fixes all initial weights. `Dropout` draws its masks
 from an explicit generator too (`set_dropout_generator`).
 
+Dtypes follow the JAX layers' (bf16 training, `train.use_bf16`): a conv
+casts its weight and bias to the input's dtype, as the JAX convs' `kernel.
+astype(x.dtype)` do; `Linear` and `LayerNorm` compute in the promoted
+dtype of input and parameters (JAX's promotion: bf16 with fp32 gives
+fp32), which `F.linear` does not do on its own; `Embed` and `Dropout` keep
+their table's and their input's dtype.
+
 `Conv1d` and `ConvTranspose1d` take `quant="int8"`: W8A8 inference through
 `ops/quant.py` (the transposed conv on its subpixel route only). Their
 parameters and state dict are the same as without it; the int8 weights and
@@ -40,6 +47,26 @@ def _norm_keep0(v: torch.Tensor) -> torch.Tensor:
 
 def _weight_normed(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v * (g / torch.clamp(_norm_keep0(v), min=1e-12))
+
+
+def _cast_to(x: torch.Tensor, *ts: Optional[torch.Tensor]):
+    """`ts` (a conv's weight and bias, None kept) in x's dtype."""
+    return tuple(None if t is None else t.to(x.dtype) for t in ts)
+
+
+def _conv(fn, x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor], **kw):
+    """fn(x, weight, bias, **kw) in x's dtype, the weight and bias cast to
+    it. A bf16 conv on the CPU runs in fp32 and rounds its output once,
+    which is what a bf16 conv with fp32 accumulation gives: PyTorch's CPU
+    bf16 convolutions return a wrong input gradient for the decoder's
+    stride-8 transposed conv (about 97% of its norm off) and non-finite
+    weight gradients, now and then, for the scale discriminator's grouped
+    convs on a frame or two. On the card the conv runs in bf16 (cuDNN)."""
+    weight, bias = _cast_to(x, weight, bias)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        f32 = None if bias is None else bias.float()
+        return fn(x.float(), weight.float(), f32, **kw).to(x.dtype)
+    return fn(x, weight, bias, **kw)
 
 
 def _check_quant(quant: Optional[str]) -> Optional[str]:
@@ -142,11 +169,10 @@ class Conv1d(_Int8Cache, nn.Module):
             w_q, s_w = self.int8_weights(lambda: quant_ops.conv_weights(self.effective_weight()))
             return quant_ops.int8_conv1d_quantized(x, w_q, s_w, self.bias, self.padding,
                                                    self.dilation)
+        kw = dict(stride=self.stride, dilation=self.dilation, groups=self.groups)
         if lo == hi:
-            return F.conv1d(x, self.effective_weight(), self.bias, stride=self.stride,
-                            padding=lo, dilation=self.dilation, groups=self.groups)
-        return F.conv1d(F.pad(x, (lo, hi)), self.effective_weight(), self.bias,
-                        stride=self.stride, dilation=self.dilation, groups=self.groups)
+            return _conv(F.conv1d, x, self.effective_weight(), self.bias, padding=lo, **kw)
+        return _conv(F.conv1d, F.pad(x, (lo, hi)), self.effective_weight(), self.bias, **kw)
 
 
 class Conv2d(nn.Module):
@@ -172,8 +198,8 @@ class Conv2d(nn.Module):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = _weight_normed(self.weight_g, self.weight_v)
-        return F.conv2d(x, w, self.bias, stride=self.stride, padding=self.padding)
+        return _conv(F.conv2d, x, _weight_normed(self.weight_g, self.weight_v), self.bias,
+                     stride=self.stride, padding=self.padding)
 
 
 class Dropout(nn.Module):
@@ -275,8 +301,8 @@ class ConvTranspose1d(_Int8Cache, nn.Module):
             w_q, s_w = self.int8_weights(lambda: quant_ops.conv_weights(self.subpixel_weight()))
             return quant_ops.int8_conv1d_quantized(x, w_q, s_w, self.bias, (q_max, -q_min),
                                                    phases=self.stride)
-        return F.conv_transpose1d(x, self.effective_weight(), self.bias, stride=self.stride,
-                                  padding=self.padding)
+        return _conv(F.conv_transpose1d, x, self.effective_weight(), self.bias,
+                     stride=self.stride, padding=self.padding)
 
 
 class LayerNorm(nn.Module):
@@ -315,7 +341,8 @@ class Linear(nn.Module):
         _uniform_(self.bias, bound, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
 
 
 class Embed(nn.Module):

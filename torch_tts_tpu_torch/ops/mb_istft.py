@@ -116,7 +116,13 @@ def inverse_stft(mag: torch.Tensor, phase: torch.Tensor, n_fft: int, hop: int) -
     edge[0] = 0
     if n_fft % 2 == 0:
         edge[-1] = 0
-    spec = torch.complex(mag * torch.cos(ph), imag * edge)
+    re, im = mag * torch.cos(ph), imag * edge
+    if re.dtype == torch.bfloat16:
+        # bf16 training: the complex spectrum in fp32 (there is no bf16
+        # complex type; the JAX package's lax.complex refuses bf16 parts, so
+        # its own bf16 MB-iSTFT step raises here), the frames back in bf16
+        re, im = re.float(), im.float()
+    spec = torch.complex(re, im)
     frames = torch.fft.irfft(spec, n=n_fft, dim=-1).to(mag.dtype)
     win = torch.from_numpy(_hann(n_fft)).to(device=mag.device, dtype=mag.dtype)
     y = overlap_add(frames * win, hop)

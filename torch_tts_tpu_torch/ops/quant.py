@@ -17,8 +17,9 @@ module's functions in torch ops. A decoder layer quantizes its weights once
 (`ops/layers.py` caches them per parameter state, as JAX constant-folds
 them under jit) and calls `int8_conv1d_quantized`, which runs the kernels
 of `kernels/int8_conv.py`: their plain versions on a CPU tensor; on the
-card the activation quantizer, then the int8 conv, which raises on a shape
-that `int8_conv.supports` does not take.
+card the activation quantizer, then the int8 conv (any C_in: both write
+their rows padded to the kernel's 32-channel K step), which raises on a
+shape that `int8_conv.supports` does not take.
 """
 
 from __future__ import annotations
@@ -46,10 +47,15 @@ def quantize_act_dynamic(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def conv_weights(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A conv weight [N, C_in, k] -> the int8 conv's (w_q [N, k, C_in]
-    contiguous, s_w [N])."""
+    """A conv weight [N, C_in, k] -> the int8 conv's (w_q [N, k, C_in], s_w
+    [N]). w_q's rows are `int8_conv.padded_channels(C_in)` apart, zero past
+    C_in (a view of the padded buffer the card's kernel reads in place;
+    contiguous when C_in is a multiple of 32)."""
     w_q, s_w = quantize_weight_per_channel(weight)
-    return w_q.permute(0, 2, 1).contiguous(), s_w
+    N, C_in, k = w_q.shape
+    packed = w_q.new_zeros(N, k, int8_conv.padded_channels(C_in))
+    packed[..., :C_in] = w_q.permute(0, 2, 1)
+    return packed[..., :C_in], s_w
 
 
 def int8_conv1d_quantized(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,

@@ -13,6 +13,11 @@ gated tanh-sigmoid input from one shared `cond_pre` and a weight-normed
 probabilities, the FFN's hidden activation, and each residual branch
 (masks from the modules' explicit generator,
 `ops/layers.py:set_dropout_generator`).
+
+In bf16 (`train.use_bf16`) the attention logits and their softmax are fp32,
+as in the JAX attention, whose logit products ask for an fp32 result: the
+probabilities' products with bf16 values then promote to fp32, and so does
+everything after them.
 """
 
 from __future__ import annotations
@@ -42,6 +47,12 @@ def _abs_to_rel(x: torch.Tensor) -> torch.Tensor:
     x = F.pad(x, (0, l - 1))
     x_flat = F.pad(x.reshape(b, h, l * l + l * (l - 1)), (l, 0))
     return x_flat.reshape(b, h, l, 2 * l)[..., 1:]
+
+
+def _matmul_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two, as jnp.einsum computes it."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.matmul(a.to(dt), b.to(dt))
 
 
 class MultiHeadAttention(nn.Module):
@@ -100,17 +111,19 @@ class MultiHeadAttention(nn.Module):
         k = k.reshape(b, h, dk, t_s).transpose(2, 3)
         v = v.reshape(b, h, dk, t_s).transpose(2, 3)
 
-        scores = torch.matmul(q, k.transpose(-2, -1))
+        # the logits in fp32 whatever q's dtype (JAX: preferred_element_type=float32)
+        qf = q.float()
+        scores = torch.matmul(qf, k.transpose(-2, -1).float())
         if self.window_size is not None:
             assert t_s == t_t, "relative attention requires self-attention"
             rel_k = self._relative_embeddings(self.emb_rel_k, t_s)
-            scores = scores + _rel_to_abs(torch.matmul(q, rel_k.transpose(-2, -1)[None]))
+            scores = scores + _rel_to_abs(torch.matmul(qf, rel_k.transpose(-2, -1)[None].float()))
         scores = scores.masked_fill(attn_mask == 0, -1e4)
         p_attn = self.drop(torch.softmax(scores, dim=-1))
-        out = torch.matmul(p_attn, v)
+        out = _matmul_promoted(p_attn, v)
         if self.window_size is not None:
             rel_v = self._relative_embeddings(self.emb_rel_v, t_s)
-            out = out + torch.matmul(_abs_to_rel(p_attn), rel_v[None])
+            out = out + _matmul_promoted(_abs_to_rel(p_attn), rel_v[None])
         out = out.transpose(2, 3).reshape(b, d, t_t)
         return self.conv_o(out)
 

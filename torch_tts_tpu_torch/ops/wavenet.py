@@ -7,9 +7,16 @@ same parameters: layer by layer with `F.conv1d`, or the whole stack through
 call time: `TTS_FUSED_WN=1` or `0` when set, else fused on a CUDA device
 (the H100 measured the fused group faster than the layerwise path; the JAX
 package's env default of 0 is a TPU verdict) and layerwise on the CPU. The
-fused path needs dilation 1, a width and kernel the kernels take
-(`wn_stack.supports`: H = 192, k odd and at most 15), inactive dropout and
-time-broadcast conditioning; otherwise the layerwise path runs.
+fused path needs dilation 1, a width, kernel and dtype the kernels take
+(`wn_stack.supports`: H = 192, k odd and at most 15, x fp32 or bf16),
+inactive dropout and time-broadcast conditioning; otherwise the layerwise
+path runs.
+
+Under bf16 training the parameters are bf16 and the stack computes in x's
+dtype, as the JAX WN does on either path (its convs cast their kernels to
+x's dtype; `wn_stack` casts the weights): bf16 where x is bf16 (the
+posterior encoder), fp32 where the fp32 attention has promoted x (the
+transformer flows).
 """
 
 from __future__ import annotations
@@ -65,7 +72,7 @@ class WN(nn.Module):
         g_all = self.cond_layer(g) if g is not None else None
         fused = fused_wn_default(x.device) if self.fused is None else self.fused
         if (fused and self.dilation_rate == 1
-                and wn_kernel.supports(self.hidden_channels, self.kernel_size)
+                and wn_kernel.supports(self.hidden_channels, self.kernel_size, x.dtype)
                 and (self.p_dropout == 0.0 or not self.training)
                 and (g is None or g.shape[-1] == 1)):
             return self._fused(x, x_mask, g_all)

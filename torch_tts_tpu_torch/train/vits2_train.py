@@ -42,7 +42,21 @@ through the training forward, as the JAX step does; its gradient reaches
 `cond_layer` (`d_gl` of the WN kernels) and the decoder's `cond`, not
 through the duration predictor (g is detached there).
 
-Not ported (each raises NotImplementedError): bf16 and spectral norm.
+`train.use_bf16` is the JAX step's `_cast`: every forward (the
+generator's, the MPD's, the duration discriminator's) runs on a bf16 copy
+of its network's fp32 master parameters, taken inside the autograd graph
+once per forward (`forward_as`, through `torch.func.functional_call`), so
+that the gradients reach the fp32 masters through the cast. `spec` and the
+real wav slice go in as bf16, as JAX casts them; the mel target comes from
+the fp32 `spec`, the prediction's mel from y_hat cast to fp32. From there
+the dtypes follow the activations as in JAX (the port's layers cast
+their weights to their input's dtype, the losses cast to fp32). The
+gradients, `global_norm`, `skip_nonfinite`, AdamW and `grad_accum` act on
+fp32 masters; in the `ddp` order the generator's step goes through a bf16
+copy of the *updated* discriminators. `eval_step` stays fp32, as JAX's
+`make_eval_step` does.
+
+Not ported (raises NotImplementedError): spectral norm.
 """
 
 from __future__ import annotations
@@ -71,14 +85,28 @@ def check_supported(cfg: VITS2Config):
         raise ValueError(f"unknown step_order {t.step_order!r}")
     if t.grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {t.grad_accum}")
-    if t.use_bf16:
-        raise NotImplementedError("bf16 training is not ported")
     if m.use_spectral_norm:
         raise NotImplementedError("spectral norm is not ported")
     if m.quantize_decoder:
         raise ValueError("quantize_decoder is an inference-only mode (a rounded activation "
                          "passes no gradient; the JAX package never trains it): train with it "
                          "off and set it for inference")
+
+
+def forward_as(cfg: VITS2Config, module: torch.nn.Module, *args, **kwargs):
+    """module(*args, **kwargs); under `train.use_bf16` on a bf16 copy of its
+    fp32 parameters (the JAX step's `_cast`), made here once for this call,
+    differentiably, so that the gradients reach the fp32 masters."""
+    if not cfg.train.use_bf16:
+        return module(*args, **kwargs)
+    params = {n: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+              for n, p in module.named_parameters()}
+    return torch.func.functional_call(module, params, args, kwargs)
+
+
+def _bf16_input(cfg: VITS2Config, t: torch.Tensor) -> torch.Tensor:
+    """An fp32 input cast to bf16 under `train.use_bf16` (JAX `_cast`)."""
+    return t.to(torch.bfloat16) if cfg.train.use_bf16 and t.dtype == torch.float32 else t
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -259,17 +287,17 @@ def _dur_disc_step(cfg, state: TrainState, hx, x_mask, logw_, logw):
     """The duration discriminator's step on detached inputs ([B, T, C] as the
     training forward returns them), with dur_r = logw_ and dur_hat = logw."""
     cl = lambda t: t.detach().transpose(1, 2)  # noqa: E731 - [B, T, C] -> [B, C, T]
-    prob_r, prob_g = state.dur_disc(cl(hx), cl(x_mask), cl(logw_), cl(logw))
+    prob_r, prob_g = forward_as(cfg, state.dur_disc, cl(hx), cl(x_mask), cl(logw_), cl(logw))
     loss, _, _ = discriminator_loss([prob_r], [prob_g])
     ok, norm = _guarded_update(cfg, state.opt_dur, loss, _grads(loss, state.opt_dur.params))
     return ok, {"loss/dur_disc": loss, "grad_norm_dur_disc": norm}
 
 
-def _dur_gen_loss(state: TrainState, hx, x_mask, logw_, logw) -> torch.Tensor:
+def _dur_gen_loss(cfg, state: TrainState, hx, x_mask, logw_, logw) -> torch.Tensor:
     """generator_loss([prob_g]) of the duration discriminator; the gradient
     reaches the generator through logw (hx is detached inside)."""
     cl = lambda t: t.transpose(1, 2)  # noqa: E731
-    _, prob_g = state.dur_disc(cl(hx), cl(x_mask), cl(logw_), cl(logw))
+    _, prob_g = forward_as(cfg, state.dur_disc, cl(hx), cl(x_mask), cl(logw_), cl(logw))
     return generator_loss([prob_g])[0]
 
 
@@ -308,11 +336,12 @@ def train_step(cfg: VITS2Config, state: TrainState, batch: Dict[str, torch.Tenso
     mas_noise = (max(m.mas_noise_scale_initial - m.noise_scale_delta * state.step, 0.0)
                  if m.use_noise_scaled_mas else None)
 
-    y_hat, l_length, _, ids_slice, x_mask, z_mask, latents, (hx, logw, logw_) = model(
-        b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], sid=b["sid"],
-        mas_noise_scale=mas_noise, generator=generator, **noise)
+    y_hat, l_length, _, ids_slice, x_mask, z_mask, latents, (hx, logw, logw_) = forward_as(
+        cfg, model, b["x"], b["x_lengths"], _bf16_input(cfg, b["spec"]), b["spec_lengths"],
+        sid=b["sid"], mas_noise_scale=mas_noise, generator=generator, **noise)
     _, z_p, m_p, logs_p, _, logs_q = latents
-    y_slice = slice_segments(b["wav"], ids_slice * a.hop_length, m.segment_size).transpose(1, 2)
+    y_slice = _bf16_input(cfg, slice_segments(b["wav"], ids_slice * a.hop_length,
+                                              m.segment_size).transpose(1, 2))
     mel = b["spec"] if m.use_mel_posterior_encoder else melmod.spec_to_mel(
         b["spec"], a.filter_length, a.n_mel_channels, a.sampling_rate, a.mel_fmin, a.mel_fmax)
     y_mel = slice_segments(mel, ids_slice, cfg.segment_frames)
@@ -331,7 +360,7 @@ def train_step(cfg: VITS2Config, state: TrainState, batch: Dict[str, torch.Tenso
 def _ddp(cfg, state: TrainState, y_hat, y_slice, terms, dur_in):
     t = cfg.train
     # D on the detached audio
-    y_d_r, y_d_g, _, _ = state.mpd(y_slice, y_hat.detach().transpose(1, 2))
+    y_d_r, y_d_g, _, _ = forward_as(cfg, state.mpd, y_slice, y_hat.detach().transpose(1, 2))
     loss_disc, _, _ = discriminator_loss(y_d_r, y_d_g)
     ok_d, norm_d = _guarded_update(cfg, state.opt_d, loss_disc,
                                    _grads(loss_disc, state.opt_d.params))
@@ -340,13 +369,13 @@ def _ddp(cfg, state: TrainState, y_hat, y_slice, terms, dur_in):
         ok_dur, extra = _dur_disc_step(cfg, state, *dur_in)
 
     # G through the updated discriminators
-    _, y_d_g, fmap_r, fmap_g = state.mpd(y_slice, y_hat.transpose(1, 2))
+    _, y_d_g, fmap_r, fmap_g = forward_as(cfg, state.mpd, y_slice, y_hat.transpose(1, 2))
     loss_mel, loss_kl = terms["mel"] * t.c_mel, terms["kl"] * t.c_kl
     loss_fm = feature_loss(fmap_r, fmap_g)
     loss_gen, _ = generator_loss(y_d_g)
     loss_all = loss_gen + loss_fm + loss_mel + terms["dur"] + loss_kl
     if state.dur_disc is not None:
-        loss_all = loss_all + _dur_gen_loss(state, *dur_in)
+        loss_all = loss_all + _dur_gen_loss(cfg, state, *dur_in)
     ok_g, norm_g = _guarded_update(cfg, state.opt_g, loss_all,
                                    _grads(loss_all, state.opt_g.params))
     metrics = {"loss/d/total": loss_disc, "grad_norm_d": norm_d, "grad_norm_g": norm_g,
@@ -358,18 +387,18 @@ def _ddp(cfg, state: TrainState, y_hat, y_slice, terms, dur_in):
 def _lightning(cfg, state: TrainState, y_hat, y_slice, terms, dur_in):
     t = cfg.train
     # G first, against the current discriminators
-    _, y_d_g, fmap_r, fmap_g = state.mpd(y_slice, y_hat.transpose(1, 2))
+    _, y_d_g, fmap_r, fmap_g = forward_as(cfg, state.mpd, y_slice, y_hat.transpose(1, 2))
     loss_fm = feature_loss(fmap_r, fmap_g)
     loss_gen = torch.mean(generator_loss(y_d_g)[1])
     loss_all = (loss_gen + t.c_fm * loss_fm + t.c_dur * terms["dur"] + t.c_kl * terms["kl"]
                 + t.c_mel * terms["mel"]) / (1.0 + t.c_fm + t.c_dur + t.c_kl + t.c_mel)
     if state.dur_disc is not None:
-        loss_all = loss_all + _dur_gen_loss(state, *dur_in)
+        loss_all = loss_all + _dur_gen_loss(cfg, state, *dur_in)
     ok_g, norm_g = _guarded_update(cfg, state.opt_g, loss_all,
                                    _grads(loss_all, state.opt_g.params))
 
     # then D on the detached audio of that one forward
-    y_d_r, y_d_g, _, _ = state.mpd(y_slice, y_hat.detach().transpose(1, 2))
+    y_d_r, y_d_g, _, _ = forward_as(cfg, state.mpd, y_slice, y_hat.detach().transpose(1, 2))
     _, r_l, g_l = discriminator_loss(y_d_r, y_d_g)
     loss_disc = torch.mean(r_l) + torch.mean(g_l)
     ok_d, norm_d = _guarded_update(cfg, state.opt_d, loss_disc,
