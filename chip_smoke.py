@@ -344,6 +344,10 @@ INT8_GRAPH, INT8_GRAPH_PLAIN = 20, 3
 # the int8 kernels' fields of the kernels line beyond the common ones
 INT8_FIELDS = ("shape", "shape_calls", "calls_per_infer", "ms_per_infer", "plain_ms_per_infer",
                "bound_ms_per_infer", "fp32_conv_ms", "fp32_conv_ms_per_infer")
+# the bf16 WN kernels' fields beyond the common ones: the fp32 kernel's time
+# on the same values, timed in turns with them, and the backward's device
+# kernels a call
+BF16_FIELDS = ("fp32_ms", "kernels_per_call")
 # fault 1's card check: widths no shipped config has, which the WN kernels
 # (hidden 128) and the MRF kernel (a 16-channel last stage) do not take
 NARROW = dict(hidden_channels=128, upsample_initial_channel=256)
@@ -1661,15 +1665,24 @@ def bf16_kernel_checks(device, card: str):
             errs.append(bf16_check(what, o, r, BF16_KERNEL_RTOL))
             bf16_check(what + " (fp32 plain)", o, r32, BF16_FP32_RTOL)
     a = args([T] * B, False)
-    t_k = cuda_ms(lambda: wn_stack._forward_cuda(*a, save=True))
+    a32 = widened(a)
+    # the bf16 saving forward and the fp32 one on the same values, in turns
+    turns = {"bf16": [], "fp32": []}
+    for dt in ("bf16", "fp32", "fp32", "bf16"):
+        turns[dt].append(cuda_ms(lambda: wn_stack._forward_cuda(*(a if dt == "bf16" else a32),
+                                                               save=True)))
+    t_k, t_32 = statistics.median(turns["bf16"]), statistics.median(turns["fp32"])
     t_p = cuda_ms(lambda: wn_group_plain(*a))
     flops = 2.0 * B * T * H * 2 * H * (k + 1) * L
-    # bf16 x, mask, weights and outputs; the saves (x_i, x_in) fp32
-    nbytes = 2.0 * (3 * B * T * H + B * T + L * (k + 2) * H * 2 * H) + 4.0 * L * B * T * 3 * H
-    stats["wn_group_bf16"] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p,
+    # reads bf16 x, mask and weights; writes bf16 x_out, skip and x_i, fp32 x_in
+    nbytes = (2.0 * (3 * B * T * H + B * T + L * (k + 1) * H * 2 * H + 2 * L * 2 * H)
+              + 2.0 * L * B * T * H + 4.0 * L * B * T * 2 * H)
+    stats["wn_group_bf16"] = dict(max_abs_err=max(errs), ms=t_k, plain_ms=t_p, fp32_ms=t_32,
                                   bound=bf16_bound("wn_group bf16 saving forward", flops, nbytes,
                                                    card), shape=[B, T, H, L, k])
-    log(f"  wn_group bf16 saving forward B={B} T={T}: kernel {t_k:.3f} ms, plain (bf16) "
+    log(f"  wn_group bf16 saving forward B={B} T={T}: kernel {t_k:.3f} ms (turns "
+        f"{', '.join(f'{v:.3f}' for v in turns['bf16'])}), the fp32 kernel on the same values "
+        f"{t_32:.3f} ms (turns {', '.join(f'{v:.3f}' for v in turns['fp32'])}), plain (bf16) "
         f"{t_p:.3f} ms [{card}]")
 
     names = ("d_x", "d_gl", "d_w_in", "d_b_in", "d_w_rs", "d_b_rs")
@@ -1678,6 +1691,8 @@ def bf16_kernel_checks(device, card: str):
         a = args(lengths, with_gl)
         d_xo, d_sk = randn(B, T, H).bfloat16(), randn(B, T, H).bfloat16()
         saved = wn_stack._forward_cuda(*a, save=True)[2]
+        if (saved[0].dtype, saved[1].dtype) != wn_stack.save_dtypes(torch.bfloat16):
+            raise RuntimeError(f"wn_group bf16 saves: {saved[0].dtype}, {saved[1].dtype}")
         got = wn_group_backward(*a, d_xo, d_sk, saved=saved)
         want = wn_group_backward_plain(*a, d_xo, d_sk)
         want32 = wn_group_backward_plain(*widened(a), d_xo.float(), d_sk.float())
@@ -1693,19 +1708,34 @@ def bf16_kernel_checks(device, card: str):
         if not all(torch.equal(x, y) for x, y in zip(got, again) if x is not None):
             raise RuntimeError("wn_group_backward bf16: two runs on the same inputs differ")
     log("  wn_group_backward bf16: two runs equal bit for bit -> ok")
-    t_k = cuda_ms(lambda: wn_group_backward(*a, d_xo, d_sk, saved=saved))
+    per_call = kernels_in(lambda: wn_group_backward(*a, d_xo, d_sk, saved=saved))
+    log(f"  wn_group_backward bf16: {per_call} device kernels a call (by CUDA graph capture; "
+        f"2 L + 2 = {2 * L + 2} by design) -> {'ok' if per_call == 2 * L + 2 else 'differs'}")
+    a32, d32 = widened(a), (d_xo.float(), d_sk.float())
+    saved32 = wn_stack._forward_cuda(*a32, save=True)[2]
+    turns = {"bf16": [], "fp32": []}
+    for dt in ("bf16", "fp32", "fp32", "bf16"):
+        turns[dt].append(cuda_ms(
+            (lambda: wn_group_backward(*a, d_xo, d_sk, saved=saved)) if dt == "bf16"
+            else (lambda: wn_group_backward(*a32, *d32, saved=saved32))))
+    t_k, t_32 = statistics.median(turns["bf16"]), statistics.median(turns["fp32"])
     with torch.enable_grad():
         ins = [t.detach().requires_grad_() for t in (a[0], a[2], *a[3:])]
         out = wn_group_plain(ins[0], a[1], *ins[1:])
         t_p = cuda_ms(lambda: torch.autograd.grad(out, ins, (d_xo, d_sk), retain_graph=True))
-    # reads the fp32 saves, bf16 cotangents, mask and weights; writes bf16 d_x and gradients
-    nbytes = (4.0 * L * B * T * 3 * H + 2.0 * (3 * B * T * H + B * T + B * L * 2 * H)
+    # reads x_i (bf16) and x_in (fp32), bf16 cotangents, mask and weights;
+    # writes bf16 d_x and the gradients
+    nbytes = (2.0 * L * B * T * H + 4.0 * L * B * T * 2 * H
+              + 2.0 * (3 * B * T * H + B * T + B * L * 2 * H)
               + 2.0 * 2 * (L * (k + 1) * H * 2 * H + 2 * L * 2 * H))
     stats["wn_group_backward_bf16"] = dict(
-        max_abs_err=max(errs), ms=t_k, plain_ms=t_p, shape=[B, T, H, L, k],
+        max_abs_err=max(errs), ms=t_k, plain_ms=t_p, fp32_ms=t_32, shape=[B, T, H, L, k],
+        kernels_per_call=per_call,
         bound=bf16_bound("wn_group_backward bf16", 2 * flops, nbytes, card))
-    log(f"  wn_group_backward bf16 B={B} T={T} gl: kernel {t_k:.3f} ms, plain (autograd of the "
-        f"plain group in bf16) {t_p:.3f} ms [{card}]")
+    log(f"  wn_group_backward bf16 B={B} T={T} gl: kernel {t_k:.3f} ms (turns "
+        f"{', '.join(f'{v:.3f}' for v in turns['bf16'])}), the fp32 kernel on the same values "
+        f"{t_32:.3f} ms (turns {', '.join(f'{v:.3f}' for v in turns['fp32'])}), plain "
+        f"(autograd of the plain group in bf16) {t_p:.3f} ms [{card}]")
     return stats
 
 
@@ -4101,6 +4131,39 @@ def taco_serving_phase(device, card: str, tmp: str):
     return launches
 
 
+def kernels_in(fn):
+    """The device kernels one fn() call launches: fn captured into a CUDA
+    graph (never replayed), its kernel nodes counted through the driver
+    API; None where that fails (logged). (torch.profiler read no device
+    events of a single such call in this process on the card.)"""
+    import ctypes
+
+    import torch
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        torch.cuda.synchronize()
+        with torch.cuda.graph(graph):
+            fn()
+        cuda = ctypes.CDLL("libcuda.so.1")
+        handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+        if cuda.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+            raise RuntimeError("cuGraphGetNodes failed")
+        nodes = (ctypes.c_void_p * n.value)()
+        if cuda.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+            raise RuntimeError("cuGraphGetNodes failed")
+        kind, count = ctypes.c_int(), 0
+        for node in nodes:
+            if cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+                raise RuntimeError("cuGraphNodeGetType failed")
+            count += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+        graph.reset()
+        return count
+    except Exception as e:  # the count is a report, not a check
+        log(f"  kernels_in: not measured ({type(e).__name__}: {e})")
+        return None
+
+
 def profile_step(fn):
     """(device busy ms, device operations: kernels and copies, host ms) of
     one fn() call, its busy time by torch.profiler tracing the device alone
@@ -4431,10 +4494,10 @@ def main():
                             "torch_tts_tpu/kernels/wn_stack.py:156"),
                "wn_group_backward": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
                                      "torch_tts_tpu/kernels/wn_stack.py:330"),
-               # the bf16 variants of the same TPU kernels (bf16 training)
-               "wn_group_bf16": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
+               # the bf16 kernels for the same TPU kernels (bf16 training)
+               "wn_group_bf16": ("torch_tts_tpu_torch/csrc/wn_stack_bf16.cu",
                                  "torch_tts_tpu/kernels/wn_stack.py:156"),
-               "wn_group_backward_bf16": ("torch_tts_tpu_torch/csrc/wn_stack.cu",
+               "wn_group_backward_bf16": ("torch_tts_tpu_torch/csrc/wn_stack_bf16.cu",
                                           "torch_tts_tpu/kernels/wn_stack.py:330"),
                "maximum_path": ("torch_tts_tpu_torch/csrc/mas.cu",
                                 "torch_tts_tpu/kernels/mas_pallas.py:77"),
@@ -4463,7 +4526,7 @@ def main():
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],
                     plain_ms=stats[n]["plain_ms"], bound_ms=stats[n]["bound"][0],
                     bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"),
-                    **{k: v for k, v in stats[n].items() if k in INT8_FIELDS})
+                    **{k: v for k, v in stats[n].items() if k in INT8_FIELDS + BF16_FIELDS})
                for n, (src, rep) in sources.items()]
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; total {time.perf_counter() - t0:.1f} s with the build")

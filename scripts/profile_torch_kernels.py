@@ -1,5 +1,5 @@
 """Time the MRF bank, STFT+log-mel, Taco2Prod step, WN group forward and
-backward, and MAS kernels of torch_tts_tpu_torch on one NVIDIA GPU, through
+backward (fp32 and bf16), and MAS kernels of torch_tts_tpu_torch on one NVIDIA GPU, through
 their public entry points only, so the same script times an older checkout
 of the package too (run it from that checkout's root with this file's
 path).
@@ -25,6 +25,12 @@ path).
 - WN group backward (`wn_group_backward` from the saving forward's
   saves) at the train shape: B=8, T=1000, H=192, L=4, k=5, median over
   CUDA events.
+- The bf16 WN kernels (bf16 training) at the same shape, with per-layer gl
+  and ragged lengths: the saving forward and the backward, a call (median
+  over CUDA events around it) and 20 calls back to back (median of 3),
+  the fp32 kernels on the same values beside them; and the device time of
+  each kernel that one bf16 backward and saving forward launch
+  (torch.profiler over 20 calls).
 - MAS (`maximum_path`) at the train shape [8, 1000, 192], random lengths:
   median over CUDA events around the call (the wrapper's masking
   included), and the device time of the kernel alone (torch.profiler,
@@ -138,6 +144,21 @@ def kernel_busy_ms(fn, name, calls=20):
                if e.device_type == cuda and name in e.key) / 1e3 / calls
 
 
+def kernel_split(fn, calls=20):
+    """(kernel name, launches a call, device ms a call) of every kernel
+    fn() launches, the largest first."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [(e.key, e.count / calls, e.self_device_time_total / 1e3 / calls)
+            for e in prof.key_averages() if e.device_type == cuda]
+    return sorted(rows, key=lambda r: -r[2])
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_kernels: needs a CUDA device")
@@ -212,6 +233,31 @@ def main():
     t = cuda_ms(lambda: wn_stack.wn_group_backward(*args, d_xo, d_sk, saved=saved))
     print(f"wn_group_backward B={B} T={T} H={H} L={L}: kernel {t:.3f} ms [{card}]", flush=True)
     res["wn_group_backward"] = t
+
+    lengths = torch.tensor([T - 37 * i for i in range(B)])
+    mask32 = (torch.arange(T)[None, :] < lengths[:, None]).float()[:, :, None].to(dev)
+    a32 = (args[0], mask32, randn(B, L, 2 * H), *args[3:])
+    a16 = tuple(t.bfloat16().contiguous() for t in a32)
+    a32 = tuple(t.float() for t in a16)  # the same values in both
+    d16 = (d_xo.bfloat16(), d_sk.bfloat16())
+    d32 = tuple(t.float() for t in d16)
+    sv16, sv32 = (wn_stack._forward_cuda(*a, save=True)[2] for a in (a16, a32))
+    calls = {"bf16 saving forward": lambda: wn_stack._forward_cuda(*a16, save=True),
+             "fp32 saving forward": lambda: wn_stack._forward_cuda(*a32, save=True),
+             "bf16 backward": lambda: wn_stack.wn_group_backward(*a16, *d16, saved=sv16),
+             "fp32 backward": lambda: wn_stack.wn_group_backward(*a32, *d32, saved=sv32)}
+    for name, fn in calls.items():
+        t, t_b2b = cuda_ms(fn), batched_ms(fn, n=20)
+        print(f"wn_group {name} B={B} T={T} gl: a call {t:.4f} ms, back to back {t_b2b:.4f} ms "
+              f"[{card}]", flush=True)
+        res[f"wn_group {name}"] = dict(call_ms=t, back_to_back_ms=t_b2b)
+    for name in ("bf16 backward", "bf16 saving forward"):
+        rows = kernel_split(calls[name])
+        print(f"wn_group {name}: {sum(r[1] for r in rows):g} kernels, "
+              f"{sum(r[2] for r in rows):.4f} ms of device time a call [{card}]", flush=True)
+        for key, n, ms in rows:
+            print(f"  {key[:90]}: {n:g} a call, {ms:.4f} ms", flush=True)
+        res[f"wn_group {name} by kernel"] = rows
 
     B, T_y, T_x = 8, 1000, 192
     t_ys = torch.randint(T_y // 2, T_y + 1, (B,), generator=g)

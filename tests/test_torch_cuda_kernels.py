@@ -245,41 +245,55 @@ def _assert_peak_close(name, got, want, rtol):
     assert err <= rtol * peak, f"{name}: max abs error {err:.3e} > {rtol:.2e} x {peak:.3e}"
 
 
+# the bf16 kernels' cases: the train shape with ragged lengths, T not a
+# multiple of the window's 112 frames, T shorter than the halo, the widest
+# kernel, B=1, k=3 and 7, a one-layer group
+WN_BF16_CASES = (
+    (2, 1000, 4, 5), (3, 77, 4, 5), (2, 5, 4, 5), (2, 300, 4, 15), (1, 300, 4, 5),
+    (2, 130, 1, 3), (1, 200, 3, 7),
+)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster,B,T,L,k", [
-    (cluster, *case) for cluster in wn.FORWARD_CLUSTERS for case in WN_FORWARD_CASES
-    if wn.forward_smem_bytes(cluster, case[3]) <= wn.SMEM_BYTES])
-def test_wn_bf16_forward_matches_plain(cuda_device, cluster, B, T, L, k):
-    """The bf16 forward (each cluster size, gl, ragged lengths, with and
-    without saves) against the plain group in bf16 and the fp32 plain group
-    on the same bf16 values; bf16 outputs, fp32 saves, a bf16 launch count."""
-    frames = wn.WINDOW - 2 * L * ((k - 1) // 2)
+@pytest.mark.parametrize("B,T,L,k", WN_BF16_CASES)
+def test_wn_bf16_forward_matches_plain(cuda_device, B, T, L, k):
+    """The bf16 forward (its one plan, gl, ragged lengths, with and without
+    saves) against the plain group in bf16 and the fp32 plain group on the
+    same bf16 values; bf16 outputs, the saves in `save_dtypes` (x_i bf16,
+    x_in fp32), a bf16 launch count, the same bits twice; another plan
+    raises."""
     g = torch.Generator().manual_seed(B * T + k + 1)
     args = _bf16(_wn_args(g, cuda_device, B, T, 192, L, k=k, with_gl=True))
     want, want32 = wn_group_plain(*args), wn_group_plain(*_widened(args))
     want_x, want_xin = _plain_layer_saves(*_widened(args))
-    p = wn.ForwardPlan(cluster, frames, B * -(-T // frames))
     for save in (False, True):
         before = (wn_group.launches, wn_group.launches_bf16)
-        x_out, skip, saved = wn._forward_cuda(*args, save=save, plan=p)
+        x_out, skip, saved = wn._forward_cuda(*args, save=save)
         assert (wn_group.launches, wn_group.launches_bf16) == (before[0], before[1] + 1)
         for name, a, b, b32 in zip(("x_out", "skip"), (x_out, skip), want, want32):
             assert a.dtype == torch.bfloat16
             _assert_peak_close(name, a, b, BF16_RTOL)
             _assert_peak_close(name + " (fp32 plain)", a, b32, BF16_FP32_RTOL)
+        again = wn._forward_cuda(*args, save=save)
+        assert torch.equal(x_out, again[0]) and torch.equal(skip, again[1])
         if save:
-            assert saved[0].dtype == saved[1].dtype == torch.float32
+            assert (saved[0].dtype, saved[1].dtype) == wn.save_dtypes(torch.bfloat16)
             _assert_peak_close("x_i", saved[0], want_x, BF16_FP32_RTOL)
             _assert_peak_close("x_in", saved[1], want_xin, BF16_FP32_RTOL)
+            assert torch.equal(saved[0], again[2][0]) and torch.equal(saved[1], again[2][1])
+    with pytest.raises(ValueError):
+        wn._forward_cuda(*args, save=False, plan=wn.ForwardPlan(4, 48, B * -(-T // 48)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,L,with_gl", [(8, 1000, 4, True), (3, 77, 3, False), (1, 5, 2, True)])
-def test_wn_bf16_backward_matches_plain(cuda_device, B, T, L, with_gl):
+@pytest.mark.parametrize("B,T,L,k,with_gl", [
+    (8, 1000, 4, 5, True), (3, 77, 3, 5, False), (1, 5, 2, 5, True), (1, 300, 4, 3, True),
+    (2, 130, 1, 7, False)])
+def test_wn_bf16_backward_matches_plain(cuda_device, B, T, L, k, with_gl):
     """The bf16 backward against autograd of the plain group in bf16 and in
     fp32 on the same values; every gradient bf16; the same bits twice."""
     g = torch.Generator().manual_seed(B * T + L + 1)
-    args = _bf16(_wn_args(g, cuda_device, B, T, 192, L, with_gl=with_gl))
+    args = _bf16(_wn_args(g, cuda_device, B, T, 192, L, k=k, with_gl=with_gl))
     d_xo, d_sk = (_randn(g, cuda_device, B, T, 192).bfloat16() for _ in range(2))
     before = (wn_group_backward.launches, wn_group_backward.launches_bf16)
     got = wn_group_backward(*args, d_xo, d_sk)

@@ -64,63 +64,16 @@
 //   channels, for the backward.
 // - Window positions outside [0, T) load as zero with mask 0, which
 //   reproduces the reference's zero padding.
-//
-// The bf16 variant (bf16 training: x, mask, gl, the weights and biases
-// bf16; tts_wn_group_forward_bf16) is the same kernel with BF = true: the
-// x window and acts stay fp32 in shared memory (the residual and the skip
-// sums are fp32 through the group, as the TPU kernel's are), the A
-// fragments are rounded to bf16 as they are loaded, the weights are
-// packed once a call into bf16 K-major tiles (pack_weights_bf16_kernel),
-// and each 16-deep step is one wgmma bf16 product with fp32 accumulation
-// (wgmma_bf16.cuh), not three. x_out and skip are stored in bf16, the
-// saves for the backward in fp32. Bound at the flows' training shape (B=8,
-// T=1000, H=192, L=4, k=5): about 28.3 GFLOP, 0.029 ms at bf16's 989
-// TFLOP/s.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
-#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
 
 using namespace tts_wgmma;
-
-// The bf16 variants' tensors are 2-byte bf16 (uint16_t here); fp32 inside.
-// Loads widen to fp32, stores round to nearest even.
-__device__ __forceinline__ float bf16_to_f(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ uint16_t f_to_bf16(float v) {
-  unsigned short r;
-  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(r) : "f"(v));
-  return r;
-}
-__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld1(const uint16_t* p) { return bf16_to_f(__ldg(p)); }
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-__device__ __forceinline__ float2 ld2(const uint16_t* p) {
-  const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(p));
-  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ld4(const uint16_t* p) {
-  const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
-                     __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
-}
-__device__ __forceinline__ void st2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
-__device__ __forceinline__ void st2(uint16_t* p, float2 v) {
-  *reinterpret_cast<uint32_t*>(p) = pack_bf16(v.x, v.y);
-}
-
-template <bool BF>
-using Elem = typename std::conditional<BF, uint16_t, float>::type;
 
 constexpr int kMaxTaps = 15;
 constexpr int kPad = 4;            // floats of padding per shared-memory row of x and acts
@@ -149,17 +102,15 @@ __device__ __forceinline__ void cluster_sync() {
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// x, mask, gl, b_in, b_rs, x_out and skip_out are fp32, or bf16 in the bf16
-// variant; the saves are fp32 in both
 struct WnFwdArgs {
-  const void* x;
-  const void* mask;
-  const void* gl;  // or null
-  const void* b_in;
-  const void* b_rs;
-  float* wsplit;  // the weights' chunks: split (fp32) or packed (bf16)
-  void* x_out;
-  void* skip_out;
+  const float* x;
+  const float* mask;
+  const float* gl;  // or null
+  const float* b_in;
+  const float* b_rs;
+  float* wsplit;  // the weights' chunks, split (split_weights_kernel)
+  float* x_out;
+  float* skip_out;
   float* save_x;    // [L, B, T, H] or null
   float* save_xin;  // [L, B, T, 2H] or null
   int B, T, L, k, T0;
@@ -217,37 +168,6 @@ split_weights_kernel(const float* __restrict__ w_in, const float* __restrict__ w
   }
 }
 
-// The bf16 variant's weights as its ring holds them: for chunk s and rank r,
-// TILE bf16 (kmajor_offset_bf16<NCTA>, the columns as split_weights_kernel
-// orders them) at out + (s C + r) TILE. One thread copies 8 rows of one
-// column (16 bytes).
-template <int H, int NC>
-__global__ void __launch_bounds__(256)
-pack_weights_bf16_kernel(const uint16_t* __restrict__ w_in, const uint16_t* __restrict__ w_rs,
-                         uint16_t* __restrict__ out, int L, int k) {
-  using S = FwdShape<H, NC>;
-  constexpr int C = S::C, NCTA = S::NCTA, KC = S::KC, TILE = S::TILE;
-  constexpr int H2 = 2 * H, CPK = H / KC;
-  const int per_layer = (k + 1) * CPK, conv_chunks = k * CPK;
-  const long long total = (long long)L * per_layer * C * (KC / 8) * NCTA;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const int n = (int)(i % NCTA), k8 = (int)(i / NCTA % (KC / 8));
-    const long long sr = i / NCTA / (KC / 8);  // s * C + r
-    const int r = (int)(sr % C), s = (int)(sr / C);
-    const int l = s / per_layer, c = s - l * per_layer;
-    const int col = n / NC * H + r * NC + n % NC;
-    const uint16_t* w = c < conv_chunks ? w_in + ((size_t)l * k * H + c * KC) * H2
-                                        : w_rs + ((size_t)l * H + (c - conv_chunks) * KC) * H2;
-    uint16_t v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __ldg(w + (size_t)(8 * k8 + e) * H2 + col);
-    *reinterpret_cast<uint4*>(out + sr * TILE + kmajor_offset_bf16<NCTA>(8 * k8, n)) =
-        make_uint4(v[0] | (uint32_t)v[1] << 16, v[2] | (uint32_t)v[3] << 16,
-                   v[4] | (uint32_t)v[5] << 16, v[6] | (uint32_t)v[7] << 16);
-  }
-}
-
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
 }
@@ -272,10 +192,9 @@ __device__ __forceinline__ void bulk_load(float* dst, const float* src, uint32_t
       : "memory");
 }
 
-template <int H, int NC, bool SAVE, bool BF>
+template <int H, int NC, bool SAVE>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
-  using E = Elem<BF>;
   using S = FwdShape<H, NC>;
   constexpr int C = S::C, W = S::W, NCTA = S::NCTA, KC = S::KC, TILE = S::TILE;
   constexpr int SLOTS = S::SLOTS;
@@ -296,10 +215,8 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
 
   extern __shared__ __align__(128) float smem[];
   float* ring = smem;                              // SLOTS x (hi, lo) x TILE
-  // [W + 2p, HP] tf32 hi (bf16 variant: the fp32 value), and lo (unused in
-  // the bf16 variant); row i holds window row i - p
-  uint32_t* xh = reinterpret_cast<uint32_t*>(ring + 2 * SLOTS * TILE);
-  uint32_t* xl = xh + (W + 2 * p) * HP;
+  uint32_t* xh = reinterpret_cast<uint32_t*>(ring + 2 * SLOTS * TILE);  // [W + 2p, HP] tf32 hi
+  uint32_t* xl = xh + (W + 2 * p) * HP;            // ... and lo; row i holds window row i - p
   float* acts = reinterpret_cast<float*>(xl + (W + 2 * p) * HP);  // [W, HP]
   float* ms = acts + W * HP;                       // [W]
   uint64_t* full = reinterpret_cast<uint64_t*>(ms + W);  // [SLOTS]
@@ -308,12 +225,8 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
   // issued by thread 0 two chunks ahead
   const int per_layer = (k + 1) * CPK, conv_chunks = k * CPK, total = L * per_layer;
   auto issue = [&](int s) {
-    if constexpr (BF)  // TILE bf16 a chunk
-      bulk_load(ring + (s % SLOTS) * 2 * TILE, a.wsplit + ((size_t)s * C + rank) * TILE / 2,
-                TILE * sizeof(uint16_t), full + s % SLOTS);
-    else
-      bulk_load(ring + (s % SLOTS) * 2 * TILE, a.wsplit + ((size_t)s * C + rank) * 2 * TILE,
-                2 * TILE * sizeof(float), full + s % SLOTS);
+    bulk_load(ring + (s % SLOTS) * 2 * TILE, a.wsplit + ((size_t)s * C + rank) * 2 * TILE,
+              2 * TILE * sizeof(float), full + s % SLOTS);
   };
   if (tid == 0) {
     for (int i = 0; i < SLOTS; ++i) mbar_init(full + i);
@@ -324,54 +237,34 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
   // --- the x window, split into TF32 hi and lo (zero outside [0, T) and in
   // the pad rows), and the mask
   {
-    const E* xb = static_cast<const E*>(a.x) + (size_t)b * T * H;
+    const float* xb = a.x + (size_t)b * T * H;
     for (int i = tid; i < (W + 2 * p) * H4; i += kFwdThreads) {
       const int row = i / H4, pos = win_start + row - p;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row >= p && row < W + p && pos >= 0 && pos < T) v = ld4(xb + (size_t)pos * H + 4 * (i % H4));
-      if constexpr (BF) {
-        reinterpret_cast<float4*>(xh)[row * HP4 + i % H4] = v;
-      } else {
-        uint4 h, l;
-        split_tf32(v.x, h.x, l.x);
-        split_tf32(v.y, h.y, l.y);
-        split_tf32(v.z, h.z, l.z);
-        split_tf32(v.w, h.w, l.w);
-        reinterpret_cast<uint4*>(xh)[row * HP4 + i % H4] = h;
-        reinterpret_cast<uint4*>(xl)[row * HP4 + i % H4] = l;
-      }
+      if (row >= p && row < W + p && pos >= 0 && pos < T)
+        v = __ldg(reinterpret_cast<const float4*>(xb + (size_t)pos * H) + i % H4);
+      uint4 h, l;
+      split_tf32(v.x, h.x, l.x);
+      split_tf32(v.y, h.y, l.y);
+      split_tf32(v.z, h.z, l.z);
+      split_tf32(v.w, h.w, l.w);
+      reinterpret_cast<uint4*>(xh)[row * HP4 + i % H4] = h;
+      reinterpret_cast<uint4*>(xl)[row * HP4 + i % H4] = l;
     }
-    const E* mask = static_cast<const E*>(a.mask);
     for (int r = tid; r < W; r += kFwdThreads) {
       const int pos = win_start + r;
-      ms[r] = (pos >= 0 && pos < T) ? ld1(mask + (size_t)b * T + pos) : 0.f;
+      ms[r] = (pos >= 0 && pos < T) ? __ldg(a.mask + (size_t)b * T + pos) : 0.f;
     }
   }
 
   // --- A fragments: the conv's from the split x window shifted by the tap,
   // the 1x1's from acts, split as loaded. Two sets, so chunk s + 1's load
-  // while chunk s's products run. The bf16 variant rounds both to bf16
-  // pairs, its k16 step kk in h[kk] (l unused).
+  // while chunk s's products run.
   using Frag = uint32_t[KC / 8][4];
   Frag ah0, al0, ah1, al1;
   auto fetch_a = [&](int s, Frag& h, Frag& l) {
     const int c = s % per_layer;
-    if constexpr (BF) {
-      const float* x0 = c < conv_chunks
-          ? reinterpret_cast<const float*>(xh) + (m0 + g + c / CPK) * HP + (c % CPK) * KC + 2 * t4
-          : acts + (m0 + g) * HP + (c - conv_chunks) * KC + 2 * t4;
-      auto pair = [&](int o) {
-        const float2 v = *reinterpret_cast<const float2*>(x0 + o);
-        return pack_bf16(v.x, v.y);
-      };
-#pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk) {
-        h[kk][0] = pair(16 * kk);
-        h[kk][1] = pair(16 * kk + 8 * HP);
-        h[kk][2] = pair(16 * kk + 8);
-        h[kk][3] = pair(16 * kk + 8 * HP + 8);
-      }
-    } else if (c < conv_chunks) {
+    if (c < conv_chunks) {
       const int o = (m0 + g + c / CPK) * HP + (c % CPK) * KC + t4;  // row r + tap
 #pragma unroll
       for (int kk = 0; kk < KC / 8; ++kk) {
@@ -401,19 +294,12 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
 #pragma unroll
     for (int e = 0; e < NR; ++e) keep(acc[e]);
     wgmma_fence();
-    if constexpr (BF) {
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk)
-        wgmma_bf16<NCTA>(acc, h[kk],
-                         kmajor_desc_bf16<NCTA>(reinterpret_cast<const uint16_t*>(b_hi), kk));
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < KC / 8; ++kk) {
-        const uint64_t dh = kmajor_desc<NCTA>(b_hi, kk), dl = kmajor_desc<NCTA>(b_hi + TILE, kk);
-        wgmma_tf32<NCTA>(acc, l[kk], dh);
-        wgmma_tf32<NCTA>(acc, h[kk], dl);
-        wgmma_tf32<NCTA>(acc, h[kk], dh);
-      }
+    for (int kk = 0; kk < KC / 8; ++kk) {
+      const uint64_t dh = kmajor_desc<NCTA>(b_hi, kk), dl = kmajor_desc<NCTA>(b_hi + TILE, kk);
+      wgmma_tf32<NCTA>(acc, l[kk], dh);
+      wgmma_tf32<NCTA>(acc, h[kk], dl);
+      wgmma_tf32<NCTA>(acc, h[kk], dh);
     }
     wgmma_commit();
     if (more) fetch_a(s + 1, nh, nl);
@@ -421,12 +307,9 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
 #pragma unroll
     for (int e = 0; e < NR; ++e) keep(acc[e]);
 #pragma unroll
-    for (int kk = 0; kk < (BF ? KC / 16 : KC / 8); ++kk)
+    for (int kk = 0; kk < KC / 8; ++kk)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        keep(h[kk][e]);
-        if constexpr (!BF) keep(l[kk][e]);
-      }
+      for (int e = 0; e < 4; ++e) { keep(h[kk][e]); keep(l[kk][e]); }
     __syncthreads();  // no warpgroup reads slot s % SLOTS any more
     if (tid == 0 && s + SLOTS < total) issue(s + SLOTS);
   };
@@ -464,8 +347,7 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
         const int r = i / (NC / 4), pos = tile * T0 + r, c4 = rank * (NC / 4) + i % (NC / 4);
         if (pos < T) {
           const uint4 h = reinterpret_cast<const uint4*>(xh + (halo + r + p) * HP)[c4];
-          const uint4 lo = BF ? make_uint4(0u, 0u, 0u, 0u)
-                              : reinterpret_cast<const uint4*>(xl + (halo + r + p) * HP)[c4];
+          const uint4 lo = reinterpret_cast<const uint4*>(xl + (halo + r + p) * HP)[c4];
           reinterpret_cast<float4*>(sx + (size_t)pos * H)[c4] = make_float4(
               __uint_as_float(h.x) + __uint_as_float(lo.x), __uint_as_float(h.y) + __uint_as_float(lo.y),
               __uint_as_float(h.z) + __uint_as_float(lo.z), __uint_as_float(h.w) + __uint_as_float(lo.w));
@@ -478,17 +360,16 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
     for (int e = 0; e < NR; ++e) acc_c[e] = 0.f;
     run(acc_c, s0, conv_chunks);
     {
-      const E* bl = static_cast<const E*>(a.b_in) + l * H2;
-      const E* gll = a.gl != nullptr ? static_cast<const E*>(a.gl) + ((size_t)b * L + l) * H2
-                                     : nullptr;
+      const float* bl = a.b_in + l * H2;
+      const float* gll = a.gl != nullptr ? a.gl + ((size_t)b * L + l) * H2 : nullptr;
 #pragma unroll
       for (int j = 0; j < J2; ++j) {
         const int ch = ch0 + 8 * j + 2 * t4;
-        float2 bt = ld2(bl + ch);
-        float2 bs = ld2(bl + H + ch);
+        float2 bt = __ldg(reinterpret_cast<const float2*>(bl + ch));
+        float2 bs = __ldg(reinterpret_cast<const float2*>(bl + H + ch));
         if (gll != nullptr) {
-          const float2 gt = ld2(gll + ch);
-          const float2 gs = ld2(gll + H + ch);
+          const float2 gt = __ldg(reinterpret_cast<const float2*>(gll + ch));
+          const float2 gs = __ldg(reinterpret_cast<const float2*>(gll + H + ch));
           bt.x += gt.x; bt.y += gt.y; bs.x += gs.x; bs.y += gs.y;
         }
 #pragma unroll
@@ -520,28 +401,25 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
     run(acc_r, s0 + conv_chunks, CPK);
     {
       const bool last = l == L - 1;
-      const E* br = static_cast<const E*>(a.b_rs) + l * H2;
+      const float* br = a.b_rs + l * H2;
 #pragma unroll
       for (int j = 0; j < J2; ++j) {
         const int ch = ch0 + 8 * j + 2 * t4;
-        const float2 bias = ld2(br + ch);
+        const float2 bias = __ldg(reinterpret_cast<const float2*>(br + ch));
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = m0 + g + 8 * h;
           const float m = ms[r];
           const int o = (r + p) * HP + ch;
           const uint2 xhv = *reinterpret_cast<const uint2*>(xh + o);
-          const uint2 xlv = BF ? make_uint2(0u, 0u) : *reinterpret_cast<const uint2*>(xl + o);
+          const uint2 xlv = *reinterpret_cast<const uint2*>(xl + o);
           const float2 v = make_float2(
               (__uint_as_float(xhv.x) + __uint_as_float(xlv.x) + (acc_r[4 * j + 2 * h] + bias.x)) * m,
               (__uint_as_float(xhv.y) + __uint_as_float(xlv.y) + (acc_r[4 * j + 2 * h + 1] + bias.y)) * m);
           if (last) {
             const int pos = win_start + r;
             if (r >= halo && r < halo + T0 && pos < T)
-              st2(static_cast<E*>(a.x_out) + ((size_t)b * T + pos) * H + ch, v);
-          } else if constexpr (BF) {
-#pragma unroll
-            for (int q = 0; q < C; ++q) st_cluster(xh_at[q] + o * 4u, v);
+              *reinterpret_cast<float2*>(a.x_out + ((size_t)b * T + pos) * H + ch) = v;
           } else {
             uint32_t h0, l0, h1, l1;
             split_tf32(v.x, h0, l0);
@@ -566,7 +444,7 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
     const int ch = ch0 + 8 * j + 2 * t4;
     float2 bias = make_float2(0.f, 0.f);
     for (int l = 0; l < L; ++l) {
-      const float2 v = ld2(static_cast<const E*>(a.b_rs) + l * H2 + H + ch);
+      const float2 v = __ldg(reinterpret_cast<const float2*>(a.b_rs + l * H2 + H + ch));
       bias.x += v.x;
       bias.y += v.y;
     }
@@ -575,9 +453,9 @@ wn_fwd_kernel(const __grid_constant__ WnFwdArgs a) {
       const int r = m0 + g + 8 * h, pos = win_start + r;
       if (r < halo || r >= halo + T0 || pos >= T) continue;
       const float m = ms[r];
-      st2(static_cast<E*>(a.skip_out) + ((size_t)b * T + pos) * H + ch,
+      *reinterpret_cast<float2*>(a.skip_out + ((size_t)b * T + pos) * H + ch) =
           make_float2((acc_r[4 * (j + J2) + 2 * h] + bias.x) * m,
-                      (acc_r[4 * (j + J2) + 2 * h + 1] + bias.y) * m));
+                      (acc_r[4 * (j + J2) + 2 * h + 1] + bias.y) * m);
     }
   }
 }
@@ -599,44 +477,37 @@ cudaLaunchConfig_t fwd_config(const WnFwdArgs& a, cudaStream_t stream, cudaLaunc
   return cfg;
 }
 
-// splits (bf16: packs) the weights into a.wsplit, then launches the forward
-// (max_clusters null); or writes how many of its clusters the card can hold
-// at once (cudaOccupancyMaxActiveClusters)
-template <int H, int NC, bool SAVE, bool BF>
-cudaError_t launch_fwd(const WnFwdArgs& a, const void* w_in, const void* w_rs,
+// splits the weights into a.wsplit, then launches the forward (max_clusters
+// null); or writes how many of its clusters the card can hold at once
+// (cudaOccupancyMaxActiveClusters)
+template <int H, int NC, bool SAVE>
+cudaError_t launch_fwd(const WnFwdArgs& a, const float* w_in, const float* w_rs,
                        cudaStream_t stream, int* max_clusters) {
-  const auto kernel = wn_fwd_kernel<H, NC, SAVE, BF>;
+  const auto kernel = wn_fwd_kernel<H, NC, SAVE>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)FwdShape<H, NC>::smem_bytes(a.k));
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = fwd_config<H, NC>(a, stream, attr);
   if (max_clusters != nullptr) return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
-  if constexpr (BF)
-    pack_weights_bf16_kernel<H, NC><<<4 * 132, 256, 0, stream>>>(
-        static_cast<const uint16_t*>(w_in), static_cast<const uint16_t*>(w_rs),
-        reinterpret_cast<uint16_t*>(a.wsplit), a.L, a.k);
-  else
-    split_weights_kernel<H, NC><<<4 * 132, 256, 0, stream>>>(
-        static_cast<const float*>(w_in), static_cast<const float*>(w_rs), a.wsplit, a.L, a.k);
+  split_weights_kernel<H, NC><<<4 * 132, 256, 0, stream>>>(w_in, w_rs, a.wsplit, a.L, a.k);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&cfg, kernel, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int NC, bool BF>
-cudaError_t launch_fwd_plan(const WnFwdArgs& a, const void* w_in, const void* w_rs, bool save,
+template <int NC>
+cudaError_t launch_fwd_plan(const WnFwdArgs& a, const float* w_in, const float* w_rs, bool save,
                             cudaStream_t stream, int* max_clusters) {
-  return save ? launch_fwd<192, NC, true, BF>(a, w_in, w_rs, stream, max_clusters)
-              : launch_fwd<192, NC, false, BF>(a, w_in, w_rs, stream, max_clusters);
+  return save ? launch_fwd<192, NC, true>(a, w_in, w_rs, stream, max_clusters)
+              : launch_fwd<192, NC, false>(a, w_in, w_rs, stream, max_clusters);
 }
 
 // the cluster sizes the wrapper may pick
-template <bool BF>
-cudaError_t launch_forward(const WnFwdArgs& a, const void* w_in, const void* w_rs, int cluster,
+cudaError_t launch_forward(const WnFwdArgs& a, const float* w_in, const float* w_rs, int cluster,
                            bool save, cudaStream_t stream, int* max_clusters) {
-  if (cluster == 3) return launch_fwd_plan<64, BF>(a, w_in, w_rs, save, stream, max_clusters);
-  if (cluster == 4) return launch_fwd_plan<48, BF>(a, w_in, w_rs, save, stream, max_clusters);
+  if (cluster == 3) return launch_fwd_plan<64>(a, w_in, w_rs, save, stream, max_clusters);
+  if (cluster == 4) return launch_fwd_plan<48>(a, w_in, w_rs, save, stream, max_clusters);
   return cudaErrorInvalidValue;
 }
 
@@ -690,18 +561,6 @@ cudaError_t launch_forward(const WnFwdArgs& a, const void* w_in, const void* w_r
 // - Launches per layer: ActsGrad; InputGrad, WeightInGrad and
 //   WeightRsGrad together (one grid, CTAs assigned to problems by index);
 //   the two reductions together. 3 per layer, 12 per group of 4 layers.
-//
-// The bf16 variant (tts_wn_group_backward_bf16: mask, w_in, w_rs, d_xo,
-// d_sk and every gradient bf16, the forward's saves fp32) runs the same
-// problems with BF = true: A and B are rounded to bf16 as they are loaded
-// and staged, and each 16-deep step is one wgmma bf16 product with fp32
-// accumulation (wgmma_bf16.cuh), not three. Its inputs are widened to fp32
-// once (to_f32_kernel, into the workspace), the gradients between layers,
-// d_xin, acts and the per-item partial sums stay fp32, and the reductions
-// (split-K by item, summed in order as above) store the weight, bias and
-// conditioning gradients in bf16; d_x is rounded once at the end. About
-// 57 GFLOP at B=8, T=1000, H=192, k=5, L=4: 0.057 ms at bf16's 989
-// TFLOP/s.
 
 
 constexpr int kBwdThreads = 256;  // two warpgroups
@@ -848,105 +707,6 @@ __host__ __device__ constexpr int tiles_of(const P& p) {
   return p.items * tiles_m(p) * ((p.N + kBN - 1) / kBN);
 }
 
-// The bf16 variant of run_tile below: A is rounded to bf16 pairs in
-// registers as loaded, B to a K-major bf16 tile a slot as staged, and each
-// 16-deep step is one wgmma bf16 product with fp32 accumulation.
-template <class P>
-__device__ __forceinline__ void run_tile_bf16(const P& p, int z, int mt, int nt, float* ring) {
-  constexpr int NR = kBN / 2;                      // accumulator registers a thread
-  constexpr int B_TILE = kBK * kBN;                // bf16 of one staged B tile
-  constexpr int BP = kBN * kBK / 4 / kBwdThreads;  // B groups of 4 a thread
-  static_assert(BP * kBwdThreads * 4 == B_TILE, "chunk copy");
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int m0 = mt * kBM + (warp >> 2) * 64 + (warp & 3) * 16;  // this warp's 16 rows
-  const int n0 = nt * kBN;
-  const int nk = (p.K + kBK - 1) / kBK;
-  const typename P::Row r0 = p.row(z, m0 + g), r1 = p.row(z, m0 + g + 8);
-  uint16_t* slots = reinterpret_cast<uint16_t*>(ring);  // slot c & 1 at (c & 1) B_TILE
-
-  float an[kBK / 16][8];  // A of the next chunk, fp32, in fragment order
-  float4 bv[BP];  // B of the next chunk: group q is (k4, n) = ((q >> 3) & 7, 8 (q >> 6) + (q & 7))
-  auto fetch = [&](int c) {
-    const int k0 = c * kBK;
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const int o = 16 * kk + 2 * t4;
-      an[kk][0] = p.a(r0, k0, o);
-      an[kk][1] = p.a(r0, k0, o + 1);
-      an[kk][2] = p.a(r1, k0, o);
-      an[kk][3] = p.a(r1, k0, o + 1);
-      an[kk][4] = p.a(r0, k0, o + 8);
-      an[kk][5] = p.a(r0, k0, o + 9);
-      an[kk][6] = p.a(r1, k0, o + 8);
-      an[kk][7] = p.a(r1, k0, o + 9);
-    }
-#pragma unroll
-    for (int i = 0; i < BP; ++i) {
-      const int q = tid + i * kBwdThreads;
-      bv[i] = p.b4(z, k0 + 4 * ((q >> 3) & 7), n0 + ((q >> 6) << 3) + (q & 7));
-    }
-  };
-  auto stage_b = [&](uint16_t* tile) {  // four k of one column: 8 bytes a thread
-#pragma unroll
-    for (int i = 0; i < BP; ++i) {
-      const int q = tid + i * kBwdThreads;
-      const int o = kmajor_offset_bf16<kBN>(4 * ((q >> 3) & 7), ((q >> 6) << 3) + (q & 7));
-      *reinterpret_cast<uint2*>(tile + o) =
-          make_uint2(pack_bf16(bv[i].x, bv[i].y), pack_bf16(bv[i].z, bv[i].w));
-    }
-    fence_async_shared();
-  };
-  uint32_t ab[kBK / 16][4];
-  auto pack_a = [&] {
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ab[kk][e] = pack_bf16(an[kk][2 * e], an[kk][2 * e + 1]);
-  };
-
-  float acc[NR];
-#pragma unroll
-  for (int e = 0; e < NR; ++e) acc[e] = 0.f;
-  fetch(0);
-  stage_b(slots);
-  pack_a();
-  __syncthreads();
-  for (int c = 0; c < nk; ++c) {
-    const uint16_t* tile = slots + (c & 1) * B_TILE;
-#pragma unroll
-    for (int e = 0; e < NR; ++e) keep(acc[e]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) wgmma_bf16<kBN>(acc, ab[kk], kmajor_desc_bf16<kBN>(tile, kk));
-    wgmma_commit();
-    if (c + 1 < nk) {  // the next chunk, while the products run
-      fetch(c + 1);
-      stage_b(slots + ((c + 1) & 1) * B_TILE);
-    }
-    wgmma_wait0();
-#pragma unroll
-    for (int e = 0; e < NR; ++e) keep(acc[e]);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) keep(ab[kk][e]);
-    if (c + 1 < nk) pack_a();  // the products no longer read ab
-    __syncthreads();           // slot c & 1 is free; chunk c + 1's B is in place
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + g + 8 * h;
-    if (m >= p.M) continue;
-#pragma unroll
-    for (int j = 0; j < kBN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * t4;
-      if (n < p.N) p.store(z, m, n, acc[4 * j + 2 * h]);
-      if (n + 1 < p.N) p.store(z, m, n + 1, acc[4 * j + 2 * h + 1]);
-    }
-  }
-}
-
 // One 128 x 64 output tile of problem p for batch item z in 3xTF32. A is in
 // registers (wgmma's RS form): each thread loads its fragment rows through
 // the problem's row descriptors, so any shift, transpose or row of ones is
@@ -1056,7 +816,7 @@ __device__ __forceinline__ void run_tile(const P& p, int z, int mt, int nt, floa
 }
 
 // runs blockIdx.x's tile if it falls in p's range, else moves the index past it
-template <bool BF, class P>
+template <class P>
 __device__ __forceinline__ bool run_if_mine(const P& p, int& bid, float* ring) {
   const int n = tiles_of(p);
   if (bid >= n) {
@@ -1065,25 +825,22 @@ __device__ __forceinline__ bool run_if_mine(const P& p, int& bid, float* ring) {
   }
   const int tn = (p.N + kBN - 1) / kBN, per_item = tiles_m(p) * tn;
   const int z = bid / per_item, rem = bid - z * per_item;
-  if constexpr (BF)
-    run_tile_bf16(p, z, rem / tn, rem % tn, ring);
-  else
-    run_tile(p, z, rem / tn, rem % tn, ring);
+  run_tile(p, z, rem / tn, rem % tn, ring);
   return true;
 }
 
 // One grid over several problems: CTA i runs the i-th tile in order.
-template <bool BF, class... Ps>
+template <class... Ps>
 __global__ void __launch_bounds__(kBwdThreads, 2) tiles_kernel(Ps... ps) {
   extern __shared__ __align__(128) float ring[];
   int bid = blockIdx.x;
-  (run_if_mine<BF>(ps, bid, ring) || ...);
+  (run_if_mine(ps, bid, ring) || ...);
 }
 
-template <bool BF, class... Ps>
+template <class... Ps>
 cudaError_t launch_tiles(cudaStream_t stream, const Ps&... ps) {
   const size_t smem = (size_t)4 * kBN * kBK * sizeof(float);  // two slots of B's hi + lo
-  const auto kernel = tiles_kernel<BF, Ps...>;
+  const auto kernel = tiles_kernel<Ps...>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -1095,50 +852,31 @@ cudaError_t launch_tiles(cudaStream_t stream, const Ps&... ps) {
 // out_w[m, n] = sum_z part[z, m, n] for m < M - 1 (z in order); row M - 1
 // goes to out_b, and, when d_gl is given, each item's own row to
 // d_gl[z, layer]. blockIdx.y picks the reduction: 0 of WeightInGrad, 1 of
-// WeightRsGrad. The outputs are fp32, or bf16 (O = uint16_t).
-template <class O>
+// WeightRsGrad.
 struct Reduce {
   const float* part;
   int M;
-  O* out_w;
-  O* out_b;
-  O* d_gl;
+  float* out_w;
+  float* out_b;
+  float* d_gl;
 };
 
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(uint16_t* p, float v) { *p = f_to_bf16(v); }
-
-template <class O>
-__global__ void reduce_parts_kernel(const Reduce<O> ra, const Reduce<O> rb, int Z, int N,
-                                    int layer, int L) {
-  const Reduce<O>& r = blockIdx.y == 0 ? ra : rb;
+__global__ void reduce_parts_kernel(const Reduce ra, const Reduce rb, int Z, int N, int layer,
+                                    int L) {
+  const Reduce& r = blockIdx.y == 0 ? ra : rb;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= r.M * N) return;
   float s = 0.f;
   for (int z = 0; z < Z; ++z) s += r.part[(size_t)z * r.M * N + idx];
   const int m = idx / N, n = idx - (idx / N) * N;
   if (m < r.M - 1) {
-    store_out(r.out_w + idx, s);
+    r.out_w[idx] = s;
   } else {
-    store_out(r.out_b + n, s);
+    r.out_b[n] = s;
     if (r.d_gl != nullptr)
       for (int z = 0; z < Z; ++z)
-        store_out(r.d_gl + ((size_t)z * L + layer) * N + n, r.part[(size_t)z * r.M * N + idx]);
+        r.d_gl[((size_t)z * L + layer) * N + n] = r.part[(size_t)z * r.M * N + idx];
   }
-}
-
-// the bf16 variant's widening of its inputs and the rounding of d_x
-__global__ void to_f32_kernel(const uint16_t* __restrict__ src, float* __restrict__ dst,
-                              long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    dst[i] = bf16_to_f(src[i]);
-}
-__global__ void to_bf16_kernel(const float* __restrict__ src, uint16_t* __restrict__ dst,
-                               long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    dst[i] = f_to_bf16(src[i]);
 }
 
 }  // namespace
@@ -1164,39 +902,18 @@ extern "C" int tts_wn_group_forward(const float* x, const float* mask, const flo
   if (T0 < 1) return (int)cudaErrorInvalidValue;
   const WnFwdArgs a{x, mask, gl, b_in, b_rs, wsplit, x_out, skip_out, save_x, save_xin,
                     B, T, L, k, T0};
-  return (int)launch_forward<false>(a, w_in, w_rs, cluster, save_x != nullptr,
-                                    reinterpret_cast<cudaStream_t>(stream), nullptr);
+  return (int)launch_forward(a, w_in, w_rs, cluster, save_x != nullptr,
+                             reinterpret_cast<cudaStream_t>(stream), nullptr);
 }
 
-// The bf16 variant: x, mask, gl, w_in, b_in, w_rs, b_rs, x_out and
-// skip_out bf16 (the same layouts), save_x / save_xin fp32; wsplit holds
-// L (k + 1) H 2H bf16 (the wrapper's `split_weights_floats` for bf16).
-extern "C" int tts_wn_group_forward_bf16(const void* x, const void* mask, const void* gl,
-                                         const void* w_in, const void* b_in, const void* w_rs,
-                                         const void* b_rs, void* x_out, void* skip_out,
-                                         float* save_x, float* save_xin, float* wsplit, int B,
-                                         int T, int H, int L, int k, int cluster, void* stream) {
-  if (B < 1 || T < 1 || L < 1 || k < 1 || k % 2 == 0 || k > kMaxTaps || H != 192)
-    return (int)cudaErrorInvalidValue;
-  if ((save_x == nullptr) != (save_xin == nullptr)) return (int)cudaErrorInvalidValue;
-  const int T0 = kWindow - 2 * L * ((k - 1) / 2);
-  if (T0 < 1) return (int)cudaErrorInvalidValue;
-  const WnFwdArgs a{x, mask, gl, b_in, b_rs, wsplit, x_out, skip_out, save_x, save_xin,
-                    B, T, L, k, T0};
-  return (int)launch_forward<true>(a, w_in, w_rs, cluster, save_x != nullptr,
-                                   reinterpret_cast<cudaStream_t>(stream), nullptr);
-}
-
-// How many clusters of `cluster` CTAs of the forward (the bf16 variant's
-// when bf16 is not 0) for k taps the card holds at once -> *out. Returns
-// the CUDA error (0 on success).
-extern "C" int tts_wn_forward_max_clusters(int cluster, int k, int bf16, int* out) {
+// How many clusters of `cluster` CTAs of the forward for k taps the card
+// holds at once -> *out. Returns the CUDA error (0 on success).
+extern "C" int tts_wn_forward_max_clusters(int cluster, int k, int* out) {
   if (k < 1 || k % 2 == 0 || k > kMaxTaps || out == nullptr) return (int)cudaErrorInvalidValue;
   WnFwdArgs a{};
   a.B = a.T = a.T0 = a.L = 1;
   a.k = k;
-  return bf16 ? (int)launch_forward<true>(a, nullptr, nullptr, cluster, false, nullptr, out)
-              : (int)launch_forward<false>(a, nullptr, nullptr, cluster, false, nullptr, out);
+  return (int)launch_forward(a, nullptr, nullptr, cluster, false, nullptr, out);
 }
 
 // Backward of one group on `stream`, from the forward's save_x / save_xin
@@ -1232,91 +949,18 @@ extern "C" int tts_wn_group_backward(const float* mask, const float* w_in, const
     cudaError_t err;
 
     const ActsGrad pa{R, H, H2, 1, cur, d_sk, mask, w_rs_i, xin, d_xin, acts};
-    if ((err = launch_tiles<false>(s, pa)) != cudaSuccess) return (int)err;
+    if ((err = launch_tiles(s, pa)) != cudaSuccess) return (int)err;
 
     const InputGrad pi{R, H, k * H2, 1, T, pad, H2, d_xin, w_in_i, cur, mask, nxt};
     const WeightInGrad pw{Ma, H2, T, B, H, pad, xi, d_xin, part_a};
     const WeightRsGrad pr{Mb, H2, T, B, acts, cur, d_sk, mask, part_b};
-    if ((err = launch_tiles<false>(s, pi, pw, pr)) != cudaSuccess) return (int)err;
+    if ((err = launch_tiles(s, pi, pw, pr)) != cudaSuccess) return (int)err;
 
-    const Reduce<float> ra{part_a, Ma, d_w_in + (size_t)i * k * H * H2, d_b_in + (size_t)i * H2,
-                           d_gl};
-    const Reduce<float> rb{part_b, Mb, d_w_rs + (size_t)i * H * H2, d_b_rs + (size_t)i * H2,
-                           nullptr};
+    const Reduce ra{part_a, Ma, d_w_in + (size_t)i * k * H * H2, d_b_in + (size_t)i * H2, d_gl};
+    const Reduce rb{part_b, Mb, d_w_rs + (size_t)i * H * H2, d_b_rs + (size_t)i * H2, nullptr};
     reduce_parts_kernel<<<dim3((Ma * H2 + 255) / 256, 2), 256, 0, s>>>(ra, rb, B, H2, i, L);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     cur = nxt;
   }
   return 0;
-}
-
-// The bf16 variant of the backward: mask, w_in, w_rs, d_xo, d_sk and the
-// gradients d_x, d_gl (skipped when null), d_w_in, d_b_in, d_w_rs, d_b_rs
-// bf16 in the layouts above; save_x / save_xin are the bf16 forward's fp32
-// saves. `work` holds the fp32 variant's B*T*4H + B*(k*H + 1)*2H +
-// B*(H + 1)*2H floats, then B*T*2H + L*k*H*2H + L*H*2H + B*T more (the
-// wrapper's `backward_workspace(..., bf16=True)`). Returns the first CUDA
-// error (0 on success).
-extern "C" int tts_wn_group_backward_bf16(const void* mask, const void* w_in, const void* w_rs,
-                                          const float* save_x, const float* save_xin,
-                                          const void* d_xo, const void* d_sk, void* d_x,
-                                          void* d_gl, void* d_w_in, void* d_b_in, void* d_w_rs,
-                                          void* d_b_rs, float* work, int B, int T, int H, int L,
-                                          int k, void* stream) {
-  if (B < 1 || T < 1 || L < 1 || k < 1 || k % 2 == 0 || k > kMaxTaps || H != 192)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int R = B * T, H2 = 2 * H, pad = (k - 1) / 2;
-  const int Ma = k * H + 1, Mb = H + 1;
-  float* dx_a = work;                            // [R, H]
-  float* d_xin = dx_a + (size_t)R * H;           // [R, 2H]
-  float* acts = d_xin + (size_t)R * H2;          // [R, H]
-  float* part_a = acts + (size_t)R * H;          // [B, Ma, 2H]
-  float* part_b = part_a + (size_t)B * Ma * H2;  // [B, Mb, 2H]
-  float* dx_b = part_b + (size_t)B * Mb * H2;    // [R, H]: d_xo widened, then d_x between layers
-  float* dsk32 = dx_b + (size_t)R * H;           // [R, H]
-  float* w_in32 = dsk32 + (size_t)R * H;         // [L, k, H, 2H]
-  float* w_rs32 = w_in32 + (size_t)L * k * H * H2;  // [L, H, 2H]
-  float* mask32 = w_rs32 + (size_t)L * H * H2;      // [R]
-  auto blocks = [](long long n) { return (unsigned)(n / 256 + 1 < 4 * 132 ? n / 256 + 1 : 4 * 132); };
-  const struct { const void* src; float* dst; long long n; } widen[] = {
-      {d_xo, dx_b, (long long)R * H}, {d_sk, dsk32, (long long)R * H},
-      {w_in, w_in32, (long long)L * k * H * H2}, {w_rs, w_rs32, (long long)L * H * H2},
-      {mask, mask32, (long long)R}};
-  for (const auto& w : widen) {
-    to_f32_kernel<<<blocks(w.n), 256, 0, s>>>(static_cast<const uint16_t*>(w.src), w.dst, w.n);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  const float* cur = dx_b;
-  for (int i = L - 1; i >= 0; --i) {
-    float* nxt = cur == dx_a ? dx_b : dx_a;
-    const float* xi = save_x + (size_t)i * R * H;
-    const float* xin = save_xin + (size_t)i * R * H2;
-    const float* w_in_i = w_in32 + (size_t)i * k * H * H2;
-    const float* w_rs_i = w_rs32 + (size_t)i * H * H2;
-    cudaError_t err;
-
-    const ActsGrad pa{R, H, H2, 1, cur, dsk32, mask32, w_rs_i, xin, d_xin, acts};
-    if ((err = launch_tiles<true>(s, pa)) != cudaSuccess) return (int)err;
-
-    const InputGrad pi{R, H, k * H2, 1, T, pad, H2, d_xin, w_in_i, cur, mask32, nxt};
-    const WeightInGrad pw{Ma, H2, T, B, H, pad, xi, d_xin, part_a};
-    const WeightRsGrad pr{Mb, H2, T, B, acts, cur, dsk32, mask32, part_b};
-    if ((err = launch_tiles<true>(s, pi, pw, pr)) != cudaSuccess) return (int)err;
-
-    uint16_t* dwi = static_cast<uint16_t*>(d_w_in) + (size_t)i * k * H * H2;
-    uint16_t* dwr = static_cast<uint16_t*>(d_w_rs) + (size_t)i * H * H2;
-    const Reduce<uint16_t> ra{part_a, Ma, dwi, static_cast<uint16_t*>(d_b_in) + (size_t)i * H2,
-                              static_cast<uint16_t*>(d_gl)};
-    const Reduce<uint16_t> rb{part_b, Mb, dwr, static_cast<uint16_t*>(d_b_rs) + (size_t)i * H2,
-                              nullptr};
-    reduce_parts_kernel<<<dim3((Ma * H2 + 255) / 256, 2), 256, 0, s>>>(ra, rb, B, H2, i, L);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    cur = nxt;
-  }
-  to_bf16_kernel<<<blocks((long long)R * H), 256, 0, s>>>(cur, static_cast<uint16_t*>(d_x),
-                                                          (long long)R * H);
-  return (int)cudaGetLastError();
 }

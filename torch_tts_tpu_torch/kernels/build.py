@@ -47,11 +47,12 @@ _SIGNATURES = {
     # w_ptrs, b_ptrs (host int64), stream
     "tts_mrf_fused_forward": (_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # x, mask, gl, w_in, b_in, w_rs, b_rs, x_out, skip_out, save_x, save_xin,
-    # wsplit, B, T, H, L, k, cluster, stream (the same for the bf16 variant)
+    # wsplit, B, T, H, L, k, cluster, stream
     "tts_wn_group_forward": (_P,) * 12 + (_I,) * 6 + (_P,),
-    "tts_wn_group_forward_bf16": (_P,) * 12 + (_I,) * 6 + (_P,),
-    # cluster, k, bf16, out (host int32)
-    "tts_wn_forward_max_clusters": (_I,) * 3 + (_P,),
+    # the same without wsplit and cluster (csrc/wn_stack_bf16.cu)
+    "tts_wn_group_forward_bf16": (_P,) * 11 + (_I,) * 5 + (_P,),
+    # cluster, k, out (host int32)
+    "tts_wn_forward_max_clusters": (_I,) * 2 + (_P,),
     # mask, w_in, w_rs, save_x, save_xin, d_xo, d_sk, d_x, d_gl, d_w_in, d_b_in,
     # d_w_rs, d_b_rs, work, B, T, H, L, k, stream (the same for the bf16 variant)
     "tts_wn_group_backward": (_P,) * 14 + (_I,) * 5 + (_P,),

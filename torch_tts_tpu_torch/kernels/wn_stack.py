@@ -3,7 +3,8 @@
 Replaces the TPU kernels of `torch_tts_tpu/kernels/wn_stack.py`: the
 forward (`wn_group` -> `_wn_group_pallas` -> `_wn_fwd_kernel`) and the
 backward (`_wn_group_pallas_bwd` -> `_wn_bwd_kernel`), with the CUDA kernels
-of `torch_tts_tpu_torch/csrc/wn_stack.cu`, keeping their contract: x
+of `torch_tts_tpu_torch/csrc/wn_stack.cu` (fp32) and
+`torch_tts_tpu_torch/csrc/wn_stack_bf16.cu` (bf16), keeping their contract: x
 [B, T, H], mask [B, T, 1], gl [B, L, 2H] per-layer conditioning or None,
 w_in [L, k, H, 2H] effective conv kernels, b_in [L, 2H], w_rs [L, H, 2H] 1x1
 res/skip kernels whose final layer has a zero residual half, b_rs [L, 2H];
@@ -34,12 +35,17 @@ weights split into hi and lo once a call (a workspace of
 cluster size from the grid and the card's cluster occupancy. The backward is split-K by batch item, deterministic; see
 the .cu file.
 
-The bf16 variants (`tts_wn_group_forward_bf16`, `tts_wn_group_backward_bf16`)
-are the same kernels templated on the element type: bf16 operands into
-the tensor cores with fp32 accumulation, one product a 16-deep step (one
-pass, where fp32 takes three), the gate, the residual and the skip sums in
-fp32 inside the group, bf16 stores of x_out, skip and the gradients, the
-saves for the backward fp32. Bounds at the flows' training shape (B=8,
+The bf16 variants (`tts_wn_group_forward_bf16`, `tts_wn_group_backward_bf16`,
+`csrc/wn_stack_bf16.cu`) are kernels of their own, built for bf16: operands
+brought into shared memory by TMA and multiplied by `wgmma` bf16 with fp32
+accumulation, a producer warp feeding two consumer warpgroups. The forward
+holds 128-row windows (`plan_forward_bf16`: 3-CTA clusters, the x window
+and acts in bf16); the backward runs its products as tiled GEMMs over
+tensor maps. The gate, the residual x and the skip sums are fp32 inside the
+group, x_out, skip and the gradients bf16. Saves: x_i in bf16 (only the
+tensor cores read it), x_in in fp32 (`save_dtypes`); the backward keeps
+acts, d_xin and the masked cotangents in bf16 and d_x between layers in
+fp32 (`backward_buffers`). Bounds at the posterior encoder's training shape (B=8,
 T=1000, H=192, L=4, k=5) at bf16's 989 TFLOP/s: forward with saves 0.029
 ms, backward 0.057 ms. The plain versions run in bf16 as the JAX
 `wn_group_ref` does (every op rounded to bf16); the gradients come back in
@@ -48,8 +54,8 @@ each input's dtype, as the Pallas backward's outputs do.
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. `wn_group.launches` and `wn_group_backward.launches`
 count the calls that launch their fp32 kernels, `.launches_bf16` their
-bf16 variants' (one per wrapper call; the forward's launches the weights'
-split and the group kernel).
+bf16 variants' (one per wrapper call; the fp32 forward launches the
+weights' split and the group kernel, the bf16 backward 2 L + 2 kernels).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -70,13 +77,16 @@ MAX_TAPS = 15  # the largest (odd) conv kernel the forward's shared memory takes
 SMEM_BYTES = 232448  # per-block dynamic shared memory limit on Hopper
 WINDOW = 64  # rows of x a forward CTA holds: one m64 tile of the products
 FORWARD_CLUSTERS = (3, 4)  # the forward's cluster sizes: CTAs that split the 2H columns
+WINDOW_BF16 = 128  # rows of the bf16 forward's window: two m64 warpgroups
+CLUSTER_BF16 = 3  # the bf16 forward's cluster: 64 channels a CTA, one swizzle atom
 
 
 @dataclasses.dataclass(frozen=True)
 class ForwardPlan:
     cluster: int  # CTAs that split the 2H columns
-    frames: int   # frames a tile owns: WINDOW - 2 L (k - 1) / 2, the rest is halo
+    frames: int   # frames a tile owns: window - 2 L (k - 1) / 2, the rest is halo
     tiles: int    # time tiles over the batch
+    window: int = WINDOW  # rows a CTA holds
 
     @property
     def ctas(self) -> int:
@@ -84,7 +94,7 @@ class ForwardPlan:
 
     @property
     def halo_share(self) -> float:
-        return 1.0 - self.frames / WINDOW
+        return 1.0 - self.frames / self.window
 
 
 def forward_smem_bytes(cluster: int, k: int, H: int = 192) -> int:
@@ -111,6 +121,17 @@ def plan_forward(B: int, T: int, k: int, L: int, H: int = 192, one_wave: int = 0
     tiles = B * -(-T // frames)
     narrow = tiles <= one_wave or forward_smem_bytes(3, k, H) > SMEM_BYTES
     return ForwardPlan(4 if narrow else 3, frames, tiles)
+
+
+def plan_forward_bf16(B: int, T: int, k: int, L: int) -> ForwardPlan:
+    """The bf16 forward's time tiles: 128-row windows (a halo share of 12.5%
+    at k=5, L=4), always in 3-CTA clusters; a halo that leaves no frames
+    raises."""
+    frames = WINDOW_BF16 - 2 * L * ((k - 1) // 2)
+    if frames < 1:
+        raise ValueError(f"wn_group: a halo of L (k - 1) / 2 = {L * ((k - 1) // 2)} frames a "
+                         f"side leaves no frames in a {WINDOW_BF16}-row window")
+    return ForwardPlan(CLUSTER_BF16, frames, B * -(-T // frames), WINDOW_BF16)
 
 
 def wn_group_plain(x, mask, gl, w_in, b_in, w_rs, b_rs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -177,77 +198,102 @@ def _stream(t: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def clusters_at_once(cluster: int, k: int, device_index: int, bf16: bool = False) -> int:
-    """How many clusters of `cluster` forward CTAs (of the bf16 variant
-    with `bf16`) for k taps the card `device_index` holds at once
-    (cudaOccupancyMaxActiveClusters)."""
+def clusters_at_once(cluster: int, k: int, device_index: int) -> int:
+    """How many clusters of `cluster` fp32 forward CTAs for k taps the card
+    `device_index` holds at once (cudaOccupancyMaxActiveClusters)."""
     lib = build.load_library()
     n = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        build.check_cuda_error(
-            lib.tts_wn_forward_max_clusters(cluster, k, int(bf16), ctypes.byref(n)),
-            "wn_group (cluster occupancy)")
+        build.check_cuda_error(lib.tts_wn_forward_max_clusters(cluster, k, ctypes.byref(n)),
+                               "wn_group (cluster occupancy)")
     return n.value
 
 
-def split_weights_floats(L: int, k: int, H: int, dtype: torch.dtype = torch.float32) -> int:
-    """Floats of the forward's workspace: w_in and w_rs split into TF32 hi
-    and lo parts (fp32), or packed in bf16, two to a float (bf16), in the
-    order the kernel's ring takes them."""
-    n = L * (k + 1) * H * 2 * H
-    return 2 * n if dtype == torch.float32 else n // 2
+def split_weights_floats(L: int, k: int, H: int) -> int:
+    """Floats of the fp32 forward's workspace: w_in and w_rs split into TF32
+    hi and lo parts, in the order the kernel's ring takes them."""
+    return 2 * L * (k + 1) * H * 2 * H
+
+
+def save_dtypes(dtype: torch.dtype) -> Tuple[torch.dtype, torch.dtype]:
+    """The dtypes of the saving forward's (x_i, x_in) for tensors of
+    `dtype`: fp32 for fp32; for bf16, x_i in bf16 (only the backward's
+    tensor cores read it, as bf16) and x_in in fp32 (the gate derivative
+    is taken from it)."""
+    return (dtype, torch.float32)
 
 
 def _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save: bool, plan: Optional[ForwardPlan] = None):
-    """Forward kernels (the weights' split or bf16 packing, the group) ->
-    (x_out, skip, saved); saved is (x_i [L, B, T, H], x_in [L, B, T, 2H]),
-    fp32 in both variants, when `save`, else None. `plan` defaults to
-    `plan_forward`'s for this card."""
+    """Forward kernels -> (x_out, skip, saved); saved is (x_i [L, B, T, H],
+    x_in [L, B, T, 2H]) in `save_dtypes(x.dtype)` when `save`, else None.
+    fp32: the weights' split, then the group, in `plan` (by default
+    `plan_forward`'s for this card); bf16: the group alone, whose only plan
+    is `plan_forward_bf16`'s."""
     B, T, H = x.shape
     L, k = w_in.shape[:2]
     bf16 = x.dtype == torch.bfloat16
-    if plan is None:
+    if bf16 and plan is not None and plan != plan_forward_bf16(B, T, k, L):
+        raise ValueError(f"wn_group: the bf16 forward runs {plan_forward_bf16(B, T, k, L)} only")
+    if plan is None and not bf16:
         index = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        plan = plan_forward(B, T, k, L, H, one_wave=clusters_at_once(4, k, index, bf16))
+        plan = plan_forward(B, T, k, L, H, one_wave=clusters_at_once(4, k, index))
     x_out, skip = torch.empty_like(x), torch.empty_like(x)
     saved = None
     if save:
-        f32 = dict(dtype=torch.float32)
-        saved = (x.new_empty(L, B, T, H, **f32), x.new_empty(L, B, T, 2 * H, **f32))
-    wsplit = x.new_empty(split_weights_floats(L, k, H, x.dtype), dtype=torch.float32)
-    lib = build.load_library()
-    with torch.cuda.device(x.device):
-        entry = lib.tts_wn_group_forward_bf16 if bf16 else lib.tts_wn_group_forward
-        code = entry(
-            x.data_ptr(), mask.data_ptr(), None if gl is None else gl.data_ptr(),
+        dx, din = save_dtypes(x.dtype)
+        saved = (x.new_empty(L, B, T, H, dtype=dx), x.new_empty(L, B, T, 2 * H, dtype=din))
+    ptrs = (x.data_ptr(), mask.data_ptr(), None if gl is None else gl.data_ptr(),
             w_in.data_ptr(), b_in.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
             x_out.data_ptr(), skip.data_ptr(),
             None if saved is None else saved[0].data_ptr(),
-            None if saved is None else saved[1].data_ptr(), wsplit.data_ptr(),
-            B, T, H, L, k, plan.cluster, _stream(x))
+            None if saved is None else saved[1].data_ptr())
+    lib = build.load_library()
+    with torch.cuda.device(x.device):
+        if bf16:
+            code = lib.tts_wn_group_forward_bf16(*ptrs, B, T, H, L, k, _stream(x))
+        else:
+            wsplit = x.new_empty(split_weights_floats(L, k, H))
+            code = lib.tts_wn_group_forward(*ptrs, wsplit.data_ptr(), B, T, H, L, k,
+                                            plan.cluster, _stream(x))
     build.check_cuda_error(code, "wn_group")
     build.count_launch(wn_group, attr="launches_bf16" if bf16 else "launches")
     return x_out, skip, saved
 
 
-def backward_workspace(B: int, T: int, H: int, k: int, L: int = 0,
-                       dtype: torch.dtype = torch.float32) -> int:
-    """Floats of scratch the backward kernel takes (tts_wn_group_backward):
-    d_x between layers [B, T, H], d_xin [B, T, 2H], acts [B, T, H] and the
-    per-item partial weight gradients; the bf16 variant also its inputs
-    widened to fp32 (d_xo, which then holds d_x between layers, d_sk, w_in,
-    w_rs of the L layers, and the mask)."""
-    n = B * T * 4 * H + B * (k * H + 1) * 2 * H + B * (H + 1) * 2 * H
-    if dtype == torch.bfloat16:
-        n += B * T * 2 * H + L * (k + 1) * H * 2 * H + B * T
-    return n
+def backward_buffers(B: int, T: int, H: int, k: int,
+                     dtype: torch.dtype = torch.float32) -> Tuple[Tuple[str, torch.dtype, tuple], ...]:
+    """The backward kernel's scratch, in the order it lies in the workspace:
+    (name, dtype, shape). fp32: d_x between layers, d_xin, acts and the
+    per-item partial weight gradients; bf16: d_x between layers in fp32
+    (updated in place), two sets of partials (a layer's are reduced while
+    the next layer's are formed), then d_xin, acts, d_x m for this layer
+    and the next and d_sk m: the operands only the tensor cores read, in
+    bf16."""
+    R, f32, bf = B * T, torch.float32, torch.bfloat16
+    if dtype == torch.float32:
+        return (("d_x", f32, (R, H)), ("d_xin", f32, (R, 2 * H)), ("acts", f32, (R, H)),
+                ("part_in", f32, (B, k * H + 1, 2 * H)), ("part_rs", f32, (B, H + 1, 2 * H)))
+    return (("d_x", f32, (R, H)), ("part_in", f32, (2, B, k * H + 1, 2 * H)),
+            ("part_rs", f32, (2, B, H + 1, 2 * H)), ("d_xin", bf, (R, 2 * H)),
+            ("acts", bf, (R, H)), ("d_x_m", bf, (2, R, H)), ("d_sk_m", bf, (R, H)))
+
+
+def backward_workspace(B: int, T: int, H: int, k: int, dtype: torch.dtype = torch.float32) -> int:
+    """Floats of scratch the backward kernel takes (`backward_buffers`):
+    B T 4H + B (k H + 1) 2H + B (H + 1) 2H in fp32; the bf16 variant's
+    operands take half the room and its second set of partials one more
+    B (k H + 1) 2H + B (H + 1) 2H."""
+    n = 0
+    for _, dt, shape in backward_buffers(B, T, H, k, dtype):
+        n += math.prod(shape) * (4 if dt == torch.float32 else 2)
+    return n // 4
 
 
 def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=None):
     """Gradients of one group -> (d_x, d_gl or None, d_w_in, d_b_in, d_w_rs,
     d_b_rs), the contract of the JAX `_wn_group_pallas_bwd`. On the card
-    `saved` is what the saving forward wrote; without it that forward runs
-    first."""
+    `saved` is what the saving forward wrote (x_i, x_in in `save_dtypes`);
+    without it that forward runs first."""
     if x.device.type == "cpu":
         return wn_group_backward_plain(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk)
     if x.device.type != "cuda":
@@ -260,13 +306,16 @@ def wn_group_backward(x, mask, gl, w_in, b_in, w_rs, b_rs, d_xo, d_sk, saved=Non
                              f"on {x.device}")
     if saved is None:
         saved = _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save=True)[2]
+    if (saved[0].dtype, saved[1].dtype) != save_dtypes(x.dtype):
+        raise ValueError(f"wn_group_backward: saves of {x.dtype} tensors are "
+                         f"{save_dtypes(x.dtype)}, not {(saved[0].dtype, saved[1].dtype)}")
     B, T, H = x.shape
     L, k = w_in.shape[:2]
     d_x = torch.empty_like(x)
     d_gl = None if gl is None else torch.empty_like(gl)
     d_w_in, d_b_in = torch.empty_like(w_in), torch.empty_like(b_in)
     d_w_rs, d_b_rs = torch.empty_like(w_rs), torch.empty_like(b_rs)
-    work = x.new_empty(backward_workspace(B, T, H, k, L, x.dtype), dtype=torch.float32)
+    work = x.new_empty(backward_workspace(B, T, H, k, x.dtype), dtype=torch.float32)
     lib = build.load_library()
     with torch.cuda.device(x.device):
         entry = (lib.tts_wn_group_backward_bf16 if x.dtype == torch.bfloat16
