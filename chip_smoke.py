@@ -204,18 +204,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
    `quantize_decoder: true` (`int8_config`; pack_narrow_convs as shipped,
    so conv_pre, up_0, up_1 and the C=256 and C=128 banks, 39 convs, are
    int8 and the C=64 and C=32 stages fp on the MRF kernel) and the
-   MB-iSTFT config likewise (all 39 trunk convs int8), seeded. Convs of
-   C_in = 80 and 81 (off the kernel's 32-channel K step: rows padded) must
-   equal their plain versions bit for bit. At every conv of a B=1 `infer` (recorded around `ops.quant.int8_conv1d_quantized`)
-   the activation quantizer kernel must equal its plain version (x_q and
-   s_x) and the int8 conv kernel agree within INT8_CONV_RTOL of the peak;
-   each timed beside its bound, its plain version and fp32 cuDNN
-   `F.conv1d` at the same shape (the kernels line gives one call at each
-   kernel's dominant shape, and the infer's sums as `*_per_infer`). Then, counts zeroed, `infer` at B=1 and
-   B=8 (MB-iSTFT B=1): int8 launches equal to the decoder calls times the
-   int8 convs, `mrf_fused` one a fp stage of each unmasked decode; against
-   the plain int8 path (`int8_plain_path`) within AUDIO_ATOL; against the
-   fp32 model on the same weights: SNR, host and device-busy ms, in turns.
+   MB-iSTFT config likewise (all 39 trunk convs int8), seeded. First the
+   edge shapes of INT8_EDGES (C_in 80, 81 and 192, phases 8, 4, 3 and
+   160, T_out off the tile with B > 1, the residual, slope and mask
+   variants, each of the three tiles), the quantizer at values on and next
+   to its rounding halves, and a CUDA graph of the quantizer and a
+   residual conv replayed twice on new inputs: the kernels equal their
+   plain versions bit for bit. At every conv of a B=1 and a B=8 `infer` of
+   both decoders (recorded around `ops.quant.int8_conv1d_quantized`, with
+   their pre-activation and residual) the quantizer kernel must equal its
+   plain version (x_q and s_x) and the conv kernel its plain version bit
+   for bit (so within INT8_CONV_RTOL of the peak); at the B=1 HiFi-GAN
+   shapes each is timed beside its bound, its plain version, fp32 cuDNN
+   `F.conv1d` and `torch._int_mm` on x_q unfolded (the kernels line gives
+   one call at each kernel's dominant shape, and the infer's sums as
+   `*_per_infer`). Then, counts zeroed, `infer` at B=1 and B=8 (MB-iSTFT
+   B=1): int8 launches equal to the decoder calls times the int8 convs,
+   `mrf_fused` one a fp stage of each unmasked decode; against the plain
+   int8 path (`int8_plain_path`) within AUDIO_ATOL; against the fp32 model
+   on the same weights: SNR, host and device-busy ms, in turns, and one
+   quantizer kernel a conv kernel in the profiler.
 15. bf16 training (after the trainer): the bf16 variants of the WN
    forward (with its saves) and backward at the train shape (B=8, T=1000)
    against their plain versions in bf16 within BF16_KERNEL_RTOL of the
@@ -338,12 +346,30 @@ INFER_TIMES = {}
 # same operations in the same order (no fused multiply-add)
 INT8 = dict(quantize_decoder=True, pack_narrow_convs=True)
 INT8_CONV_RTOL = 1e-6
+# the int8 kernels' edge shapes, each against the plain versions bit for bit:
+# (C_in, T, B, C_out, taps, dilation, padding, phases, slope, masked,
+# residual). C_in off the 32-channel granule, and conv_pre's 192 (a K tail
+# in a 128-byte step); phases 8 and 4 (HiFi-GAN's and MB-iSTFT's up
+# convs), 3 (126-column tiles) and 160 (above a tile: runs of 80 columns);
+# T_out off the tile with B > 1 (item edges), odd T_out (scalar stores);
+# the residual, slope and mask variants; each of the three tiles
+INT8_EDGES = ((80, 100, 2, 96, 7, 1, (3, 3), 1, None, False, False),
+              (81, 100, 2, 96, 7, 1, (3, 3), 1, None, False, False),
+              (192, 77, 3, 512, 7, 1, (3, 3), 1, None, True, False),
+              (512, 701, 2, 256, 3, 1, (1, 1), 8, 0.1, True, False),
+              (256, 333, 3, 128, 5, 1, (2, 2), 4, 0.1, False, False),
+              (128, 20001, 2, 128, 11, 5, (25, 25), 1, 0.1, True, True),
+              (256, 4000, 2, 256, 3, 3, (3, 3), 1, 0.1, False, True),
+              (64, 130, 2, 48, 5, 2, (4, 4), 3, 0.1, False, False),
+              (32, 40, 2, 2, 3, 1, (1, 1), 160, None, False, False))
+INT8_GRAPH_EDGE = 6  # the edge captured in a CUDA graph and replayed
 # calls in the CUDA graph that times an int8 kernel (and fp32 cuDNN), and
 # its plain version
 INT8_GRAPH, INT8_GRAPH_PLAIN = 20, 3
 # the int8 kernels' fields of the kernels line beyond the common ones
 INT8_FIELDS = ("shape", "shape_calls", "calls_per_infer", "ms_per_infer", "plain_ms_per_infer",
-               "bound_ms_per_infer", "fp32_conv_ms", "fp32_conv_ms_per_infer")
+               "bound_ms_per_infer", "fp32_conv_ms", "fp32_conv_ms_per_infer",
+               "library_ms_per_infer")
 # the bf16 WN kernels' fields beyond the common ones: the fp32 kernel's time
 # on the same values, timed in turns with them, and the backward's device
 # kernels a call
@@ -1308,6 +1334,14 @@ def profile_busy_ms(fn, kernel: str = ""):
     """Device busy time of one fn() call in ms (torch.profiler, the sum of
     device self time); with `kernel`, (that time, the launches the profiler
     saw of device kernels whose name holds `kernel`)."""
+    busy, seen = profile_kernels(fn, (kernel,) if kernel else ())
+    return (busy, seen[kernel]) if kernel else busy
+
+
+def profile_kernels(fn, names):
+    """Device busy time of one fn() call in ms and, per name in `names`,
+    the device operations (kernels, memsets, copies) the profiler saw whose
+    name holds it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1318,7 +1352,7 @@ def profile_busy_ms(fn, kernel: str = ""):
     cuda = torch.autograd.DeviceType.CUDA
     evs = [e for e in prof.key_averages() if e.device_type == cuda]
     busy = sum(e.self_device_time_total for e in evs) / 1e3
-    return (busy, sum(e.count for e in evs if kernel in e.key)) if kernel else busy
+    return busy, {n: sum(e.count for e in evs if n in e.key) for n in names}
 
 
 def tacotron_phase(device, card: str, tmp: str):
@@ -3413,8 +3447,10 @@ def int8_plain_path():
 
     real = int8_conv.quantize_act, int8_conv.int8_conv1d
 
-    def plain_conv(x_q, s_x, w_q, s_w, bias, padding=(0, 0), dilation=1, phases=1, stride=1):
-        return int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, padding, dilation, phases)
+    def plain_conv(x_q, s_x, w_q, s_w, bias, padding=(0, 0), dilation=1, phases=1, stride=1,
+                   residual=None):
+        return int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, padding, dilation, phases,
+                                           residual)
 
     int8_conv.quantize_act, int8_conv.int8_conv1d = int8_conv.quantize_act_plain, plain_conv
     try:
@@ -3426,25 +3462,47 @@ def int8_plain_path():
 @contextlib.contextmanager
 def int8_conv_calls():
     """While open, records each distinct int8 conv (key: B, C_in, T,
-    columns, taps, dilation, padding, phases) with its first call's inputs
-    and its number of calls."""
+    columns, taps, dilation, padding, phases, the pre-activation's slope,
+    whether it is masked and whether it adds a residual) with its first
+    call's inputs and its number of calls."""
     from torch_tts_tpu_torch.ops import quant
 
     real, calls = quant.int8_conv1d_quantized, {}
 
-    def recording(x, w_q, s_w, bias, padding, dilation=1, phases=1):
+    def recording(x, w_q, s_w, bias, padding, dilation=1, phases=1, slope=None, mask=None,
+                  residual=None):
         N, k, C_in = w_q.shape
-        key = (x.shape[0], C_in, x.shape[2], N, k, dilation, tuple(padding), phases)
+        key = (x.shape[0], C_in, x.shape[2], N, k, dilation, tuple(padding), phases, slope,
+               mask is not None, residual is not None)
         if key not in calls:
-            calls[key] = dict(n=0, args=(x.clone(), w_q, s_w, bias))
+            calls[key] = dict(n=0, args=(x.clone(), w_q, s_w, bias, slope,
+                                         None if mask is None else mask.clone(),
+                                         None if residual is None else residual.clone()))
         calls[key]["n"] += 1
-        return real(x, w_q, s_w, bias, padding, dilation, phases)
+        return real(x, w_q, s_w, bias, padding, dilation, phases, slope, mask, residual)
 
     quant.int8_conv1d_quantized = recording
     try:
         yield calls
     finally:
         quant.int8_conv1d_quantized = real
+
+
+def unfolded(x_q, k: int, dilation: int, padding, T_out: int):
+    """x_q [B, T, C] int8 (rows padded_channels(C) apart) -> [B T_out, k Cp]:
+    each output frame's k taps of padded rows side by side, the implicit
+    GEMM's A as one matrix (the `torch._int_mm` yardstick's input)."""
+    import torch
+    import torch.nn.functional as F
+
+    from torch_tts_tpu_torch.kernels import int8_conv
+
+    B, T, C = x_q.shape
+    Cp = int8_conv.padded_channels(C)
+    full = int8_conv.padded_rows(x_q).as_strided((B, T, Cp), (T * Cp, Cp, 1))
+    xp = F.pad(full, (0, 0, padding[0], padding[1]))
+    taps = [xp[:, j * dilation:j * dilation + T_out] for j in range(k)]
+    return torch.stack(taps, dim=2).reshape(B * T_out, k * Cp)
 
 
 def int8_counted(fn):
@@ -3484,20 +3542,23 @@ def int8_convs(dec) -> int:
                for m in dec.modules() if isinstance(m, (Conv1d, ConvTranspose1d)))
 
 
-def int8_kernel_checks(calls, card: str, timed_: bool = True):
-    """Each recorded conv: the quantizer kernel against its plain version
-    (x_q and s_x equal), the conv kernel against its plain version (within
-    INT8_CONV_RTOL of the output's peak). With timed_, each kernel, its
-    plain version and fp32 cuDNN `F.conv1d` at the same shape (TF32 off; a
-    yardstick the port never calls) timed by CUDA events around replays of
-    a CUDA graph of INT8_GRAPH calls (INT8_GRAPH_PLAIN for the plain
-    versions): no host between launches, since a call is a few
-    microseconds of device work (and torch.profiler, over many short
+def int8_kernel_checks(calls, card: str, timed_: bool = True, what: str = ""):
+    """Each recorded conv: the quantizer kernel (with the call's slope and
+    mask) against its plain version (x_q and s_x equal), the conv kernel
+    (with the call's residual) against its plain version: equal bit for
+    bit, and so within INT8_CONV_RTOL of the output's peak. With timed_,
+    each kernel, its plain version, fp32 cuDNN `F.conv1d` at the same shape
+    (TF32 off) and `torch._int_mm` on x_q unfolded to [B T_out, k Cp] (built
+    before the timing) and w_q (the int8 product alone, without the
+    dequantize: yardsticks the port never calls), timed by CUDA events
+    around replays of a CUDA graph of INT8_GRAPH calls (INT8_GRAPH_PLAIN
+    for the plain versions): no host between launches, since a call is a
+    few microseconds of device work (and torch.profiler, over many short
     sessions, lost device events), beside the kernel's bound. -> per
-    kernel, ms, plain_ms and bound of one call at its dominant shape (the
-    recorded shape whose calls take the most kernel time), and the sums
-    over all the recorded calls (each shape times its number of calls)
-    under names of their own (`*_per_infer`)."""
+    kernel, ms, plain_ms, library_ms and bound of one call at its dominant
+    shape (the recorded shape whose calls take the most kernel time), and
+    the sums over all the recorded calls (each shape times its number of
+    calls) under names of their own (`*_per_infer`)."""
     import torch
     import torch.nn.functional as F
 
@@ -3505,86 +3566,207 @@ def int8_kernel_checks(calls, card: str, timed_: bool = True):
 
     tot = {n: dict(ms=0.0, plain_ms=0.0, max_abs_err=0.0, ops_ms=0.0, bytes_ms=0.0, calls=0,
                    top=None) for n in ("quantize_act", "int8_conv1d")}
-    fp32_ms = 0.0
-    for key, rec in sorted(calls.items()):
-        B, C_in, T, N, k, d, pad, phases = key
-        x, w_q, s_w, bias = rec["args"]
+    fp32_ms, lib_ms = 0.0, 0.0
+    for key, rec in sorted(calls.items(), key=repr):
+        B, C_in, T, N, k, d, pad, phases, slope, masked, has_res = key
+        x, w_q, s_w, bias, _, mask, res = rec["args"]
         n = rec["n"]
         with torch.no_grad():
-            x_q, s_x = int8_conv.quantize_act(x)
-            x_qp, s_xp = int8_conv.quantize_act_plain(x)
+            x_q, s_x = int8_conv.quantize_act(x, slope, mask)
+            x_qp, s_xp = int8_conv.quantize_act_plain(x, slope, mask)
             q_err = float((x_q.float() - x_qp.float()).abs().max())
-            if q_err != 0 or float(s_x) != float(s_xp):
+            if not torch.equal(x_q, x_qp) or float(s_x) != float(s_xp):
                 raise RuntimeError(f"quantize_act {key}: x_q or s_x differs from its plain "
                                    f"version (|x_q - plain| {q_err}, s_x {float(s_x)!r} against "
                                    f"{float(s_xp)!r})")
-            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d, phases)
-            y_p = int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, pad, d, phases)
+            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d, phases, residual=res)
+            y_p = int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, pad, d, phases, res)
             err, peak = float((y - y_p).abs().max()), float(y_p.abs().max())
-            if not err <= INT8_CONV_RTOL * peak or not bool(torch.isfinite(y).all()):
-                raise RuntimeError(f"int8_conv1d {key}: max |kernel - plain| {err:.3e} is over "
-                                   f"{INT8_CONV_RTOL:g} x the peak {peak:.3e}")
+            if (not torch.equal(y, y_p) or not err <= INT8_CONV_RTOL * peak
+                    or not bool(torch.isfinite(y).all())):
+                raise RuntimeError(f"int8_conv1d {key}: max |kernel - plain| {err:.3e}, not "
+                                   f"bit for bit (the peak {peak:.3e}, INT8_CONV_RTOL "
+                                   f"{INT8_CONV_RTOL:g})")
             tot["quantize_act"]["max_abs_err"] = max(tot["quantize_act"]["max_abs_err"], q_err)
             tot["int8_conv1d"]["max_abs_err"] = max(tot["int8_conv1d"]["max_abs_err"], err)
             if not timed_:
                 continue
+            T_out = T + pad[0] + pad[1] - d * (k - 1)
+            M, Cp = B * T_out, int8_conv.padded_channels(C_in)
             w_fp = torch.randn(N, C_in, k, device=x.device)
-            t_q = graph_ms(lambda: int8_conv.quantize_act(x), n=INT8_GRAPH)
-            t_qp = graph_ms(lambda: int8_conv.quantize_act_plain(x), n=INT8_GRAPH_PLAIN)
+            a = unfolded(x_q, k, d, pad, T_out)
+            wt = int8_conv.padded_rows(w_q).as_strided((N, k * Cp), (k * Cp, 1)).t()
+            t_q = graph_ms(lambda: int8_conv.quantize_act(x, slope, mask), n=INT8_GRAPH)
+            t_qp = graph_ms(lambda: int8_conv.quantize_act_plain(x, slope, mask),
+                            n=INT8_GRAPH_PLAIN)
             t_c = graph_ms(lambda: int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d,
-                                                         phases), n=INT8_GRAPH)
+                                                         phases, residual=res), n=INT8_GRAPH)
             t_cp = graph_ms(lambda: int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, pad, d,
-                                                                phases), n=INT8_GRAPH_PLAIN)
+                                                                phases, res), n=INT8_GRAPH_PLAIN)
             t_fp = graph_ms(lambda: F.conv1d(F.pad(x, pad), w_fp, None, dilation=d),
                             n=INT8_GRAPH)
-        M, K = B * (T + pad[0] + pad[1] - d * (k - 1)), k * C_in
+            # torch._int_mm takes M > 16 rows and K, N multiples of 8: every decoder shape
+            t_lib = graph_ms(lambda: torch._int_mm(a, wt), n=INT8_GRAPH)
+            del a
+        K = k * C_in
         ops = 2.0 * M * N * K
         conv_parts = (ops / PEAK_INT8_OPS * 1e3,
-                      (B * T * C_in + N * K + 4 * M * N + 4 * N * 2) / PEAK_BYTES_PER_S * 1e3)
+                      (B * T * C_in + N * K + 4 * M * N * (2 if has_res else 1) + 4 * N * 2)
+                      / PEAK_BYTES_PER_S * 1e3)
         q_parts = (4.0 * B * C_in * T / PEAK_FP32_FLOPS * 1e3,
-                   5.0 * B * C_in * T / PEAK_BYTES_PER_S * 1e3)
+                   (4.0 * B * C_in * T + B * T * Cp + (4 * B * T if masked else 0))
+                   / PEAK_BYTES_PER_S * 1e3)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         log(f"  int8 {key} x{n}: quantize {t_q:.4f} / plain {t_qp:.4f} / bound "
             f"{max(q_parts):.4f}; conv {t_c:.4f} / plain {t_cp:.4f} / fp32 cuDNN {t_fp:.4f} / "
-            f"bound {max(conv_parts):.4f} ({ops / max(t_c, 1e-9) / 1e9:.0f} TOPS)")
+            f"torch._int_mm {t_lib:.4f} / bound {max(conv_parts):.4f} "
+            f"({ops / max(t_c, 1e-9) / 1e9:.0f} TOPS; tile "
+            f"{int8_conv.conv_tile(B, T_out, N, phases, sms)})")
         for name, t, tp, parts in (("quantize_act", t_q, t_qp, q_parts),
                                    ("int8_conv1d", t_c, t_cp, conv_parts)):
-            s = tot[name]
-            s["ms"] += n * t
-            s["plain_ms"] += n * tp
+            st = tot[name]
+            st["ms"] += n * t
+            st["plain_ms"] += n * tp
             by = "operations" if parts[0] >= parts[1] else "bytes"
-            s["ops_ms" if by == "operations" else "bytes_ms"] += n * max(parts)
-            s["calls"] += n
-            if s["top"] is None or n * t > s["top"]["calls"] * s["top"]["ms"]:
-                s["top"] = dict(shape=list(key[:6]) + [list(pad), phases], calls=n, ms=t,
-                                plain_ms=tp, bound=(max(parts), by), fp32_conv_ms=t_fp)
+            st["ops_ms" if by == "operations" else "bytes_ms"] += n * max(parts)
+            st["calls"] += n
+            if st["top"] is None or n * t > st["top"]["calls"] * st["top"]["ms"]:
+                st["top"] = dict(shape=list(key[:6]) + [list(pad), phases, slope, masked, has_res],
+                                 calls=n, ms=t, plain_ms=tp, bound=(max(parts), by),
+                                 fp32_conv_ms=t_fp, library_ms=t_lib)
         fp32_ms += n * t_fp
+        lib_ms += n * t_lib
     if not timed_:
-        log(f"  int8 kernels at {len(calls)} conv shapes: x_q and s_x equal to the plain "
-            f"version's, the conv within {tot['int8_conv1d']['max_abs_err']:.3e} of it")
+        log(f"  {what}int8 kernels at {len(calls)} conv shapes ({sum(r['n'] for r in calls.values())} "
+            f"calls): x_q and s_x equal to the plain version's, the conv equal to its plain "
+            f"version bit for bit")
         return None
     stats = {}
-    for name, s in tot.items():
-        by = "operations" if s["ops_ms"] >= s["bytes_ms"] else "bytes"
-        top = s["top"]
-        stats[name] = dict(ms=top["ms"], plain_ms=top["plain_ms"], max_abs_err=s["max_abs_err"],
+    for name, st in tot.items():
+        by = "operations" if st["ops_ms"] >= st["bytes_ms"] else "bytes"
+        top = st["top"]
+        stats[name] = dict(ms=top["ms"], plain_ms=top["plain_ms"], max_abs_err=st["max_abs_err"],
                            bound=top["bound"], library_ms=None, shape=top["shape"],
-                           shape_calls=top["calls"], calls_per_infer=s["calls"],
-                           ms_per_infer=s["ms"], plain_ms_per_infer=s["plain_ms"],
-                           bound_ms_per_infer=s["ops_ms"] + s["bytes_ms"])
+                           shape_calls=top["calls"], calls_per_infer=st["calls"],
+                           ms_per_infer=st["ms"], plain_ms_per_infer=st["plain_ms"],
+                           bound_ms_per_infer=st["ops_ms"] + st["bytes_ms"])
         log(f"  {name}, a call at its dominant shape {top['shape']} (x{top['calls']}): kernel "
             f"{top['ms']:.4f} ms, plain {top['plain_ms']:.4f} ms, bound {top['bound'][0]:.4f} ms "
-            f"({top['bound'][1]}); the {s['calls']} calls of one B=1 int8 infer ({len(calls)} "
-            f"shapes; key B, C_in, T, columns, taps, dilation, padding, phases; ms over a CUDA "
-            f"graph): kernel {s['ms']:.4f} ms, plain {s['plain_ms']:.4f} ms, bound "
-            f"{stats[name]['bound_ms_per_infer']:.4f} ms ({by}); max error "
-            f"{s['max_abs_err']:.3e} [{card}]")
+            f"({top['bound'][1]}); the {st['calls']} calls of one B=1 int8 infer ({len(calls)} "
+            f"shapes; key B, C_in, T, columns, taps, dilation, padding, phases, slope, masked, "
+            f"residual; ms over a CUDA graph): kernel {st['ms']:.4f} ms, plain "
+            f"{st['plain_ms']:.4f} ms, bound {stats[name]['bound_ms_per_infer']:.4f} ms ({by}); "
+            f"max error {st['max_abs_err']:.3e} [{card}]")
     conv = stats["int8_conv1d"]
     conv["fp32_conv_ms"] = tot["int8_conv1d"]["top"]["fp32_conv_ms"]
     conv["fp32_conv_ms_per_infer"] = fp32_ms
+    conv["library_ms"] = tot["int8_conv1d"]["top"]["library_ms"]
+    conv["library_ms_per_infer"] = lib_ms
     log(f"  fp32 cuDNN F.conv1d at the same shapes (TF32 off, over a CUDA graph): a call at the "
         f"conv's dominant shape {conv['fp32_conv_ms']:.4f} ms, the infer's calls {fp32_ms:.4f} "
-        f"ms [{card}]")
+        f"ms; torch._int_mm on x_q unfolded (the int8 product alone): {conv['library_ms']:.4f} "
+        f"ms, the infer's calls {lib_ms:.4f} ms [{card}]")
     return stats
+
+
+def int8_edge_checks(device, card: str):
+    """Both kernels against their plain versions, bit for bit, at the
+    shapes of INT8_EDGES (C_in off the 32-channel granule and with a K tail
+    in a 128-byte step, phases 8, 4, 3 and above a tile's columns, T_out
+    off the tile with B > 1, the residual, slope and mask variants); then
+    the quantizer and a residual conv captured in a CUDA graph, replayed
+    twice on new inputs: equal to the plain versions each time (nothing of
+    a launch persists to the next)."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import int8_conv
+    from torch_tts_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(80)
+
+    def case(C_in, T, B, C_out, k, d, pad, phases, slope, masked, has_res):
+        N = C_out * phases
+        T_out = T + pad[0] + pad[1] - d * (k - 1)
+        x = (torch.randn(B, C_in, T, generator=g) * 0.3).to(device)
+        w_q, s_w = quant.conv_weights((torch.randn(N, C_in, k, generator=g) * 0.05).to(device))
+        bias = torch.randn(C_out, generator=g).to(device)
+        lengths = [T - 7 * i for i in range(B)]
+        mask = ((torch.arange(T)[None, :] < torch.tensor(lengths)[:, None]).float()[:, None]
+                .to(device) if masked else None)
+        res = (torch.randn(B, C_out, T_out * phases, generator=g).to(device)
+               if has_res else None)
+        return x, w_q, s_w, bias, mask, res
+
+    def plain(x, w_q, s_w, bias, mask, res, pad, d, phases, slope):
+        x_q, s_x = int8_conv.quantize_act_plain(x, slope, mask)
+        return x_q, s_x, int8_conv.int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, pad, d, phases,
+                                                     res)
+
+    with torch.no_grad():
+        for spec in INT8_EDGES:
+            C_in, T, B, C_out, k, d, pad, phases, slope, masked, has_res = spec
+            x, w_q, s_w, bias, mask, res = case(*spec)
+            x_q, s_x = int8_conv.quantize_act(x, slope, mask)
+            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d, phases, residual=res)
+            x_qp, s_xp, yp = plain(x, w_q, s_w, bias, mask, res, pad, d, phases, slope)
+            torch.cuda.synchronize()
+            same = (torch.equal(x_q, x_qp) and float(s_x) == float(s_xp)
+                    and torch.equal(y, yp))
+            T_out = T + pad[0] + pad[1] - d * (k - 1)
+            tile = int8_conv.conv_tile(B, T_out, C_out * phases, phases,
+                                       torch.cuda.get_device_properties(device).multi_processor_count)
+            log(f"int8 phase: edge {spec} (T_out {T_out}, Cp {int8_conv.padded_channels(C_in)}, "
+                f"tile {tile}): x_q, s_x and the conv equal to their plain versions bit for bit "
+                f"-> {'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError(f"the int8 kernels at {spec} differ from their plain versions")
+        # the quantizer at values on and next to every rounding half of a scale
+        # other than 1 (the kernel rounds a product with 1 / s_x unless it lies
+        # that close to a half, then divides)
+        s = float(int8_conv.symmetric_scale(torch.tensor(100.3)))
+        halves = torch.tensor([(q + 0.5) * s for q in range(-127, 127)], dtype=torch.float64)
+        halves = halves.float()
+        vals = torch.cat([halves, torch.nextafter(halves, torch.tensor(float("inf"))),
+                          torch.nextafter(halves, torch.tensor(float("-inf"))),
+                          torch.tensor([100.3, -0.0])])
+        x = vals.reshape(1, 1, -1).repeat(2, 40, 1).to(device)
+        for slope, mask in ((None, None), (0.1, torch.ones(2, 1, x.shape[2], device=device))):
+            x_q, s_x = int8_conv.quantize_act(x, slope, mask)
+            x_qp, s_xp = int8_conv.quantize_act_plain(x, slope, mask)
+            same = torch.equal(x_q, x_qp) and float(s_x) == float(s_xp)
+            log(f"int8 phase: the quantizer at {x.shape[2]} values on and next to the rounding "
+                f"halves (slope {slope}): x_q and s_x equal to the plain version's -> "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError("the quantizer differs from its plain version at the halves")
+        spec = INT8_EDGES[INT8_GRAPH_EDGE]
+        C_in, T, B, C_out, k, d, pad, phases, slope, masked, has_res = spec
+        x, w_q, s_w, bias, mask, res = case(*spec)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                int8_conv.int8_conv1d(*int8_conv.quantize_act(x, slope, mask), w_q, s_w, bias,
+                                      pad, d, phases, residual=res)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            x_q, s_x = int8_conv.quantize_act(x, slope, mask)
+            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, pad, d, phases, residual=res)
+        for scale in (0.3, 7.0):
+            x.copy_(torch.randn(x.shape, generator=g).to(device) * scale)
+            res.copy_(torch.randn(res.shape, generator=g).to(device))
+            graph.replay()
+            torch.cuda.synchronize()
+            x_qp, s_xp, yp = plain(x, w_q, s_w, bias, mask, res, pad, d, phases, slope)
+            same = (torch.equal(x_q, x_qp) and float(s_x) == float(s_xp)
+                    and torch.equal(y, yp))
+            log(f"int8 phase: a CUDA graph of the quantizer and the residual conv at {spec}, "
+                f"replayed on new inputs (x scale {scale}): equal to the plain versions -> "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise RuntimeError("a replayed int8 graph differs from the plain versions")
+        del graph
 
 
 def int8_infer_checked(model, cfg, device, what: str, batches):
@@ -3663,12 +3845,18 @@ def int8_against_fp32(q_model, fp_model, outs, cfg, device, card: str, what: str
             times.setdefault(path, []).append(
                 wall_ms(lambda: bench_infer(models[path], B, device), warmup=1, reps=3))
         for path, ts in times.items():
-            busy, seen = profile_busy_ms(lambda: bench_infer(models[path], B, device),
-                                         "int8_conv_kernel")
+            busy, seen = profile_kernels(lambda: bench_infer(models[path], B, device),
+                                         ("int8_conv_kernel", "quantize_kernel", "emset"))
             log(f"  {what} infer B={B} T_x={T_X} max_frames={MAX_FRAMES} {path}: "
                 f"{statistics.median(ts):.2f} ms/call on the host clock (turns "
-                f"{', '.join(f'{t:.2f}' for t in ts)}), device busy {busy:.2f} ms ({seen} int8 "
-                f"conv launches seen by the profiler) [{card}]")
+                f"{', '.join(f'{t:.2f}' for t in ts)}), device busy {busy:.2f} ms (seen by the "
+                f"profiler: {seen['int8_conv_kernel']} int8 conv launches, "
+                f"{seen['quantize_kernel']} quantizer launches, {seen['emset']} memsets in all) "
+                f"[{card}]")
+            if path == "int8" and seen["int8_conv_kernel"] and (
+                    seen["quantize_kernel"] != seen["int8_conv_kernel"]):
+                raise RuntimeError(f"{what}: {seen['quantize_kernel']} quantizer kernels for "
+                                   f"{seen['int8_conv_kernel']} int8 convs, not one each")
         log(f"  {what} B={B}: SNR of the int8 audio against the fp32 audio {snr:.2f} dB "
             f"(seeded weights: no quality claim)")
 
@@ -3690,28 +3878,7 @@ def int8_phase(device, card: str):
     cfgs = {"HiFi-GAN": int8_config(),
             "MB-iSTFT": dataclasses.replace(mb, model=dataclasses.replace(mb.model, **INT8))}
     os.environ.pop("TTS_FUSED_WN", None)
-    # C_in off the kernel's 32-channel K step: the quantizer's rows padded
-    # with zeros, the weights packed with zero rows; both kernels equal
-    # their plain versions exactly, as at every other shape
-    from torch_tts_tpu_torch.kernels import int8_conv
-
-    g = torch.Generator().manual_seed(80)
-    for c_in in (80, 81):
-        x = (torch.randn(2, c_in, 100, generator=g) * 0.3).to(device)
-        w_q, s_w = quant.conv_weights((torch.randn(96, c_in, 7, generator=g) * 0.05).to(device))
-        bias = torch.randn(96, generator=g).to(device)
-        with torch.no_grad():
-            x_q, s_x = int8_conv.quantize_act(x)
-            x_qp, s_xp = int8_conv.quantize_act_plain(x)
-            y = int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, (3, 3))
-            yp = int8_conv.int8_conv1d_plain(x_qp, s_xp, w_q, s_w, bias, (3, 3))
-        torch.cuda.synchronize()
-        same = torch.equal(x_q, x_qp) and float(s_x) == float(s_xp) and torch.equal(y, yp)
-        log(f"int8 phase: C_in={c_in} (rows of {int8_conv.padded_channels(c_in)} channels on "
-            f"the card): x_q, s_x and the conv equal to their plain versions bit for bit -> "
-            f"{'ok' if same else 'FAIL'}")
-        if not same:
-            raise RuntimeError(f"the int8 kernels at C_in={c_in} differ from their plain versions")
+    int8_edge_checks(device, card)
     launches, stats = {}, None
     for what, cfg in cfgs.items():
         t0 = time.perf_counter()
@@ -3725,6 +3892,10 @@ def int8_phase(device, card: str):
         # the kernels line's figures: one B=1 HiFi-GAN infer's calls
         checked = int8_kernel_checks(calls, card, timed_=what == "HiFi-GAN")
         stats = checked or stats
+        with int8_conv_calls() as calls:
+            bench_infer(q_model, 8, device)
+        int8_kernel_checks(calls, card, timed_=False, what=f"{what} B=8: ")
+        del calls
         batches = (1, 8) if what == "HiFi-GAN" else (1,)
         outs, got = int8_infer_checked(q_model, cfg, device, what, batches)
         for n, c in got.items():
@@ -4515,12 +4686,16 @@ def main():
                "int8_conv1d": ("torch_tts_tpu_torch/csrc/int8_conv.cu",
                                "torch_tts_tpu/ops/quant.py:54")}
     # library_ms: the torch.stft mel's device busy time for the STFT+mel
-    # kernel (whose ms and plain_ms are device busy times too); no single
-    # PyTorch call computes any of the other functions (PyTorch has no int8
-    # convolution on the card: the int8 conv's fp32_conv_ms is fp32 cuDNN at
-    # the same shape, a yardstick). The int8 kernels' ms, plain_ms and
-    # bound_ms are one call at their dominant `shape` (timed over CUDA
-    # graphs); the *_per_infer fields sum the calls of one B=1 int8 infer
+    # kernel (whose ms and plain_ms are device busy times too); for the int8
+    # conv `torch._int_mm` on x_q unfolded to [B T_out, k Cp] (built outside
+    # the timing) and w_q, the int8 product without the dequantize (PyTorch
+    # has no int8 convolution on the card; fp32_conv_ms is fp32 cuDNN at the
+    # same shape). No single PyTorch call computes the quantizer (a symmetric
+    # per-tensor int8 quantization with this scale, its max taken on the
+    # card) or any of the other functions. The int8 kernels' ms, plain_ms,
+    # library_ms and bound_ms are one call at their dominant `shape` (timed
+    # over CUDA graphs); the *_per_infer fields sum the calls of one B=1
+    # int8 infer
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     launches_by_path={p: c[n] for p, c in by_path.items() if n in c},
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],

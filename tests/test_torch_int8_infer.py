@@ -141,9 +141,9 @@ def _counted(fn):
     plain version, so the wrapper is counted, not a launch)."""
     n, orig = [0], int8_conv.quantize_act
 
-    def counting(x):
+    def counting(x, *args, **kwargs):  # the pre-activation's slope and mask pass through
         n[0] += 1
-        return orig(x)
+        return orig(x, *args, **kwargs)
     int8_conv.quantize_act = counting
     try:
         return fn(), n[0]

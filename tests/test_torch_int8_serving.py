@@ -169,9 +169,9 @@ def test_infer_cli_runs_the_int8_config(weights, tmp_path):
 
     calls, orig = [0], int8_conv.quantize_act
 
-    def counting(x):
+    def counting(x, *args, **kwargs):  # the pre-activation's slope and mask pass through
         calls[0] += 1
-        return orig(x)
+        return orig(x, *args, **kwargs)
     int8_conv.quantize_act = counting
     try:
         args = _write_run(tmp_path, weights)

@@ -1,5 +1,6 @@
-// Hopper warpgroup products in bf16 with fp32 accumulation, and the TMA and
-// mbarrier helpers that feed them: the bf16 WN kernels of wn_stack_bf16.cu.
+// Hopper warpgroup products in bf16 with fp32 accumulation: the bf16 WN
+// kernels of wn_stack_bf16.cu. The TMA, mbarrier and wgmma-ordering helpers
+// that feed them are in tma_pipeline.cuh.
 //
 // Shared-memory operand tiles use the 128-byte swizzle that TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B), on 1024-byte aligned tiles:
@@ -24,15 +25,11 @@
 
 #pragma once
 
-#include <cuda.h>
-
 #include <cstdint>
 
-namespace tts_wgmma {
+#include "tma_pipeline.cuh"
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+namespace tts_wgmma {
 
 // two fp32 values rounded to nearest even bf16, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -43,13 +40,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ uint64_t kmajor_sw128(uint32_t tile, int kk) {
-  return sw128_desc(tile + 32 * kk, 16, 1024);
-}
 __device__ __forceinline__ uint64_t mnmajor_sw128(uint32_t tile, int kk, uint32_t atom_bytes) {
   return sw128_desc(tile + 2048 * kk, atom_bytes, 1024);
 }
@@ -141,51 +131,6 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pins a register at this point of the program: the accumulators are not
-// read above a wait, and A fragments' registers not reused before it
-__device__ __forceinline__ void pin(float& v) { asm volatile("" : "+f"(v)::"memory"); }
-__device__ __forceinline__ void pin(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
-
-// --- mbarriers and TMA
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n.reg .pred done;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
-      "r"(parity)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// one box of a 3D tensor map into shared memory, completing on bar;
-// coordinates innermost first, out-of-bounds elements read as zero
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                       int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 
 }  // namespace tts_wgmma

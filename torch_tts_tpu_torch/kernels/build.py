@@ -71,11 +71,13 @@ _SIGNATURES = {
     "tts_lltm_forward": (_P,) * 8 + (_I,) * 3 + (_P,),
     # B, I, H, stream
     "tts_lltm_launch_floor": (_I,) * 3 + (_P,),
-    # x, x_q, scale (s_x and a scratch word), B, C, C_pad (x_q's row stride), T, stream
-    "tts_int8_quantize": (_P,) * 3 + (_I,) * 4 + (_P,),
-    # x_q, s_x, w_q, s_w, bias (or null), out, B, T, C_in, N, k, dilation,
-    # pad_lo, T_out, phases, stream
-    "tts_int8_conv1d": (_P,) * 6 + (_I,) * 9 + (_P,),
+    # x, mask (or null), the slope's fp32 bits (1 for none), x_q, scale (s_x
+    # and the CTAs' scratch words), B, C, C_pad (x_q's row stride), T, stream
+    "tts_int8_quantize": (_P, _P, _I, _P, _P) + (_I,) * 4 + (_P,),
+    # x_q, s_x, w_q, s_w, bias (or null), res (or null), out, B, T, C_pad, N,
+    # k, dilation, pad_lo, T_out, phases, tile rows, tile columns, columns a
+    # tile writes, stream
+    "tts_int8_conv1d": (_P,) * 7 + (_I,) * 12 + (_P,),
 }
 
 

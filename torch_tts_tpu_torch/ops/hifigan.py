@@ -41,6 +41,8 @@ from torch_tts_tpu_torch.kernels import mrf_fused as mrf_kernel
 from torch_tts_tpu_torch.kernels.mrf_fused import dilated_offsets, mrf_fused
 from torch_tts_tpu_torch.ops.layers import Conv1d, ConvTranspose1d, leaky_relu
 
+LRELU_SLOPE = 0.1  # the reference's, `leaky_relu`'s default
+
 
 def _get_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size * dilation - dilation) // 2
@@ -65,14 +67,11 @@ class ResBlock1(nn.Module):
                    weight_norm=True, quant=quant) for _ in self.dilation)
 
     def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor] = None):
+        # each conv takes lrelu(.) * mask, and c2 the residual, as arguments:
+        # an int8 conv forms them in its kernels, an fp one in torch ops
         for c1, c2 in zip(self.convs1, self.convs2):
-            xt = leaky_relu(x)
-            if x_mask is not None:
-                xt = xt * x_mask
-            xt = leaky_relu(c1(xt))
-            if x_mask is not None:
-                xt = xt * x_mask
-            x = c2(xt) + x
+            xt = c1(x, LRELU_SLOPE, x_mask)
+            x = c2(xt, LRELU_SLOPE, x_mask, residual=x)
         return x * x_mask if x_mask is not None else x
 
     def kernels(self):
@@ -103,10 +102,7 @@ class ResBlock2(nn.Module):
 
     def forward(self, x: torch.Tensor, x_mask: Optional[torch.Tensor] = None):
         for c in self.convs:
-            xt = leaky_relu(x)
-            if x_mask is not None:
-                xt = xt * x_mask
-            x = c(xt) + x
+            x = c(x, LRELU_SLOPE, x_mask, residual=x)
         return x * x_mask if x_mask is not None else x
 
 
@@ -196,19 +192,14 @@ class Generator(nn.Module):
         """x [B, C_in, T] latent frames, g [B, gin, 1] or None -> [B, 1, T *
         prod(upsample_rates)]."""
         mask = x_mask
-        if mask is not None:
-            x = x * mask
-        x = self.conv_pre(x)
+        x = self.conv_pre(x, mask=mask)
         if g is not None:
             x = x + self.cond(g)
         if mask is not None:
             x = x * mask
         nk = self.num_kernels
         for i, (up, u) in enumerate(zip(self.ups, self.upsample_rates)):
-            x = leaky_relu(x)
-            if mask is not None:
-                x = x * mask
-            x = up(x)
+            x = up(x, LRELU_SLOPE, mask)
             if mask is not None:
                 mask = torch.repeat_interleave(mask, u, dim=2)
                 x = x * mask

@@ -20,7 +20,10 @@ their table's and their input's dtype.
 `Conv1d` and `ConvTranspose1d` take `quant="int8"`: W8A8 inference through
 `ops/quant.py` (the transposed conv on its subpixel route only). Their
 parameters and state dict are the same as without it; the int8 weights and
-scales are made once per parameter state and cached on the module.
+scales are made once per parameter state and cached on the module. Their
+forwards take the decoder's pre-activation (a leaky ReLU slope and a mask)
+and, for `Conv1d`, a residual: the int8 route folds them into its two
+kernels, the fp route applies them in torch ops.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch_tts_tpu_torch.kernels.int8_conv import pre_activation
 from torch_tts_tpu_torch.ops import quant as quant_ops
 
 
@@ -163,16 +167,26 @@ class Conv1d(_Int8Cache, nn.Module):
             return _weight_normed(self.weight_g, self.weight_v)
         return self.weight
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slope: Optional[float] = None,
+                mask: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """conv(leaky_relu(x, slope) * mask) + residual, each of the three
+        only when given. The int8 route forms the conv's input in its
+        quantizer and adds the residual in the conv's epilogue (no tensor
+        in between); the fp route applies them in torch ops."""
         lo, hi = self.padding
         if self.quant is not None:
             w_q, s_w = self.int8_weights(lambda: quant_ops.conv_weights(self.effective_weight()))
             return quant_ops.int8_conv1d_quantized(x, w_q, s_w, self.bias, self.padding,
-                                                   self.dilation)
+                                                   self.dilation, slope=slope, mask=mask,
+                                                   residual=residual)
+        x = pre_activation(x, slope, mask)
         kw = dict(stride=self.stride, dilation=self.dilation, groups=self.groups)
         if lo == hi:
-            return _conv(F.conv1d, x, self.effective_weight(), self.bias, padding=lo, **kw)
-        return _conv(F.conv1d, F.pad(x, (lo, hi)), self.effective_weight(), self.bias, **kw)
+            y = _conv(F.conv1d, x, self.effective_weight(), self.bias, padding=lo, **kw)
+        else:
+            y = _conv(F.conv1d, F.pad(x, (lo, hi)), self.effective_weight(), self.bias, **kw)
+        return y + residual if residual is not None else y
 
 
 class Conv2d(nn.Module):
@@ -295,14 +309,18 @@ class ConvTranspose1d(_Int8Cache, nn.Module):
         c_in, c_out = w.shape[:2]
         return kg.permute(1, 3, 0, 2).reshape(c_out * self.stride, c_in, a.shape[0])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slope: Optional[float] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The transposed conv of leaky_relu(x, slope) * mask (each only
+        when given; on the int8 route formed by the quantizer as it reads
+        x)."""
         if self.quant is not None and self.subpixel:
             q_max, q_min, _ = self._subpixel_taps()
             w_q, s_w = self.int8_weights(lambda: quant_ops.conv_weights(self.subpixel_weight()))
             return quant_ops.int8_conv1d_quantized(x, w_q, s_w, self.bias, (q_max, -q_min),
-                                                   phases=self.stride)
-        return _conv(F.conv_transpose1d, x, self.effective_weight(), self.bias,
-                     stride=self.stride, padding=self.padding)
+                                                   phases=self.stride, slope=slope, mask=mask)
+        return _conv(F.conv_transpose1d, pre_activation(x, slope, mask), self.effective_weight(),
+                     self.bias, stride=self.stride, padding=self.padding)
 
 
 class LayerNorm(nn.Module):

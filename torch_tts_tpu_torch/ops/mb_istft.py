@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch_tts_tpu_torch.ops.hifigan import make_bank, run_bank
+from torch_tts_tpu_torch.ops.hifigan import LRELU_SLOPE, make_bank, run_bank
 from torch_tts_tpu_torch.ops.layers import Conv1d, ConvTranspose1d, leaky_relu
 
 
@@ -187,17 +187,12 @@ class MultiBandISTFTGenerator(nn.Module):
         """x [B, C_in, T] latent frames, x_mask [B, 1, T] or None, g [B, gin,
         1] or None -> [B, 1, T * hop]."""
         mask = x_mask
-        if mask is not None:
-            x = x * mask
-        x = self.conv_pre(x)
+        x = self.conv_pre(x, mask=mask)
         if g is not None:
             x = x + self.cond(g)
         nk = self.num_kernels
         for i, (up, u) in enumerate(zip(self.ups, self.upsample_rates)):
-            x = leaky_relu(x)
-            if mask is not None:
-                x = x * mask
-            x = up(x)
+            x = up(x, LRELU_SLOPE, mask)
             if mask is not None:
                 mask = torch.repeat_interleave(mask, u, dim=2)
                 x = x * mask

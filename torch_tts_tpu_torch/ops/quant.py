@@ -17,9 +17,11 @@ module's functions in torch ops. A decoder layer quantizes its weights once
 (`ops/layers.py` caches them per parameter state, as JAX constant-folds
 them under jit) and calls `int8_conv1d_quantized`, which runs the kernels
 of `kernels/int8_conv.py`: their plain versions on a CPU tensor; on the
-card the activation quantizer, then the int8 conv (any C_in: both write
-their rows padded to the kernel's 32-channel K step), which raises on a
-shape that `int8_conv.supports` does not take.
+card the activation quantizer (which applies the decoder's leaky ReLU and
+mask as it reads), then the int8 conv (any C_in: both write their rows
+padded to a 32-channel granule; a resblock's residual added in its
+epilogue), which raises on a shape that `int8_conv.supports` does not
+take.
 """
 
 from __future__ import annotations
@@ -60,13 +62,19 @@ def conv_weights(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def int8_conv1d_quantized(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor,
                           bias: Optional[torch.Tensor], padding: Tuple[int, int],
-                          dilation: int = 1, phases: int = 1) -> torch.Tensor:
+                          dilation: int = 1, phases: int = 1, slope: Optional[float] = None,
+                          mask: Optional[torch.Tensor] = None,
+                          residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x [B, C_in, T] fp32 through the int8 conv of quantized weights (w_q
     [N, k, C_in], s_w [N]; `kernels/int8_conv.py`'s contract) ->
-    [B, N / phases, T_out * phases] fp32. On the card a shape that
-    `int8_conv.supports` does not take raises."""
-    x_q, s_x = int8_conv.quantize_act(x.contiguous())
-    return int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, padding, dilation, phases)
+    [B, N / phases, T_out * phases] fp32. The conv's input is
+    leaky_relu(x, slope) * mask (each only when given), formed by the
+    quantizer as it reads x; `residual` is added to the output by the
+    conv. On the card a shape that `int8_conv.supports` does not take
+    raises."""
+    x_q, s_x = int8_conv.quantize_act(x.contiguous(), slope, mask)
+    return int8_conv.int8_conv1d(x_q, s_x, w_q, s_w, bias, padding, dilation, phases,
+                                 residual=residual)
 
 
 def int8_conv1d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None, *,
