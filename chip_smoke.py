@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port (VITS2 inference, training step and trainer,
 multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
 types, Tacotron-2 inference, serving with the HiFi-GAN vocoder and its
-trainer, and training, the bulk mel frontend, the LLTM cell, the int8
-decoder, bf16 VITS2 training) on one NVIDIA GPU.
+trainer, and training, the VAE style path and the other Tacotron
+variants, the bulk mel frontend, the LLTM cell, the int8 decoder, bf16
+VITS2 training) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -239,10 +240,30 @@ Phases, each of which raises on failure (exit code 1, no result line):
    for a second, checked bit for bit; then a bf16 and an fp32 step on the
    same weights and batch in turns: host ms, a profiled step's device
    busy ms, idle share, operations and largest kernels.
-16. Prints each phase's seconds, the kernels' JSON line (launches: the
+16. Tacotron variants (after Tacotron training): the LJSpeech config with
+   style_dim_vae = TACO_STYLE_DIM, seeded, reference mels of eight seeded
+   clips of TACO_REF_SECONDS through the port's frontend on the card.
+   Counts zeroed, then `infer` of TACO_STEPS steps at B=1 and a ragged B=8
+   with ragged references: one `taco_step_streamed` launch per step and
+   row group; then the same decodes on the cell route with the kernel
+   route's frames as each step's input, within TACO_TF_ATOL (the styled
+   memory is checked to be non-zero past the shortest text); decode times
+   and device busy with and without the style, in turns; a train step with
+   the teacher mels as reference (the KL term > 0) and an eval_step (no
+   reference, KL 0) at the training phase's shape; `tacotron_infer --ref
+   --plot` as a process on the card (a WAV and a PNG). Then each of
+   TACO_VARIANTS (the Tacotron-2 cell; the CBHG encoder, Tacotron-1 cell
+   and MelPostnet2) at the config's widths: `infer` of TACO_VARIANT_STEPS
+   at TACO_VARIANT_B on the card against the same model and masks on the
+   CPU (given the card's frames step by step) within TACO_TF_ATOL, chunks
+   of TACO_VARIANT_CHUNK against the whole decode, decode ms and device
+   busy, one train step and eval_step (B = TACO_TRAIN_B, TACO_LOSS_FRAMES
+   frames), one `TacotronSynthesizer` dispatch;
+   no Taco2Prod kernel launch (these cells have no TPU kernel).
+17. Prints each phase's seconds, the kernels' JSON line (launches: the
    main paths', the trainer's, the bf16 path's, the multi-speaker path's,
    the serving path's, the MB-iSTFT path's, the int8 decoder's and the
-   Tacotron serving and training paths'; launches_by_path: each path's
+   Tacotron serving, training and variants paths'; launches_by_path: each path's
    own; the bf16 WN variants as rows of their own, with their shape),
    then the device line last.
 """
@@ -250,6 +271,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -3926,9 +3948,9 @@ def mrf_stages(gen) -> int:
 @contextlib.contextmanager
 def expected_taco_launches(synth):
     """Counts, while open, the launches the synthesizer's dispatches imply on
-    the kernel path: one `taco_step_streamed` per decoder step and row group
-    of at most 8, one `mrf_fused` per MRF stage of each vocoder call (none
-    without a vocoder)."""
+    the kernel path: one `taco_step_streamed` per Taco2Prod decoder step and
+    row group of at most 8 (none for the other cells), one `mrf_fused` per
+    MRF stage of each vocoder call (none without a vocoder)."""
     import threading
 
     from torch_tts_tpu_torch.kernels import taco_step as ts
@@ -3938,7 +3960,9 @@ def expected_taco_launches(synth):
     real_run = dec._run
 
     def run(carry, memory, prenet_masks, step_inputs=None, **train):
-        if dec.use_kernel and not any(v is not None for v in train.values()):
+        draws = [train.get(k) for k in ("coin", "zoneout", "att_noise")]
+        if dec.use_kernel and dec.cell_type == "tacotron2prod" and \
+                not any(v is not None for v in draws):
             with lock:
                 counts["taco_step_streamed"] += (prenet_masks.shape[0]
                                                  * len(ts.row_groups(memory.shape[0])))
@@ -4104,9 +4128,9 @@ def taco_serving_stream(synth, card: str):
         f"{runs[0][2]:.1f}, {runs[1][2]:.1f} ms on the host clock [{card}]")
     # the chunked decode the stream runs, against the tier-1 batch decode
     S = bucket[1]
-    memory, carry, buf, masks, _ = synth._stream_start(ids, 3, K)
+    memory, mmask, carry, buf, masks, _ = synth._stream_start(ids, 3, K)
     for t0 in range(0, buf.shape[1] // r, K):
-        carry, _, _ = synth._chunk(memory, carry, buf, masks, t0, K)
+        carry, _, _ = synth._chunk(memory, mmask, carry, buf, masks, t0, K)
     x = torch.zeros(1, bucket[0], dtype=torch.int64)
     x[0, :len(ids)] = torch.tensor(ids)
     y, *_ = synth.model.infer(x.to(synth.device), torch.tensor([len(ids)], device=synth.device),
@@ -4577,6 +4601,272 @@ def taco_training_phase(device, card: str, tmp: str):
     return launches
 
 
+# Tacotron variants: the VAE style path at full width (style_dim_vae
+# TACO_STYLE_DIM; reference clips of TACO_REF_SECONDS through the port's
+# frontend), then the Tacotron-2 cell and the Tacotron-1 family
+# (TACO_VARIANTS: decoder_type and encoder_type as the JAX package names
+# them; "melpostnet2" is a postnet_type other than tacotron2, which builds
+# MelPostnet2) decoded for TACO_VARIANT_STEPS steps at TACO_VARIANT_B.
+# Tolerance: TACO_TF_ATOL, step by step (each step given the frame the
+# route checked against produced), for the kernel route against the cell
+# route and for the card against the CPU
+TACO_STYLE_DIM, TACO_REF_SECONDS = 16, (1.0, 3.0)
+TACO_VARIANT_STEPS, TACO_VARIANT_B, TACO_VARIANT_CHUNK = 200, (1, 4), 32
+TACO_VARIANTS = (("tacotron2 cell", dict(decoder_type="tacotron2")),
+                 ("tacotron1", dict(encoder_type="tacotron1", decoder_type="tacotron1",
+                                    postnet_type="melpostnet2")))
+
+
+def taco_variants_phase(device, card: str, tmp: str):
+    """The VAE style path on kernel #7 (infer B=1 and ragged B=8 with
+    ragged references, the kernel route against the cell route, a train
+    step and an eval_step with the teacher mels as reference,
+    `tacotron_infer --ref --plot` in a subprocess), then the Tacotron-2
+    cell and the Tacotron-1 family on the card against the CPU. Returns
+    the style path's launch counts."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from torch_tts_tpu_torch.audio.frontend import AudioFrontend, m_fwd
+    from torch_tts_tpu_torch.cli.tacotron_infer import text_encoder
+    from torch_tts_tpu_torch.core.config import TacotronConfig
+    from torch_tts_tpu_torch.infer.taco_serving import TacotronSynthesizer
+    from torch_tts_tpu_torch.kernels import taco_step as ts
+    from torch_tts_tpu_torch.models.tacotron import build_tacotron
+    from torch_tts_tpu_torch.train import tacotron_train as tt
+    from torch_tts_tpu_torch.train.vits2_trainer import step_generator
+
+    base = TacotronConfig()
+    r, D = base.model.r, base.audio.num_mels
+
+    def variant(**upd):
+        return dataclasses.replace(base, model=dataclasses.replace(base.model, **upd))
+
+    enc = text_encoder(base)
+
+    def texts(B, dev=device):
+        ids = [enc.encode(SENTENCES[2][: 150 - 13 * i]) for i in range(B)]
+        c = torch.zeros(B, max(map(len, ids)), dtype=torch.int64)
+        for i, row in enumerate(ids):
+            c[i, : len(row)] = torch.tensor(row)
+        return c.to(dev), torch.tensor([len(row) for row in ids], device=dev)
+
+    def checked(out, what, S):
+        y_post, aux = out[1], out[3]
+        stop, dev = aux["stop_lengths"], float((aux["w"].sum(-1) - 1).abs().max())
+        if not bool(torch.isfinite(y_post).all()) or not bool(((stop >= 1) & (stop <= S)).all()) \
+                or dev > 1e-4:
+            raise RuntimeError(f"{what}: non-finite mel, stop lengths {stop.tolist()} outside "
+                               f"[1, {S}] or attention rows off 1 by {dev:.2e}")
+
+    def step_frames(y, B, S):
+        """Each step's input frame of the decode y: zeros, then the last
+        frame of the previous group."""
+        return torch.cat([torch.zeros(B, 1, D, device=y.device),
+                          y.reshape(B, S, r, D)[:, :-1, -1]], 1)
+
+    def max_diff(a, b):
+        return max(float((x.to(b[0].device) - y).abs().max()) for x, y in zip(a, b))
+
+    # --- reference recordings: seeded tones with harmonics and noise, their
+    # m_fwd mels by the port's frontend on the card, padded to a batch
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(21)
+    sr = base.audio.sample_rate
+    fe = AudioFrontend(base.audio, device)
+    waves, mels = [], []
+    for i in range(8):
+        t = np.arange(int(rng.uniform(*TACO_REF_SECONDS) * sr)) / sr
+        f0 = rng.uniform(90, 260)
+        w = sum(0.2 / k * np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 6.3)) for k in (1, 2, 3))
+        waves.append((w + 0.02 * rng.standard_normal(t.size)).astype(np.float32))
+        mels.append(m_fwd(fe.encode(waves[-1])[1]))
+    xrl = torch.tensor([m.shape[0] for m in mels], device=device)
+    xref = torch.zeros(8, int(xrl.max()), D, device=device)
+    for i, m in enumerate(mels):
+        xref[i, : m.shape[0]] = m
+    ref_wav = os.path.join(tmp, "ref.wav")
+    wavfile.write(ref_wav, sr, np.round(np.clip(waves[0], -1, 1) * 32767).astype(np.int16))
+
+    cfg = variant(style_dim_vae=TACO_STYLE_DIM)
+    model = build_tacotron(cfg, seed=0, device=device)
+    S = TACO_STEPS
+    log(f"tacotron variants phase: VAE style (style_dim_vae {TACO_STYLE_DIM}) on the LJSpeech "
+        f"Tacotron-2, {sum(p.numel() for p in model.parameters())} params; reference mels of "
+        f"{xrl.tolist()} frames; set-up {time.perf_counter() - t0:.1f} s")
+
+    # --- the style path, its launches counted: infer at B=1 and a ragged
+    # B=8 with ragged references, every step through the kernel
+    outs = {}
+    ts.taco_step_streamed.launches = 0
+    for B in (1, 8):
+        c, cl = texts(B)
+        draws = model.draw(B, c.shape[1], S, torch.Generator(device=device).manual_seed(30 + B),
+                           train=False, style=True)
+        kw = dict(prenet_masks=draws.prenet, xref=xref[:B], xref_lengths=xrl[:B],
+                  style_eps=draws.style_eps)
+        outs[B] = (c, cl, kw, model.infer(c, cl, S, **kw))
+    torch.cuda.synchronize()
+    launches = ts.taco_step_streamed.launches
+    expected = S * (len(ts.row_groups(1)) + len(ts.row_groups(8)))
+    for B, (_, _, _, out) in outs.items():
+        checked(out, f"VAE B={B}", S)
+    log(f"  infer B=1 and B=8 (text lengths {outs[8][1].tolist()}): stop lengths "
+        f"{outs[1][3][3]['stop_lengths'].tolist()}, {outs[8][3][3]['stop_lengths'].tolist()}; "
+        f"taco_step_streamed launches {launches} (expected {S} x (1 + 1) row groups)")
+    if launches != expected:
+        raise RuntimeError("the VAE decode did not run every step through taco_step_streamed")
+
+    # --- the kernel route against the cell route on the same memory, masks
+    # and eps; the styled memory is not zero past each text
+    c, cl, kw, _ = outs[8]
+    memory, _ = model.encode(c, cl, kw["xref"], kw["xref_lengths"], kw["style_eps"])
+    pad_min = float(memory[-1, int(cl[-1]):].abs().min())
+    if not pad_min > 0:
+        raise RuntimeError("the style did not reach the memory's padding")
+    for B, (c, cl, kw, (y_k, _, s_k, aux_k)) in outs.items():
+        model.decoder.use_kernel = False
+        y_c, _, s_c, aux_c = model.infer(c, cl, S, step_inputs=step_frames(y_k, B, S), **kw)
+        model.decoder.use_kernel = True
+        err = max_diff((y_c, s_c, aux_c["w"]), (y_k, s_k, aux_k["w"]))
+        log(f"  B={B}: cell route with the kernel route's frames: max |d| over y, s, w "
+            f"{err:.3e} (bound {TACO_TF_ATOL:g}); memory past the shortest text min |m| "
+            f"{pad_min:.3e}")
+        if not err <= TACO_TF_ATOL:
+            raise RuntimeError(f"VAE B={B}: the kernel route and the cell route disagree")
+    if ts.taco_step_streamed.launches != launches:
+        raise RuntimeError("the cell route launched the kernel")
+
+    # --- decode times with and without the style (the same weights), in turns
+    for B in (1, 8):
+        c, cl, kw, _ = outs[B]
+        style_free = {"prenet_masks": kw["prenet_masks"]}
+        times = {}
+        for styled in (True, False, False, True):
+            k = kw if styled else style_free
+            times.setdefault(styled, []).append(wall_ms(lambda: model.infer(c, cl, S, **k),
+                                                        warmup=1, reps=1))
+        busy = {st: profile_busy_ms(lambda: model.infer(c, cl, S, **(kw if st else style_free)))
+                for st in (True, False)}
+        log(f"  decode B={B}, {S} steps on the kernel: with the style "
+            f"{statistics.median(times[True]):.1f} ms/call (turns "
+            f"{', '.join(f'{v:.1f}' for v in times[True])}), device busy {busy[True]:.1f} ms; "
+            f"without {statistics.median(times[False]):.1f} ms/call (turns "
+            f"{', '.join(f'{v:.1f}' for v in times[False])}), busy {busy[False]:.1f} ms [{card}]")
+
+    # --- a train step with xref = x and an eval_step (no reference) at the
+    # training phase's shape
+    def train_batch(B, T, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        c, cl = texts(B)
+        xl = torch.linspace(T, T // 2, B, device=device).long()
+        x = torch.rand(B, T, D, generator=g, device=device)
+        x = x * (torch.arange(T, device=device)[None, :, None] < xl[:, None, None])
+        return {"c": c, "c_lengths": cl, "x": x, "x_lengths": xl}
+
+    def one_step(m, what, T):
+        b = train_batch(TACO_TRAIN_B, T, 5)
+        state = tt.create_train_state(m)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = tt.train_step(state, b, generator=step_generator(3, 0, device))
+        vals = {k: float(v) for k, v in metrics.items()}
+        step_ms = (time.perf_counter() - t) * 1e3
+        em, _ = tt.eval_step(m, b, generator=torch.Generator(device=device).manual_seed(6))
+        ev = {k: float(v) for k, v in em.items()}
+        if not all(math.isfinite(v) for v in (*vals.values(), *ev.values())):
+            raise RuntimeError(f"{what}: a non-finite loss term or gradient norm: {vals}, {ev}")
+        log(f"  {what} train step (B={TACO_TRAIN_B}, {T} frames): loss "
+            f"{vals['loss']:.4f}, loss_kl {vals['loss_kl']:.4e}, grad_norm "
+            f"{vals['grad_norm']:.4f}, {step_ms:.1f} ms on the host clock; eval_step loss "
+            f"{ev['loss']:.4f}, loss_kl {ev['loss_kl']:.1f} [{card}]")
+        return vals, ev
+
+    vals, ev = one_step(model, "VAE", TACO_TRAIN_FRAMES)
+    if not vals["loss_kl"] > 0 or ev["loss_kl"] != 0.0:
+        raise RuntimeError("the VAE step has no KL term, or eval_step read a reference")
+
+    # --- tacotron_infer --ref --plot, a process of its own on the card
+    ckpt, cfg_path = os.path.join(tmp, "vae.pth"), os.path.join(tmp, "vae.json")
+    out_wav, png = os.path.join(tmp, "vae.wav"), os.path.join(tmp, "vae.png")
+    torch.save({"model": model.state_dict()}, ckpt)
+    with open(cfg_path, "w") as f:
+        json.dump({k: dataclasses.asdict(getattr(cfg, k)) for k in ("audio", "text", "model")}, f)
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch_tts_tpu_torch.cli.tacotron_infer",
+                           SENTENCES[0], cfg_path, "-m", ckpt, "--ref", ref_wav, "--plot", png,
+                           "-o", out_wav, "--max-steps", str(S), "--device", str(device)],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"tacotron_infer --ref --plot failed:\n{proc.stderr[-3000:]}")
+    with open(png, "rb") as f:
+        head = f.read(24)
+    sr_out, pcm = wavfile.read(out_wav)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or sr_out != sr or not pcm.size:
+        raise RuntimeError("tacotron_infer --ref --plot wrote no readable WAV or PNG")
+    log(f"  tacotron_infer --ref --plot: {proc.stdout.strip().splitlines()[-2]}; PNG "
+        f"{int.from_bytes(head[16:20], 'big')} x {int.from_bytes(head[20:24], 'big')}; "
+        f"{time.perf_counter() - t:.1f} s as a process")
+    del model
+    torch.cuda.empty_cache()
+
+    # --- the Tacotron-2 cell and the Tacotron-1 family at the yaml's widths
+    for name, upd in TACO_VARIANTS:
+        vcfg = variant(**upd)
+        t0 = time.perf_counter()
+        cpu = build_tacotron(vcfg, seed=0, device="cpu")
+        model = copy.deepcopy(cpu).to(device)
+        Sv = TACO_VARIANT_STEPS
+        n0 = ts.taco_step_streamed.launches
+        for B in TACO_VARIANT_B:
+            c, cl = texts(B)
+            masks = model.decoder.draw_prenet_masks(Sv, B, device,
+                                                    torch.Generator(device=device).manual_seed(B))
+            out = model.infer(c, cl, Sv, prenet_masks=masks)
+            checked(out, f"{name} B={B}", Sv)
+            ref = cpu.infer(c.cpu(), cl.cpu(), Sv, prenet_masks=masks.cpu(),
+                            step_inputs=step_frames(out[0], B, Sv).cpu())
+            err = max_diff((ref[0], ref[2], ref[3]["w"]), (out[0], out[2], out[3]["w"]))
+            # the chunked decode against the whole one, on the card
+            mem, mmask = model.encode(c, cl)
+            n = -(-Sv // TACO_VARIANT_CHUNK) * TACO_VARIANT_CHUNK
+            cm = torch.cat([masks, torch.ones_like(masks[: n - Sv])])
+            carry, ys = model.decode_init(mem), []
+            for t0c in range(0, n, TACO_VARIANT_CHUNK):
+                carry, yc, _, _ = model.decode_chunk(mem, carry, cm[t0c:t0c + TACO_VARIANT_CHUNK],
+                                                     mmask)
+                ys.append(yc)
+            chunk_err = float((torch.cat(ys, 1)[:, : Sv * r] - out[0]).abs().max())
+            times = [wall_ms(lambda: model.infer(c, cl, Sv, prenet_masks=masks), warmup=1,
+                             reps=2)]
+            busy = profile_busy_ms(lambda: model.infer(c, cl, Sv, prenet_masks=masks))
+            log(f"  {name} B={B}, {Sv} steps: card vs CPU with the card's frames, max |d| over "
+                f"y, s, w {err:.3e} (bound {TACO_TF_ATOL:g}); chunks of {TACO_VARIANT_CHUNK} "
+                f"against the whole decode "
+                f"{chunk_err:.3e}; {times[0]:.1f} ms/call, device busy {busy:.1f} ms [{card}]")
+            if not err <= TACO_TF_ATOL or not chunk_err <= TACO_TF_ATOL:
+                raise RuntimeError(f"{name} B={B}: the card and the CPU, or the chunks and the "
+                                   "whole decode, disagree")
+        one_step(model, name, TACO_LOSS_FRAMES)
+        synth = TacotronSynthesizer(vcfg, model, device=device)
+        t = time.perf_counter()
+        res = synth._collect_group(synth._dispatch_group([enc.encode(SENTENCES[1][:60])],
+                                                         seed=2))[0]
+        synth_ms = (time.perf_counter() - t) * 1e3
+        if not res.audio.size or not np.isfinite(res.audio).all():
+            raise RuntimeError(f"{name}: the synthesizer's dispatch gave empty or non-finite audio")
+        if ts.taco_step_streamed.launches != n0:
+            raise RuntimeError(f"{name}: its cell launched the Taco2Prod step kernel")
+        log(f"  {name} TacotronSynthesizer dispatch (Griffin-Lim): "
+            f"{len(res.audio) / sr:.2f} s of audio in {synth_ms:.1f} ms; phase part "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+        del model, cpu, synth
+        torch.cuda.empty_cache()
+    return {"taco_step_streamed": launches}
+
+
 def main():
     import torch
 
@@ -4642,17 +4932,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         by_path["tacotron training"] = timed("tacotron training", taco_training_phase, device,
                                              card, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_path["tacotron variants"] = timed("tacotron variants", taco_variants_phase, device,
+                                             card, tmp)
     by_path["mel frontend"] = timed("mel frontend", mel_frontend_phase, device, card)
     by_path["lltm"] = timed("lltm", lltm_phase, device, card)
     # launches: the last of these paths that runs the kernel (wn_group: the
     # train step's), plus the trainer's, the multi-speaker path's, the
-    # serving path's, the MB-iSTFT path's and the Tacotron serving and
-    # training paths'
+    # serving path's, the MB-iSTFT path's and the Tacotron serving,
+    # training and variants paths'
     launches = {}
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
     for p in ("trainer", "bf16 train", "multi-speaker", "serving", "mb-istft", "int8 decoder",
-              "tacotron serving", "tacotron training"):
+              "tacotron serving", "tacotron training", "tacotron variants"):
         for n, c in by_path[p].items():
             launches[n] = launches.get(n, 0) + c
     # the fused step is on no model path: its count is the kernel phase's

@@ -453,6 +453,33 @@ def test_taco_step_kernel_matches_plain(cuda_device, B, L, H, entry, ragged):
 
 
 @pytest.mark.cuda
+def test_taco_step_streamed_on_styled_ragged_memory(cuda_device):
+    """A VAE model's memory at B=8: the encoder's output, zero past each of
+    eight ragged text lengths, plus a style row per item added at every
+    position (so not zero in the padding); the model's all-ones mask. Ten
+    steps of the kernel, each from the plain version's state, against the
+    plain version."""
+    B, L, H = 8, 160, 1024
+    g = torch.Generator().manual_seed(20)
+    y_in, state, memory, _, wts, masks = _taco_inputs(g, cuda_device, B, L, H, False)
+    lengths = torch.tensor([160, 141, 122, 103, 84, 65, 46, 27], device=cuda_device)
+    inside = (torch.arange(L, device=cuda_device)[None, :] < lengths[:, None])[..., None]
+    memory = memory * inside + torch.tanh(_randn(g, cuda_device, B, 1, memory.shape[-1],
+                                                 scale=1.0))
+    assert float(memory[-1, 27:].abs().min()) > 0
+    packed = ts.pack_streamed(wts, torch.float32)
+    ones = torch.ones(B, L, device=cuda_device)
+    before = ts.taco_step_streamed.launches
+    for _ in range(10):
+        got = ts.taco_step_streamed(y_in, state, memory, ones, packed, prenet_masks=masks)
+        want = ts.taco_step_streamed_via_plain(y_in, state, memory, ones, packed,
+                                               prenet_masks=masks)
+        _assert_step_close(got, want)
+        y_in, state = want[0][:, -80:], want[2]
+    assert ts.taco_step_streamed.launches == before + 10
+
+
+@pytest.mark.cuda
 def test_taco_step_launches_in_turn_agree(cuda_device):
     """The kernel's dependency counters carry over from launch to launch:
     twenty prepared launches back to back, then one more, give the same

@@ -170,7 +170,7 @@ def draws_from_record(record, S: int, train: bool, n_postnet: int = 2) -> Tacotr
     assert next(it, None) is None, "draws left over"
     if not train:
         return TacotronDraws(torch.stack(prenet))
-    return TacotronDraws(torch.stack(prenet), coin, torch.stack(z_att), torch.stack(z_dec),
+    return TacotronDraws(torch.stack(prenet), coin, [torch.stack(z_att), torch.stack(z_dec)],
                          torch.stack(noise), enc, post)
 
 
@@ -366,15 +366,16 @@ def test_draws_from_a_generator(setup):
     model = port_model(s["variables"])
     S, b = s["S"], torch_batch(s["batch"])
     d = model.draw(B, L_TEXT, S, torch.Generator().manual_seed(0))
-    shapes = {"prenet": (S, 2, B, 8), "coin": (S,), "zoneout_att": (S, 2, 16),
-              "zoneout_dec": (S, 2, 16), "att_noise": (S, B, L_TEXT),
+    shapes = {"prenet": (S, 2, B, 8), "coin": (S,), "att_noise": (S, B, L_TEXT),
               "encoder": (B, L_TEXT, 32)}
     for name, shape in shapes.items():
         assert tuple(getattr(d, name).shape) == shape, name
+    assert [tuple(z.shape) for z in d.zoneout] == [(S, 2, 16), (S, 2, 16)]
     assert [tuple(m.shape) for m in d.postnet] == [(B, S * 2, 16)] * 2
     big = model.draw(16, 32, 1024, torch.Generator().manual_seed(1))
-    for name, rate in (("prenet", 0.5), ("coin", 0.9), ("zoneout_att", 0.1), ("encoder", 0.9)):
-        m = getattr(big, name).float()
+    for name, rate in (("prenet", 0.5), ("coin", 0.9), ("zoneout", 0.1), ("encoder", 0.9)):
+        m = getattr(big, name)
+        m = (m[0] if name == "zoneout" else m).float()
         assert abs(m.mean().item() - rate) < 4 * (rate * (1 - rate) / m.numel()) ** 0.5, name
     outs = []
     for draws, gen in ((d, None), (None, torch.Generator().manual_seed(0))):

@@ -10,14 +10,20 @@ runs Griffin-Lim. The weights: `-m`, a reference-format state dict
 (`.pth`, bare or {"model": ...}) such as `models/tacotron/convert.py`
 writes, or `--run-dir`, the latest checkpoint of a `cli/tacotron_train.py`
 run (random weights, with a warning, when it has none); exactly one of the
-two. The PreNet's dropout masks and the Griffin-Lim phases come from
---seed. Not ported: --ref (the VAE style encoder) and --plot.
+two. --ref WAV: a reference recording for a VAE model's style (its mel by
+the port's `load_wav`, `AudioFrontend.encode` and `m_fwd`; ignored, with a
+warning, by a model without a style encoder, as the JAX model ignores
+it); --plot PNG: the attention of the decode up to its stop, as
+`utils/logging_utils.py` renders it. The PreNet's dropout masks, the VAE's
+eps (drawn after the masks) and the Griffin-Lim phases come from --seed.
 
 Usage:
   python -m torch_tts_tpu_torch.cli.tacotron_infer "speech synthesis is neat" \\
       configs/tacotron-ljspeech.yaml -m tacotron.pth -o out.wav
   python -m torch_tts_tpu_torch.cli.tacotron_infer "speech synthesis is neat" \\
       configs/tacotron-ljspeech.yaml --run-dir runs/tacotron -o out.wav
+  python -m torch_tts_tpu_torch.cli.tacotron_infer "speech synthesis is neat" \\
+      vae.yaml -m vae.pth --ref reference.wav --plot attention.png
 """
 
 from __future__ import annotations
@@ -29,17 +35,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from torch_tts_tpu_torch.audio.frontend import AudioFrontend, m_rev
+from torch_tts_tpu_torch.audio.frontend import AudioFrontend, m_fwd, m_rev
 from torch_tts_tpu_torch.cli.vits2_infer import write_wav
 from torch_tts_tpu_torch.core.config import TacotronConfig, load_tacotron_config
 from torch_tts_tpu_torch.models.tacotron.model import Tacotron
 from torch_tts_tpu_torch.text.encoder import TextEncoder
-
-_NOT_PORTED = {
-    "ref": "the VAE style encoder (ROADMAP queue 5.2)",
-    "plot": "the attention plot's PNG writer (utils/logging_utils.py renders it in numpy)",
-}
-
 
 def load_model(cfg: TacotronConfig, checkpoint: str, device) -> Tacotron:
     """Tacotron for `cfg` with the state dict in `checkpoint` (a `.pth`, or
@@ -77,12 +77,9 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--vocoder", default=None, help="vocoder artifact (else Griffin-Lim)")
-    for name in _NOT_PORTED:
-        p.add_argument(f"--{name}", default=None, help="not ported yet")
+    p.add_argument("--ref", default=None, help="reference wav for style (VAE models)")
+    p.add_argument("--plot", default=None, help="write the attention plot PNG here")
     args = p.parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name) is not None:
-            raise SystemExit(f"--{name} is not ported to torch_tts_tpu_torch yet: it needs {what}")
 
     cfg = load_tacotron_config(args.config)
     device = torch.device(args.device)
@@ -90,8 +87,20 @@ def main(argv: Optional[Sequence[str]] = None):
     ids = text_encoder(cfg).encode(args.text)
     c = torch.tensor([ids], dtype=torch.int64, device=device)
     c_lengths = torch.tensor([len(ids)], dtype=torch.int64, device=device)
+    fe = AudioFrontend(cfg.audio, device)
+    xref = xref_lengths = None
+    if args.ref:
+        if model.refencoder is None:
+            logging.warning("--ref given, but the model has no style encoder: ignored")
+        else:
+            from torch_tts_tpu_torch.data.audio_np import load_wav
+
+            wav, sr = load_wav(args.ref)
+            xref = m_fwd(fe.encode(wav, sr)[1])[None]  # [1, T, M]
+            xref_lengths = torch.tensor([xref.shape[1]], dtype=torch.int64, device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    _, y_post, _, aux = model.infer(c, c_lengths, max_steps=args.max_steps, generator=gen)
+    _, y_post, _, aux = model.infer(c, c_lengths, max_steps=args.max_steps, generator=gen,
+                                    xref=xref, xref_lengths=xref_lengths)
     n_groups = int(aux["stop_lengths"][0])
     mel = y_post[0, : n_groups * cfg.model.r]  # [T, M], network domain
 
@@ -106,12 +115,16 @@ def main(argv: Optional[Sequence[str]] = None):
             raise SystemExit(str(e))
         wav = voc.synth(mel[None])[0]
     else:
-        fe = AudioFrontend(cfg.audio, device)
         wav = fe.decode(fe.mel_inv(m_rev(mel)), n_iter=args.griffin_lim_iters, generator=gen)
         wav = wav.cpu().numpy()
     wav = wav / max(1e-6, float(np.abs(wav).max())) * 0.9
     write_wav(args.output, wav, cfg.audio.sample_rate)
     print(f"wrote {args.output}: {len(wav) / cfg.audio.sample_rate:.2f}s ({n_groups} decoder steps)")
+    if args.plot:
+        from torch_tts_tpu_torch.utils.logging_utils import plot_alignment_to_numpy, write_png
+
+        write_png(args.plot, plot_alignment_to_numpy(aux["w"][0, :n_groups].cpu().numpy()))
+        print(f"wrote {args.plot}")
     return wav, mel
 
 

@@ -1,6 +1,7 @@
-"""The serving layer over Tacotron-2 (port of
-`torch_tts_tpu/infer/taco_serving.py`): load once, bucketed, batched, text
--> mel -> waveform in one dispatch.
+"""The serving layer over Tacotron (port of
+`torch_tts_tpu/infer/taco_serving.py`), any encoder, decoder cell and
+postnet the model has: load once, bucketed, batched, text -> mel ->
+waveform in one dispatch.
 
 - Length buckets (text ids, decoder steps) and batch tiers (1, 2, 4), as
   the VITS2 `Synthesizer`: a group of requests is padded to (tier, bucket);
@@ -8,8 +9,9 @@
   its own) and are dropped. `_dispatch_group` / `_collect_group` have
   `Synthesizer`'s signature, so `ContinuousBatcher` drives both families
   (`scales` is ignored; `sid` must be None).
-- One dispatch: encoder, every decoder step (on the card each step is one
-  `taco_step_streamed` launch), postnet, the vocoder's renorm and
+- One dispatch: encoder, every decoder step (on the card each Taco2Prod
+  step is one `taco_step_streamed` launch per row group; the Tacotron-2
+  and Tacotron-1 cells run their modules), postnet, the vocoder's renorm and
   HiFi-GAN (three `mrf_fused` launches at the LJSpeech widths), then
   copies of the real rows' audio started into pinned memory. Only the
   stop lengths are waited for at dispatch. Without a vocoder the mel
@@ -240,12 +242,13 @@ class TacotronSynthesizer:
         return max_steps >= chunk_steps and max_steps * r >= chunk_steps * r + 2 * pad_frames
 
     def _stream_start(self, ids: Sequence[int], seed: int, chunk_steps: int):
-        """Encode one utterance -> (memory, carry, the mel buffer of whole
-        chunks [1, n_chunks * K * r, M], the masks of its steps, max_steps)."""
+        """Encode one utterance -> (memory, its mask, carry, the mel buffer
+        of whole chunks [1, n_chunks * K * r, M], the masks of its steps,
+        max_steps)."""
         pad_text, max_steps = self._bucket_for(len(ids))
         c = np.zeros((1, pad_text), np.int64)
         c[0, :len(ids)] = ids
-        memory, _ = self.model.encode(to_device(c, self.device),
+        memory, mmask = self.model.encode(to_device(c, self.device),
                                       to_device(np.asarray([len(ids)], np.int64), self.device))
         n_steps = -(-max_steps // chunk_steps) * chunk_steps
         masks = self._masks(seed, max_steps, 1)
@@ -253,15 +256,15 @@ class TacotronSynthesizer:
             masks = torch.cat([masks, torch.ones_like(masks[:n_steps - max_steps])])
         buf = torch.zeros(1, n_steps * self.cfg.model.r, self.cfg.audio.num_mels,
                           device=self.device)
-        return memory, self.model.decode_init(memory), buf, masks, max_steps
+        return memory, mmask, self.model.decode_init(memory), buf, masks, max_steps
 
-    def _chunk(self, memory, carry, buf, masks, t0: int, chunk_steps: int):
+    def _chunk(self, memory, mmask, carry, buf, masks, t0: int, chunk_steps: int):
         """Decode steps [t0, t0 + K) into buf -> (carry, the chunk's stop
         flags copied to the host, their event)."""
         r = self.cfg.model.r
         with torch.no_grad():
             carry, y, stopped, _ = self.model.decode_chunk(memory, carry,
-                                                           masks[t0:t0 + chunk_steps])
+                                                           masks[t0:t0 + chunk_steps], mmask)
             buf[:, t0 * r:(t0 + chunk_steps) * r] = y
             flags = to_host(stopped[0])
         return carry, flags, recorded_event(self.device)
@@ -285,8 +288,9 @@ class TacotronSynthesizer:
         for pad_text, max_steps in self.buckets:
             if not self._streamable(max_steps, chunk_steps, pad_frames):
                 continue
-            memory, carry, buf, masks, _ = self._stream_start([1] * pad_text, 0, chunk_steps)
-            self._chunk(memory, carry, buf, masks, 0, chunk_steps)
+            memory, mmask, carry, buf, masks, _ = self._stream_start([1] * pad_text, 0,
+                                                                     chunk_steps)
+            self._chunk(memory, mmask, carry, buf, masks, 0, chunk_steps)
             self._emit(buf, 0, max_steps * self.cfg.model.r, chunk_steps * self.cfg.model.r,
                        pad_frames)
             n += 1
@@ -312,7 +316,7 @@ class TacotronSynthesizer:
             return
         chunk_frames = chunk_steps * r
         W = chunk_frames + 2 * pad_frames
-        memory, carry, buf, masks, _ = self._stream_start(ids, seed, chunk_steps)
+        memory, mmask, carry, buf, masks, _ = self._stream_start(ids, seed, chunk_steps)
         t_valid = max_steps * r  # frames past this are the overhang
         # emit a window once a chunk of decode lies beyond its margin: a
         # later stop then lands past every emitted window, and total >= W at
@@ -339,7 +343,7 @@ class TacotronSynthesizer:
         pending = None
         for t0 in range(0, buf.shape[1] // r, chunk_steps):
             # chunk k+1 is launched before chunk k's flags are read
-            carry, flags, event = self._chunk(memory, carry, buf, masks, t0, chunk_steps)
+            carry, flags, event = self._chunk(memory, mmask, carry, buf, masks, t0, chunk_steps)
             if pending is not None:
                 yield from process(*pending)
                 if t_final is not None:

@@ -6,6 +6,13 @@
   blend p * prev + (1 - p) * new on h and c; in training, given keep masks
   (the JAX module's `uniform((H,)) < p`, one for h and one for c, each
   shared over the batch), the previous h or c where the mask is set.
+- `UnidirLSTM`: an `LSTMCell` run over [B, T, C] from a given (h0, c0);
+  returns (ys, (h_n, c_n)), as the JAX module's scan.
+- `GRUCell`: torch.nn.GRUCell's names and gate order (r, z, n), with
+  optional zoneout: given a training mask [H] (the JAX module's
+  `uniform((H,)) < p`, shared over the batch) the previous h where it is
+  set; at eval the deterministic blend p * h + (1 - p) * h_new.
+  `ResGRUCell`: the same cell whose output is x + h_new.
 - `reverse_padded`: reverse each sequence within its length.
 - `BiLSTM`: torch.nn.LSTM, bidirectional, over a packed sequence, so the
   backward direction starts at each item's last valid step as the JAX
@@ -73,6 +80,61 @@ class LSTMZoneoutCell(LSTMCell):
                 h_new = p * h_prev + (1.0 - p) * h_new
                 c_new = p * c_prev + (1.0 - p) * c_new
         return h_new, c_new
+
+
+class UnidirLSTM(nn.Module):
+    """An LSTM over a whole sequence: `cell` stepped over the time axis."""
+
+    def __init__(self, input_size: int, hidden_size: int, bias: bool = True):
+        super().__init__()
+        self.cell = LSTMCell(input_size, hidden_size, bias)
+
+    def forward(self, x: torch.Tensor, h0: torch.Tensor, c0: torch.Tensor):
+        """x [B, T, in], h0/c0 [B, H] -> (ys [B, T, H], (h_n, c_n))."""
+        carry, ys = (h0, c0), []
+        for t in range(x.shape[1]):
+            carry = self.cell(carry, x[:, t])
+            ys.append(carry[0])
+        return torch.stack(ys, 1), carry
+
+
+class GRUCell(nn.Module):
+    def __init__(self, input_size: int, hidden_size: int, p_zoneout: Optional[float] = None,
+                 bias: bool = True):
+        super().__init__()
+        self.hidden_size, self.p_zoneout = hidden_size, p_zoneout
+        self.weight_ih = nn.Parameter(torch.zeros(3 * hidden_size, input_size))
+        self.weight_hh = nn.Parameter(torch.zeros(3 * hidden_size, hidden_size))
+        if bias:
+            self.bias_ih = nn.Parameter(torch.zeros(3 * hidden_size))
+            self.bias_hh = nn.Parameter(torch.zeros(3 * hidden_size))
+        else:
+            self.bias_ih = self.bias_hh = None
+
+    reset_parameters_ = LSTMCell.reset_parameters_
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor, keep_prev: Optional[torch.Tensor] = None):
+        """h [B, H], x [B, in] -> h_new; keep_prev: None (the eval blend) or
+        the training mask [H], True keeping the previous value."""
+        i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, dim=-1)
+        h_r, h_z, h_n = F.linear(h, self.weight_hh, self.bias_hh).chunk(3, dim=-1)
+        r = torch.sigmoid(i_r + h_r)
+        z = torch.sigmoid(i_z + h_z)
+        h_new = (1.0 - z) * torch.tanh(i_n + r * h_n) + z * h
+        p = self.p_zoneout
+        if p:
+            if keep_prev is not None:
+                h_new = torch.where(keep_prev, h, h_new)
+            else:
+                h_new = p * h + (1.0 - p) * h_new
+        return h_new
+
+
+class ResGRUCell(GRUCell):
+    def forward(self, h, x, keep_prev=None):
+        """-> (h_new, x + h_new)."""
+        h_new = super().forward(h, x, keep_prev)
+        return h_new, x + h_new
 
 
 def reverse_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:

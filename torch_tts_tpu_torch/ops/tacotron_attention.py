@@ -1,9 +1,12 @@
 """Tacotron attention (port of `torch_tts_tpu/ops/tacotron_attention.py`):
-`initial_att_weights` and `StepwiseMonotonicAttention`, with the training
+`initial_att_weights`, `StepwiseMonotonicAttention`, with the training
 sigmoid noise (the caller's standard normal draws, times 1.0, added to the
-energies). The other attention types are not ported yet.
+energies), and `ContentMarkovAttention` (the Tacotron-1 cell's). The
+content attentions and `GSTMultiHeadAttention`, which no model of the JAX
+package builds, are not ported yet.
 
-The JAX module takes a `cmask` and ignores it: its only sink is
+`StepwiseMonotonicAttention` takes no memory mask; the JAX module takes a
+`cmask` and ignores it: its only sink is
 e[:, -1] = 1e4 at the last (possibly padded) position, so in a ragged batch
 attention weight can move into the padding. This port does the same, so
 that it gives the JAX model's numbers.
@@ -31,6 +34,43 @@ def shift_monotonic(w: torch.Tensor, p_stay: torch.Tensor) -> torch.Tensor:
     """w' = w * p + shift_right(w * (1 - p)): stay or move one step."""
     w1 = w * (1.0 - p_stay)
     return w * p_stay + torch.nn.functional.pad(w1, (1, 0))[:, :-1]
+
+
+class ContentMarkovAttention(nn.Module):
+    """Tri-diagonal Markov transition attention: each memory position emits
+    a softmax over {stay, advance 1, ..., advance P-1}, and the previous
+    weights move through those transitions. The mask test is the JAX
+    module's: transition n at position l is forbidden where position
+    (l + n) mod L is masked (a roll, which wraps around), and wherever
+    l >= L - n."""
+
+    NUM_PROBS = 3
+
+    def __init__(self, dim_input: int, dim_context: int):
+        super().__init__()
+        self.dim_context = dim_context
+        self.fc_query = Linear(dim_input, self.NUM_PROBS * dim_context, bias=False)
+
+    def forward(self, x: torch.Tensor, w: torch.Tensor, memory: torch.Tensor,
+                cmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, D_in], w [B, L], memory [B, L, D_ctx], cmask [B, L] (True
+        inside each text) or None -> new w [B, L]."""
+        B, L, _ = memory.shape
+        P = self.NUM_PROBS
+        q = self.fc_query(x).reshape(B, self.dim_context, P)
+        e = torch.einsum("bld,bdp->blp", memory, q)
+        n = torch.arange(P, device=e.device)
+        pos = torch.arange(L, device=e.device)
+        forbid = ((n >= 1)[None, :] & (pos[:, None] >= L - n[None, :]))[None]  # [1, L, P]
+        if cmask is not None:
+            inv = ~cmask.bool()
+            forbid = forbid | torch.stack([torch.roll(inv, -k, 1) for k in range(P)], 2)
+        p = torch.softmax(torch.where(forbid, torch.full_like(e, -1e12), e), dim=2)
+        wp = w[..., None] * p
+        out = wp[:, :, 0]
+        for k in range(1, P):
+            out = out + torch.nn.functional.pad(wp[:, : L - k, k], (min(k, L), 0))
+        return out
 
 
 class StepwiseMonotonicAttention(nn.Module):

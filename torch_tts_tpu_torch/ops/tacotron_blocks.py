@@ -5,10 +5,13 @@
 `bias`); `BatchNorm` over (batch, time), on its running statistics or, in
 training, on the batch's (flax's `nn.BatchNorm(momentum=0.9, epsilon=1e-5)`);
 `dropout_with_mask`, the JAX `Dropout` given its keep mask; `PreNet`, whose
-dropout stays on at inference in the Taco2Prod decoder and takes its keep
+dropout stays on at inference in the decoder cells and takes its keep
 masks from the caller; `MelPostnet` (in training: batch statistics and
-`Dropout(0.1)` after each ISRU, its masks from the caller). `CBHG`,
-`MelPostnet2`, `Taco1PostNet` and `Upsampler` are not ported yet.
+`Dropout(0.1)` after each ISRU, its masks from the caller); `HighwayLayer`
+and `CBHG` (the Tacotron-1 encoder's); `MelPostnet2` (stacked residual
+conv blocks, `Dropout(0.2)` after each leaky ReLU in training).
+`Taco1PostNet` and `Upsampler`, which no model of the JAX package builds,
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -111,17 +114,24 @@ def dropout_with_mask(x: torch.Tensor, keep_mask: Optional[torch.Tensor], p: flo
 
 class PreNet(nn.Module):
     """FC-ReLU-Dropout x2. `masks` is None (no dropout) or a pair of keep
-    masks [B, dim_hidden] and [B, dim_output] for the two layers."""
+    masks [..., W], W >= each layer's width (`mask_width`), of which each
+    layer reads its first dim_hidden or dim_output columns: so the two
+    masks of a step fit one tensor when the widths differ."""
 
     def __init__(self, dim_input: int, dim_output: int, dim_hidden: int = 256, p_dropout: float = 0.5):
         super().__init__()
         self.p_dropout = p_dropout
         self.layers = nn.ModuleList([Linear(dim_input, dim_hidden), Linear(dim_hidden, dim_output)])
 
+    @property
+    def mask_width(self) -> int:
+        return max(layer.weight.shape[0] for layer in self.layers)
+
     def forward(self, x: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         for i, layer in enumerate(self.layers):
-            x = dropout_with_mask(F.relu(layer(x)), None if masks is None else masks[i],
-                                  self.p_dropout)
+            x = F.relu(layer(x))
+            if masks is not None:
+                x = dropout_with_mask(x, masks[i][..., : x.shape[-1]], self.p_dropout)
         return x
 
 
@@ -142,6 +152,9 @@ class MelPostnet(nn.Module):
             for i in range(num_layers))
         self.fc_out = Linear(dim_hidden, dim_mel, bias=False)
 
+    def dropout_shapes(self, B: int, T: int):
+        return [(B, T, conv.weight.shape[0]) for conv, _ in self.conv]
+
     def forward(self, x: torch.Tensor, batch_stats: bool = False,
                 dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """x [B, T, dim_mel] -> [B, T, dim_mel]; batch_stats: BN in training
@@ -152,3 +165,98 @@ class MelPostnet(nn.Module):
             if dropout_masks is not None:
                 y = dropout_with_mask(y, dropout_masks[i], self.P_DROPOUT)
         return x + self.fc_out(y)
+
+
+class HighwayLayer(nn.Module):
+    """y = relu(H(x)) * t + x * (1 - t), t = sigmoid(T(x))."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.T = Linear(dim, dim)
+        self.H = Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = torch.sigmoid(self.T(x))
+        return F.relu(self.H(x)) * t + x * (1.0 - t)
+
+
+class CBHG(nn.Module):
+    """Conv bank (odd k up to K - 1, each conv -> ReLU -> BN) -> max-pool
+    (k 3, s 1, -inf padding) -> two projections and a residual -> (a
+    projection to dim_highway when the width differs) -> 4 highway layers
+    -> a bidirectional GRU over the whole padded sequence: the backward
+    direction reverses the padded array, as the JAX module does (not each
+    item within its length). `gru` is a torch.nn.GRU (`weight_ih_l0`,
+    `weight_ih_l0_reverse`, ...), whose gates are the JAX GRUCell's."""
+
+    def __init__(self, dim_input: int, dim_output: int, dim_conv_hidden: int = 128,
+                 dim_proj_hidden: int = 128, dim_highway: int = 128, K: int = 16):
+        super().__init__()
+        self.ks = tuple(range(1, 1 + K, 2))
+        for k in self.ks:
+            self.add_module(f"bank_{k}", Conv1d(dim_input, dim_conv_hidden, k, padding=k // 2,
+                                                bias=False))
+            self.add_module(f"bank_bn_{k}", BatchNorm(dim_conv_hidden))
+        self.proj1 = Conv1d(len(self.ks) * dim_conv_hidden, dim_proj_hidden, 3, padding=1,
+                            bias=False)
+        self.proj_bn1 = BatchNorm(dim_proj_hidden)
+        self.proj2 = Conv1d(dim_proj_hidden, dim_input, 3, padding=1)
+        self.highway_in = (Linear(dim_input, dim_highway, bias=False)
+                           if dim_input != dim_highway else None)
+        self.highway = nn.ModuleList(HighwayLayer(dim_highway) for _ in range(4))
+        self.gru = nn.GRU(dim_highway, dim_output // 2, batch_first=True, bidirectional=True)
+
+    def reset_parameters_(self, generator: torch.Generator):
+        for p in self.gru.parameters():
+            _uniform_(p, 1.0 / math.sqrt(self.gru.hidden_size), generator)
+
+    def forward(self, x: torch.Tensor, batch_stats: bool = False) -> torch.Tensor:
+        """x [B, T, dim_input] -> [B, T, dim_output]; batch_stats: the BNs
+        in training mode."""
+        xc = x.transpose(1, 2)
+        banks = [getattr(self, f"bank_bn_{k}")(F.relu(getattr(self, f"bank_{k}")(xc)).transpose(1, 2),
+                                               batch_stats) for k in self.ks]
+        y = F.max_pool1d(torch.cat(banks, -1).transpose(1, 2), 3, 1, 1)
+        y = F.relu(self.proj_bn1(self.proj1(y).transpose(1, 2), batch_stats))
+        y = self.proj2(y.transpose(1, 2)).transpose(1, 2) + x
+        if self.highway_in is not None:
+            y = self.highway_in(y)
+        for layer in self.highway:
+            y = layer(y)
+        return self.gru(y)[0]
+
+
+class MelPostnet2(nn.Module):
+    """num_layers residual blocks: x + conv3(drop(lrelu(bn2(conv2(drop(lrelu(
+    bn1(conv1(x))))))))), k 5, no biases, leaky ReLU slope 0.01. In
+    training, `Dropout(P_DROPOUT)` after each leaky ReLU with the caller's
+    keep masks, [B, T, dim_hidden] each, two a block in order."""
+
+    P_DROPOUT = 0.2
+
+    def __init__(self, dim_in: int, dim_hidden: int = 128, num_layers: int = 3):
+        super().__init__()
+        self.num_layers = num_layers
+        for i in range(num_layers):
+            for j, (a, b) in enumerate(((dim_in, dim_hidden), (dim_hidden, dim_hidden),
+                                        (dim_hidden, dim_in)), 1):
+                self.add_module(f"l{i}_conv{j}", Conv1d(a, b, 5, padding=2, bias=False))
+            self.add_module(f"l{i}_bn1", BatchNorm(dim_hidden))
+            self.add_module(f"l{i}_bn2", BatchNorm(dim_hidden))
+
+    def dropout_shapes(self, B: int, T: int):
+        return [(B, T, getattr(self, f"l{i}_bn{j}").running_mean.shape[0])
+                for i in range(self.num_layers) for j in (1, 2)]
+
+    def forward(self, x: torch.Tensor, batch_stats: bool = False,
+                dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+        conv = lambda name, y: getattr(self, name)(y.transpose(1, 2)).transpose(1, 2)  # noqa: E731
+        for i in range(self.num_layers):
+            y = x
+            for j in (1, 2):
+                y = getattr(self, f"l{i}_bn{j}")(conv(f"l{i}_conv{j}", y), batch_stats)
+                y = F.leaky_relu(y, 0.01)
+                if dropout_masks is not None:
+                    y = dropout_with_mask(y, dropout_masks[2 * i + j - 1], self.P_DROPOUT)
+            x = x + conv(f"l{i}_conv3", y)
+        return x

@@ -11,9 +11,11 @@ mean) gradient as optax does. The `grad_norm` metric is the norm of the
 raw gradients.
 
 `train_step`: the training forward (BatchNorms on batch statistics, the
-training draws, the teacher-forcing coin), `tacotron_loss`, the gradients
-by autograd, the update. `eval_step`: train=False, deterministic,
-teacher-forced, the PreNet's dropout on; its decode runs the step kernel
+training draws, the teacher-forcing coin; with a VAE, the teacher mels as
+the reference and the KL term, weighted 2e-4 by `tacotron_loss`), the
+gradients by autograd, the update. `eval_step`: train=False,
+deterministic, teacher-forced, the PreNet's dropout on, no reference mel
+(kl_loss 0, as in the JAX step); a Taco2Prod decode runs the step kernel
 on the card.
 
 `TacotronTrainer` keeps the JAX trainer's epoch loop: one checkpoint an
@@ -78,9 +80,16 @@ def create_train_state(model: Tacotron, lr: float = 1e-3, accum_steps: int = 1) 
 
 
 def _loss(model: Tacotron, batch: Dict[str, torch.Tensor], train: bool, draws, generator):
+    """The forward and `tacotron_loss`. A training step of a VAE model
+    gives the teacher mels as the reference (`xref = x`), as the JAX step
+    does; evaluation gives none, so the style is skipped and kl_loss is 0
+    there (the JAX `eval_step`)."""
     x, x_lengths = batch["x"], batch["x_lengths"]
-    y, y_post, s, aux = model(batch["c"], batch["c_lengths"], x, x_lengths, train=train,
-                              deterministic=not train, draws=draws, generator=generator)
+    ref = train and model.refencoder is not None
+    y, y_post, s, aux = model(batch["c"], batch["c_lengths"], x, x_lengths,
+                              xref=x if ref else None, xref_lengths=x_lengths if ref else None,
+                              train=train, deterministic=not train, draws=draws,
+                              generator=generator)
     xmask = sequence_mask(x_lengths, x.shape[1])
     loss, metrics = tacotron_loss(y, y_post, s, x, xmask, aux["w"], aux["kl_loss"])
     return loss, metrics, aux["w"]

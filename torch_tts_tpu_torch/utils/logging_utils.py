@@ -7,7 +7,8 @@ writer to use where tensorboardX is not installed: it keeps every summary
 in memory and, given a directory, appends the scalars to
 `<dir>/scalars.jsonl`. The trainer takes its writers from a factory
 argument, so either serves. `plot_alignment_to_numpy` renders in numpy
-(no matplotlib).
+(no matplotlib), and `write_png` writes its image with the standard
+library (no PIL).
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import io
 import json
 import logging
 import os
+import struct
 import subprocess
+import zlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -122,6 +125,27 @@ def plot_alignment_to_numpy(alignment: np.ndarray) -> np.ndarray:
     frac = (pos - i)[..., None]
     rgb = _VIRIDIS[i] * (1 - frac) + _VIRIDIS[i + 1] * frac
     return np.round(rgb).astype(np.uint8)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an HWC uint8 RGB image (`plot_alignment_to_numpy`'s) as a PNG
+    with the standard library alone (zlib, struct): 8-bit truecolour, one
+    IDAT chunk, each row with filter type 0."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png: an [H, W, 3] uint8 image, got {img.shape}")
+    h, w, _ = img.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, 3 * w)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
 
 
 def check_git_hash(model_dir: str) -> None:
