@@ -4,7 +4,7 @@ multi-speaker VITS2, serving, the MB-iSTFT decoder and the other flow
 types, Tacotron-2 inference, serving with the HiFi-GAN vocoder and its
 trainer, and training, the VAE style path and the other Tacotron
 variants, the bulk mel frontend, the LLTM cell, the int8 decoder, bf16
-VITS2 training) on one NVIDIA GPU.
+VITS2 training, export) on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
@@ -260,12 +260,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
    busy, one train step and eval_step (B = TACO_TRAIN_B, TACO_LOSS_FRAMES
    frames), one `TacotronSynthesizer` dispatch;
    no Taco2Prod kernel launch (these cells have no TPU kernel).
-17. Prints each phase's seconds, the kernels' JSON line (launches: the
+17. Export (after the int8 decoder): seeded full-width LJSpeech weights
+   as a run dir (`ckpt_100.pt`) and a JSON config. `cli/vits2_infer.py`
+   and `cli/export.py` (EXPORT_TEXT_LEN / EXPORT_FRAMES) run as processes,
+   started together: the CLI's WAV must be what the in-process fp32
+   `infer` gives within CLI_WAV_ATOL before its 16-bit rounding (and the
+   same comparison against an in-process TF32 run says whether the check
+   sees TF32). The `.pt2` program loaded back and run at B=1 (text padded
+   to EXPORT_TEXT_LEN, noise from the default generator after one
+   `torch.manual_seed`) against eager `infer(generator=DEFAULT_RNG)`: equal
+   y_lengths, audio within EXPORT_ATOL, each `tts::` operator launched as
+   many times. The same for the int8-decoder model's program, exported in
+   this process (its quantizer and conv outputs recorded in both runs,
+   bit for bit) and for `export_vocoder`'s program of the LJSpeech
+   vocoder at VOCODER_EXPORT_FRAMES frames against `Vocoder.wave`. Host
+   and device-busy ms of each program against eager, in turns; each
+   operator's dispatch cost (`dispatch_us`) against its bare CUDA body.
+18. Prints each phase's seconds, the kernels' JSON line (launches: the
    main paths', the trainer's, the bf16 path's, the multi-speaker path's,
-   the serving path's, the MB-iSTFT path's, the int8 decoder's and the
-   Tacotron serving, training and variants paths'; launches_by_path: each path's
-   own; the bf16 WN variants as rows of their own, with their shape),
-   then the device line last.
+   the serving path's, the MB-iSTFT path's, the int8 decoder's, the
+   export path's and the Tacotron serving, training and variants paths';
+   launches_by_path: each path's own; the bf16 WN variants as rows of
+   their own, with their shape; `dispatch_us` on the four operators'
+   rows), then the device line last.
 """
 
 from __future__ import annotations
@@ -470,6 +487,17 @@ TACO_WEB_REQUESTS = 4
 TACO_TRAIN_CLIPS, TACO_TRAIN_EVAL, TACO_TRAIN_B, TACO_TRAIN_FRAMES = 48, 16, 16, 400
 TACO_LOSS_STEPS, TACO_LOSS_FRAMES = 20, 128
 TACO_EVAL_ATOL = 1e-3
+# export (`infer/export.py`, `cli/export.py`, `infer/vocoder.export_vocoder`):
+# the JAX signature's static shapes; the CLI's WAV against the in-process
+# fp32 `infer` within CLI_WAV_ATOL before its 16-bit rounding; exported
+# programs against eager within EXPORT_ATOL (fp32, the same kernels in the
+# same order); the vocoder's program at VOCODER_EXPORT_FRAMES mel frames;
+# each operator's dispatch cost over DISPATCH_CALLS calls at small shapes
+EXPORT_TEXT_LEN, EXPORT_FRAMES = 512, 1000
+CLI_WAV_ATOL = EXPORT_ATOL = 1e-5
+VOCODER_EXPORT_FRAMES = 400
+DISPATCH_CALLS = 200
+EXPORT_NOISE = (0.667, 1.0, 0.8)
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
@@ -2423,12 +2451,13 @@ def kernel_counters():
             "wn_group_backward": wn_group_backward, "mrf_fused": mrf_fused}
 
 
-def counted(fn):
-    """fn() with every kernel counter set to 0 just before -> (its result,
-    the counts just after)."""
+def counted(fn, counters=None):
+    """fn() with every kernel counter (of `counters`, by default
+    `kernel_counters()`) set to 0 just before -> (its result, the counts
+    just after)."""
     import torch
 
-    counters = kernel_counters()
+    counters = counters or kernel_counters()
     for c in counters.values():
         c.launches = 0
     out = fn()
@@ -4867,6 +4896,299 @@ def taco_variants_phase(device, card: str, tmp: str):
     return {"taco_step_streamed": launches}
 
 
+def wav_within(pcm, audio, atol: float) -> bool:
+    """Whether 16-bit samples `pcm` are what `cli/vits2_infer.write_wav`
+    writes for some waveform within `atol` of `audio` (its rounding,
+    trunc(clip(v) * 32767), is monotonic in v)."""
+    import numpy as np
+
+    lo = np.trunc(np.clip(audio - atol, -1, 1) * 32767)
+    hi = np.trunc(np.clip(audio + atol, -1, 1) * 32767)
+    return pcm.shape == audio.shape and bool(((pcm >= lo) & (pcm <= hi)).all())
+
+
+@contextlib.contextmanager
+def recorded_ops(names):
+    """Records, while open, the outputs of every call of the `tts::`
+    operators in `names`, in call order (a TorchDispatchMode; measurement
+    off)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    calls = []
+
+    class Recorder(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "tts" and func.__name__.split(".")[0] in names:
+                calls.append((func.__name__.split(".")[0], out))
+            return out
+
+    with Recorder():
+        yield calls
+
+
+def export_counters():
+    """The launch counters of the four `tts::` operators."""
+    from torch_tts_tpu_torch.kernels import int8_conv, mrf_fused, wn_stack
+
+    return {"mrf_fused": mrf_fused.mrf_fused, "wn_group": wn_stack.wn_group,
+            "quantize_act": int8_conv.quantize_act, "int8_conv1d": int8_conv.int8_conv1d}
+
+
+def dispatch_costs(device, card: str):
+    """Host microseconds a call of each `tts::` operator against its bare
+    CUDA body (`_mrf_cuda` etc., the kernel launch without the dispatcher)
+    at small shapes: DISPATCH_CALLS enqueues timed on the host clock
+    (the device runs each launch faster than the host issues it), in turns
+    op, bare, bare, op."""
+    import torch
+
+    from torch_tts_tpu_torch.kernels import int8_conv, mrf_fused as mrf, wn_stack
+    from torch_tts_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(device)
+
+    C, k = 32, 3
+    blocks = tuple(tuple(((mrf.dilated_offsets(k, d), rnd(k * C, C, scale=0.1), rnd(C)),
+                          (mrf.dilated_offsets(k, 1), rnd(k * C, C, scale=0.1), rnd(C)))
+                         for d in (1, 3, 5)) for _ in range(1))
+    H, L = 192, 4
+    wn = (rnd(1, 64, H), torch.ones(1, 64, 1, device=device), None, rnd(L, 5, H, 2 * H, scale=0.01),
+          rnd(L, 2 * H), rnd(L, H, 2 * H, scale=0.01), rnd(L, 2 * H))
+    x = rnd(1, 64, 64)
+    x_q, s_x = int8_conv.quantize_act(x)
+    w_q, s_w = quant.conv_weights(rnd(64, 64, 3, scale=0.05))
+    conv = (x_q, s_x, w_q, s_w, rnd(64), [1, 1], 1, 1, None)
+    cases = {"mrf_fused": (torch.ops.tts.mrf_fused, mrf._mrf_cuda,
+                           (rnd(1, 256, C), *mrf.flatten_blocks(blocks))),
+             "wn_group": (torch.ops.tts.wn_group, wn_stack._wn_group_cuda, wn),
+             "quantize_act": (torch.ops.tts.quantize_act, int8_conv._quantize_cuda,
+                              (x, 0.1, None)),
+             "int8_conv1d": (torch.ops.tts.int8_conv1d, int8_conv._conv_cuda, conv)}
+    costs = {}
+    with torch.no_grad():
+        for name, (op, bare, args) in cases.items():
+            times = {"op": [], "bare": []}
+            for fn in (op, bare):
+                for _ in range(20):
+                    fn(*args)
+            for which in ("op", "bare", "bare", "op"):
+                fn = op if which == "op" else bare
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(DISPATCH_CALLS):
+                    fn(*args)
+                times[which].append((time.perf_counter() - t0) * 1e6 / DISPATCH_CALLS)
+                torch.cuda.synchronize()
+            op_us, bare_us = (statistics.median(times[w]) for w in ("op", "bare"))
+            costs[name] = round(op_us - bare_us, 2)
+            log(f"  dispatch {name}: {op_us:.1f} us a call through torch.ops.tts against "
+                f"{bare_us:.1f} us bare: {op_us - bare_us:.1f} us of dispatch (turns "
+                f"{', '.join(f'{t:.1f}' for t in times['op'] + times['bare'])}) [{card}]")
+    return costs
+
+
+def export_phase(device, card: str, tmp: str):
+    """The export path: the CLIs as processes on a run dir of seeded
+    full-width LJSpeech weights (`cli/vits2_infer.py` against the in-process
+    fp32 `infer`, and against a TF32 run to show what the check sees;
+    `cli/export.py` at EXPORT_TEXT_LEN / EXPORT_FRAMES), the saved program
+    loaded and run at B=1 against eager `infer` (the same launches of each
+    `tts::` operator, audio within EXPORT_ATOL), then the int8-decoder
+    model's program (its quantizer and conv outputs bit for bit, recorded
+    in both runs) and the vocoder's; host and busy ms of each program
+    against eager, in turns; each operator's dispatch cost."""
+    import numpy as np
+    import torch
+    from scipy.io import wavfile
+
+    from torch_tts_tpu_torch.cli import vits2_infer, vocoder_train
+    from torch_tts_tpu_torch.core.config import TacotronConfig, VITS2Config
+    from torch_tts_tpu_torch.infer import export, vocoder
+    from torch_tts_tpu_torch.models.vits2.model import DEFAULT_RNG
+    from torch_tts_tpu_torch.ops.layers import init_params_
+
+    t_phase = time.perf_counter()
+    base = VITS2Config()
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data, text_cleaners=("transliteration_cleaners",)))
+    os.environ.pop("TTS_FUSED_WN", None)
+    model = seeded_synthesizer(cfg, device, seed=5)
+    # a run dir as the trainer writes it (ckpt_<step>.pt), which both CLIs read
+    run, cfg_path = os.path.join(tmp, "run"), os.path.join(tmp, "config.json")
+    os.makedirs(run)
+    torch.save({"step": 100, "model": model.state_dict()}, os.path.join(run, "ckpt_100.pt"))
+    with open(cfg_path, "w") as f:
+        json.dump({"model": dataclasses.asdict(cfg.model),
+                   "data": {**dataclasses.asdict(cfg.data), **dataclasses.asdict(cfg.audio)}}, f)
+    text, seed, hop = SENTENCES[1], 4, cfg.audio.hop_length
+    cli_wav, pt2 = os.path.join(tmp, "cli.wav"), os.path.join(tmp, "vits2.pt2")
+    root = os.path.dirname(os.path.abspath(__file__))
+    # both CLIs as processes, started together; the in-process work overlaps them
+    procs = {
+        "vits2_infer": subprocess.Popen(
+            [sys.executable, "-m", "torch_tts_tpu_torch.cli.vits2_infer", "-c", cfg_path, "-m",
+             run, "--text", text, "-o", cli_wav, "--seed", str(seed), "--max-frames",
+             str(EXPORT_FRAMES), "--device", str(device)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "export": subprocess.Popen(
+            [sys.executable, "-m", "torch_tts_tpu_torch.cli.export", "-c", cfg_path, "-m", run,
+             "-o", pt2, "--max-text-len", str(EXPORT_TEXT_LEN), "--max-frames",
+             str(EXPORT_FRAMES), "--device", str(device)],
+            cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+
+    def cli_audio(tf32: bool):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            return vits2_infer.synthesize(
+                model, vits2_infer.text_ids(text, cfg), hop, noise_scale=EXPORT_NOISE[0],
+                noise_scale_w=EXPORT_NOISE[2], length_scale=EXPORT_NOISE[1],
+                max_frames=EXPORT_FRAMES,
+                generator=torch.Generator(device=device).manual_seed(seed))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+
+    fp32_audio, tf32_audio = cli_audio(False), cli_audio(True)
+
+    # the int8-decoder model's program, exported in this process
+    q_model = seeded_synthesizer(int8_config(), device, seed=5)
+    q_pt2 = os.path.join(tmp, "int8.pt2")
+    t = time.perf_counter()
+    export.export_vits2_infer(q_model, EXPORT_TEXT_LEN, EXPORT_FRAMES, path=q_pt2, device=device)
+    log(f"export phase: int8 model exported in {time.perf_counter() - t:.1f} s")
+    # the vocoder's program (the LJSpeech vocoder of `cli/vocoder_train.py`)
+    a = TacotronConfig().audio
+    gen_kwargs = vocoder_train.gen_kwargs_for(a.hop_length)
+    gen = vocoder.build_generator(gen_kwargs, a.num_mels)
+    init_params_(gen, torch.Generator().manual_seed(2))
+    voc = vocoder.Vocoder(gen, gen_kwargs, a.sample_rate, a.num_mels, device=device)
+    v_pt2 = os.path.join(tmp, "vocoder.pt2")
+    t = time.perf_counter()
+    vocoder.export_vocoder(voc, VOCODER_EXPORT_FRAMES, path=v_pt2, device=device)
+    log(f"export phase: vocoder exported in {time.perf_counter() - t:.1f} s")
+
+    for name, proc in procs.items():
+        t = time.perf_counter()
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"cli/{name}.py failed:\n{err[-3000:]}")
+        log(f"export phase: cli/{name}.py process done {time.perf_counter() - t_phase:.1f} s "
+            f"into the phase: {(out.strip().splitlines() or [''])[-1]}")
+    sr, pcm = wavfile.read(cli_wav)
+    if sr != cfg.audio.sampling_rate:
+        raise RuntimeError(f"cli/vits2_infer.py wrote {sr} Hz")
+    for what, ref in (("fp32", fp32_audio), ("TF32", tf32_audio)):
+        n = min(len(ref), len(pcm))
+        diff = float(np.abs(pcm[:n] / 32767.0 - ref[:n]).max())
+        ok = wav_within(pcm, ref, CLI_WAV_ATOL)
+        log(f"  cli/vits2_infer.py WAV against the in-process {what} infer: {len(pcm)} vs "
+            f"{len(ref)} samples, max |wav - audio| {diff:.3e} (16-bit step 3.05e-05); within "
+            f"{CLI_WAV_ATOL:g} before the rounding: {ok}")
+        if what == "fp32" and not ok:
+            raise RuntimeError("the CLI's WAV does not match the in-process fp32 infer")
+    tf32_seen = not wav_within(pcm, tf32_audio, CLI_WAV_ATOL)
+    log(f"  TF32 on moves the audio by {float(np.abs(tf32_audio - fp32_audio).max()):.3e} at "
+        f"most; the check {'sees' if tf32_seen else 'cannot see'} it")
+
+    # --- the programs against eager, at B=1
+    ids = vits2_infer.text_ids(SENTENCES[2], cfg)
+    x = torch.zeros(1, EXPORT_TEXT_LEN, dtype=torch.int32, device=device)
+    x[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    lengths = torch.tensor([len(ids)], dtype=torch.int32, device=device)
+    scales = torch.tensor(EXPORT_NOISE, device=device)
+    by_path = {}
+    for what, path, eager_model in (("vits2", pt2, model), ("int8", q_pt2, q_model)):
+        t = time.perf_counter()
+        program = export.load_exported(path)
+        log(f"export phase: {what} program loaded in {time.perf_counter() - t:.1f} s "
+            f"({os.path.getsize(path) / 2 ** 20:.1f} MiB)")
+
+        def run_program(p=program):
+            torch.manual_seed(11)
+            return p(x, lengths, scales)
+
+        def run_eager(m=eager_model):
+            torch.manual_seed(11)
+            audio, _, _, _, y_lengths = m.infer(
+                x, lengths, noise_scale=EXPORT_NOISE[0], length_scale=EXPORT_NOISE[1],
+                noise_scale_w=EXPORT_NOISE[2], max_frames=EXPORT_FRAMES, generator=DEFAULT_RNG)
+            return audio, y_lengths
+
+        run_program()  # first call: cuDNN's algorithm choice, the MRF plans
+        (got, got_len), n_prog = counted(run_program, export_counters())
+        (want, want_len), n_eager = counted(run_eager, export_counters())
+        check_audio(got, got_len, hop, f"exported {what}", EXPORT_FRAMES)
+        diff = float((got - want).abs().max())
+        log(f"  {what} program at B=1: y_lengths {got_len.tolist()} (eager "
+            f"{want_len.tolist()}), max |exported - eager| {diff:.3e} (bound {EXPORT_ATOL:g}); "
+            f"launches {n_prog} (eager {n_eager})")
+        if not torch.equal(got_len, want_len) or diff > EXPORT_ATOL:
+            raise RuntimeError(f"the exported {what} program disagrees with eager infer")
+        if n_prog != n_eager or not n_prog["mrf_fused"] or not n_prog["wn_group"]:
+            raise RuntimeError(f"the exported {what} program's launches differ: {n_prog}")
+        by_path.setdefault("export", {})
+        for n, c in n_prog.items():
+            if c:
+                by_path["export"][n] = by_path["export"].get(n, 0) + c
+        if what == "int8":
+            if not n_prog["quantize_act"] or not n_prog["int8_conv1d"]:
+                raise RuntimeError("the int8 program launched no int8 kernel")
+            names = ("quantize_act", "int8_conv1d")
+            with recorded_ops(names) as prog_calls:
+                run_program()
+            with recorded_ops(names) as eager_calls:
+                run_eager()
+            same = len(prog_calls) == len(eager_calls) and all(
+                a[0] == b[0] and all(torch.equal(u, v) for u, v in zip(
+                    a[1] if isinstance(a[1], tuple) else (a[1],),
+                    b[1] if isinstance(b[1], tuple) else (b[1],)))
+                for a, b in zip(prog_calls, eager_calls))
+            log(f"  int8 program: {len(prog_calls)} quantizer and conv calls, each output equal "
+                f"to eager's bit for bit: {same}")
+            if not same:
+                raise RuntimeError("the exported int8 kernels differ from eager's")
+        times_of({"eager": run_eager, "exported": run_program}, card, f"{what} infer B=1")
+
+    # --- the vocoder's program against `Vocoder.wave`
+    program = export.load_exported(v_pt2)
+    mel = torch.rand(1, VOCODER_EXPORT_FRAMES, a.num_mels, generator=torch.Generator()
+                     .manual_seed(6)).to(device)
+    program(mel)
+    got, n_prog = counted(lambda: program(mel), export_counters())
+    want, n_eager = counted(lambda: voc.wave(mel), export_counters())
+    diff = float((got - want).abs().max())
+    log(f"  vocoder program: wav {tuple(got.shape)}, max |exported - eager| {diff:.3e}; "
+        f"launches {n_prog} (eager {n_eager})")
+    if got.shape != (1, VOCODER_EXPORT_FRAMES * a.hop_length) or diff > EXPORT_ATOL \
+            or n_prog != n_eager or not n_prog["mrf_fused"]:
+        raise RuntimeError("the exported vocoder disagrees with Vocoder.wave")
+    by_path["export"]["mrf_fused"] += n_prog["mrf_fused"]
+    times_of({"eager": lambda: voc.wave(mel), "exported": lambda: program(mel)}, card,
+             "vocoder")
+    dispatch = dispatch_costs(device, card)
+    log(f"export phase: {time.perf_counter() - t_phase:.1f} s")
+    return by_path["export"], dispatch
+
+
+def times_of(fns, card: str, what: str):
+    """Logs the host ms (median of turns a, b, b, a) and device busy ms of
+    each callable of `fns` (two)."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in (names[0], names[1], names[1], names[0]):
+        times[n].append(wall_ms(fns[n], warmup=1, reps=3))
+    out = {}
+    for n in names:
+        out[n] = (statistics.median(times[n]), profile_busy_ms(fns[n]))
+        log(f"  {what} {n}: {out[n][0]:.2f} ms on the host clock (turns "
+            f"{', '.join(f'{t:.2f}' for t in times[n])}); device busy {out[n][1]:.2f} ms "
+            f"[{card}]")
+    return out
+
+
 def main():
     import torch
 
@@ -4927,6 +5249,10 @@ def main():
     by_path["int8 decoder"], int8_stats = timed("int8 decoder", int8_phase, device, card)
     stats.update(int8_stats)
     with tempfile.TemporaryDirectory() as tmp:
+        by_path["export"], dispatch = timed("export", export_phase, device, card, tmp)
+    for n, us in dispatch.items():
+        stats[n]["dispatch_us"] = us
+    with tempfile.TemporaryDirectory() as tmp:
         by_path["tacotron serving"] = timed("tacotron serving", taco_serving_phase, device, card,
                                             tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4945,7 +5271,7 @@ def main():
     for p in ("inference", "tacotron", "training", "mel frontend", "lltm"):
         launches.update(by_path[p])
     for p in ("trainer", "bf16 train", "multi-speaker", "serving", "mb-istft", "int8 decoder",
-              "tacotron serving", "tacotron training", "tacotron variants"):
+              "export", "tacotron serving", "tacotron training", "tacotron variants"):
         for n, c in by_path[p].items():
             launches[n] = launches.get(n, 0) + c
     # the fused step is on no model path: its count is the kernel phase's
@@ -4988,13 +5314,15 @@ def main():
     # card) or any of the other functions. The int8 kernels' ms, plain_ms,
     # library_ms and bound_ms are one call at their dominant `shape` (timed
     # over CUDA graphs); the *_per_infer fields sum the calls of one B=1
-    # int8 infer
+    # int8 infer. dispatch_us: the host microseconds a call through the
+    # `tts::` operator adds over its bare CUDA body (export phase)
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     launches_by_path={p: c[n] for p, c in by_path.items() if n in c},
                     max_abs_err=stats[n]["max_abs_err"], ms=stats[n]["ms"],
                     plain_ms=stats[n]["plain_ms"], bound_ms=stats[n]["bound"][0],
                     bound_by=stats[n]["bound"][1], library_ms=stats[n].get("library_ms"),
-                    **{k: v for k, v in stats[n].items() if k in INT8_FIELDS + BF16_FIELDS})
+                    **{k: v for k, v in stats[n].items()
+                       if k in INT8_FIELDS + BF16_FIELDS + ("dispatch_us",)})
                for n, (src, rep) in sources.items()]
     log("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in seconds.items())
         + f"; total {time.perf_counter() - t0:.1f} s with the build")

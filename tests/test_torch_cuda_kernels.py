@@ -801,3 +801,76 @@ def test_int8_conv_raises_on_a_shape_it_does_not_take(cuda_device):
     with torch.no_grad(), pytest.raises(ValueError, match="not taken by the kernel"):
         quant.int8_conv1d(x, w, padding=(16, 16))
     assert int8_conv.int8_conv1d.launches == before
+
+
+def _op_case(name, device):
+    """(operator, its arguments on `device`, the plain version's output,
+    the wrapper whose launch count it adds to) for one `tts::` operator."""
+    from torch_tts_tpu_torch.kernels import int8_conv, mrf_fused as mrf
+    from torch_tts_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(len(name))
+    if name == "mrf_fused":
+        blocks = _blocks(g, device, 32, (3, 5))
+        x = _randn(g, device, 2, 333, 32)
+        return (torch.ops.tts.mrf_fused, (x, *mrf.flatten_blocks(blocks)),
+                mrf_plain(x, blocks), mrf_fused)
+    if name == "wn_group":
+        args = _wn_args(g, device, 2, 300, 192, 4, 5, with_gl=True)
+        return torch.ops.tts.wn_group, args, wn_group_plain(*args), wn_group
+    x = _randn(g, device, 2, 81, 100, scale=0.3)
+    mask = (torch.arange(100, device=device) < 90).float().expand(2, 1, 100).contiguous()
+    if name == "quantize_act":
+        return (torch.ops.tts.quantize_act, (x, 0.1, mask),
+                int8_conv.quantize_act_plain(x, 0.1, mask), int8_conv.quantize_act)
+    x_q, s_x = int8_conv.quantize_act(x, 0.1, mask)
+    w_q, s_w = quant.conv_weights(_randn(g, device, 48, 81, 3, scale=0.05))
+    res = _randn(g, device, 2, 24, 200)
+    args = (x_q, s_x, w_q, s_w, _randn(g, device, 24), [1, 1], 1, 2, res)
+    return (torch.ops.tts.int8_conv1d, args, int8_conv.int8_conv1d_plain(
+        x_q, s_x, w_q, s_w, args[4], (1, 1), 1, 2, res), int8_conv.int8_conv1d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mrf_fused", "wn_group", "quantize_act", "int8_conv1d"])
+def test_tts_operator_matches_plain_and_its_fake(cuda_device, name):
+    """Each `tts::` operator on CUDA tensors launches its kernel once and
+    equals the plain version (the int8 pair bit for bit); its fake function
+    gives the real output's shapes, dtypes and strides (the quantizer's x_q
+    is a view of rows padded to 32 channels)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args, want, wrapper = _op_case(name, cuda_device)
+    before = wrapper.launches
+    with torch.no_grad():
+        got = op(*args)
+    assert wrapper.launches == before + 1
+    exact = name in ("quantize_act", "int8_conv1d")
+    for a, b in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, want))):
+        torch.testing.assert_close(a, b, rtol=0 if exact else RTOL, atol=0 if exact else ATOL)
+    mode = FakeTensorMode()
+    with mode:
+        fake = op(*(mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                    else [mode.from_tensor(t) for t in a] if isinstance(a, list) and a
+                    and isinstance(a[0], torch.Tensor) else a for a in args))
+    for f, r in zip(*((t if isinstance(t, tuple) else (t,)) for t in (fake, got))):
+        assert (f.shape, f.dtype, f.stride(), f.device) == (r.shape, r.dtype, r.stride(),
+                                                             r.device)
+
+
+@pytest.mark.cuda
+def test_tts_operators_raise_on_cuda_tensors_they_do_not_take(cuda_device):
+    """On the card an operator raises (no plain fallback): fp64 x for the
+    MRF bank, the WN group and the quantizer, a stride-1 int8 conv whose
+    k * C_in passes the kernel's bound."""
+    for name in ("mrf_fused", "wn_group", "quantize_act"):
+        op, args, _, wrapper = _op_case(name, cuda_device)
+        before = wrapper.launches
+        with torch.no_grad(), pytest.raises(ValueError):
+            op(args[0].double(), *args[1:])
+        assert wrapper.launches == before
+    x_q = torch.zeros(1, 40, 4095, dtype=torch.int8, device=cuda_device)
+    w_q = torch.zeros(16, 33, 4095, dtype=torch.int8, device=cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="not taken by the kernel"):
+        torch.ops.tts.int8_conv1d(x_q, torch.ones((), device=cuda_device), w_q,
+                                  torch.ones(16, device=cuda_device), None, [16, 16], 1, 1, None)

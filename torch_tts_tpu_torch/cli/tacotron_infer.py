@@ -38,6 +38,7 @@ import torch
 from torch_tts_tpu_torch.audio.frontend import AudioFrontend, m_fwd, m_rev
 from torch_tts_tpu_torch.cli.vits2_infer import write_wav
 from torch_tts_tpu_torch.core.config import TacotronConfig, load_tacotron_config
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
 from torch_tts_tpu_torch.models.tacotron.model import Tacotron
 from torch_tts_tpu_torch.text.encoder import TextEncoder
 
@@ -64,6 +65,7 @@ def text_encoder(cfg: TacotronConfig) -> TextEncoder:
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("text")

@@ -14,8 +14,11 @@ import argparse
 import logging
 from typing import Optional, Sequence
 
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
+
 
 def main(argv: Optional[Sequence[str]] = None):
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("dataset", help="dataset dir (transcript + wavs)")

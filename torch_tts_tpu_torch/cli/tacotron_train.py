@@ -26,6 +26,8 @@ import argparse
 import logging
 from typing import Callable, Dict, Optional, Sequence
 
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
+
 
 def pad_lengths(ds, r: int, max_audio_frames: Optional[int]):
     """The CLI's static padding -> (text ids, frames)."""
@@ -83,6 +85,7 @@ class EpochIterable:
 def main(argv: Optional[Sequence[str]] = None, make_writer: Optional[Callable] = None):
     """Run the CLI on `argv`; `make_writer` overrides --writer. Returns the
     trainer (with --filter, the scores)."""
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("dataset", help="HDF5 dataset (from tacotron_prepare)")

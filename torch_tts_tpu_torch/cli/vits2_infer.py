@@ -35,6 +35,7 @@ import torch
 
 from torch_tts_tpu_torch.text import intersperse, symbols, text_to_sequence
 from torch_tts_tpu_torch.core.config import VITS2Config, load_vits2_config
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
 from torch_tts_tpu_torch.models.vits2.model import SynthesizerTrn
 
 
@@ -112,6 +113,7 @@ def stream_latents(model: SynthesizerTrn, ids: Sequence[int], hop_length: int, c
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-c", "--config", required=True, help="YAML or JSON VITS2 config")

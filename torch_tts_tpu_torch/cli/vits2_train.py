@@ -28,6 +28,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
+
 
 def split_train_val(items: Sequence, val_size: int, val_seed: int) -> Tuple[List, List]:
     """-> (train items, eval items): min(val_size, max(1, 5%)) items drawn
@@ -40,6 +42,7 @@ def split_train_val(items: Sequence, val_size: int, val_seed: int) -> Tuple[List
 def main(argv: Optional[Sequence[str]] = None, make_writer: Optional[Callable] = None):
     """Run the CLI on `argv`; `make_writer` (a log directory -> writer)
     overrides --writer. Returns the trainer."""
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-c", "--config", required=True, help="config YAML/JSON")

@@ -23,6 +23,7 @@ import torch
 
 from torch_tts_tpu_torch.cli.vits2_infer import load_model, write_wav
 from torch_tts_tpu_torch.core.config import VITS2Config, load_vits2_config
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
 from torch_tts_tpu_torch.data import audio_np
 
 
@@ -40,6 +41,7 @@ def wav_features(path: str, cfg: VITS2Config) -> np.ndarray:
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-c", "--config", required=True, help="YAML or JSON VITS2 config")

@@ -30,6 +30,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
+
 
 def wav_list(path: str, data_root: str) -> List[str]:
     if os.path.isdir(path):
@@ -66,6 +68,7 @@ def gen_kwargs_for(hop: int, upsample_initial_channel: int = 256) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None):
     """Run the CLI on `argv`; returns the final VocoderTrainState."""
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("filelist", help="wav filelist (or directory of wavs)")

@@ -55,6 +55,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from torch_tts_tpu_torch.core.precision import fp32_cudnn
+
 logger = logging.getLogger(__name__)
 
 _FORM = """<!doctype html><title>torch_tts_tpu_torch</title>
@@ -248,6 +250,7 @@ def serve_stdlib(synth, port: int, taco_synth=None) -> None:
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    fp32_cudnn()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("-c", "--config", required=True)

@@ -22,8 +22,10 @@ its parameters with the VITS2 converter's decoder rules; it imports
 
 The generator runs with `fuse_mrf=True`, the card's default: on a CUDA
 device each stage's ResBlock1 bank is one `mrf_fused` launch where the
-kernel takes its width. `export_vocoder_stablehlo` is not ported (export,
-ROADMAP queue 6).
+kernel takes its width. `export_vocoder` is the twin of the JAX
+`export_vocoder_stablehlo`: the renorm and the generator as a
+`torch.export` program (`infer/export.py`), mel_net [1, max_frames, M] ->
+wav [1, max_frames * hop].
 """
 
 from __future__ import annotations
@@ -98,6 +100,30 @@ class Vocoder:
         if normalize:
             wav = wav / np.maximum(np.abs(wav).max(axis=-1, keepdims=True), 1e-8)
         return wav
+
+
+class _VocoderProgram(torch.nn.Module):
+    def __init__(self, voc: Vocoder):
+        super().__init__()
+        self.generator = voc.generator
+        self.mel_shift, self.mel_scale = voc.mel_shift, voc.mel_scale
+
+    def forward(self, mel_net):
+        mel_log = (mel_net - self.mel_shift) / self.mel_scale
+        return self.generator(mel_log.transpose(1, 2))[:, 0]
+
+
+def export_vocoder(voc: Vocoder, max_frames: int, path=None, device="cuda"):
+    """The vocoder (moved to `device`, as `voc.device` then says) as a
+    `torch.export` program of the signature (mel_net [1, max_frames, M]) ->
+    wav [1, max_frames * hop], saved to `path` when given (load it with
+    `infer.export.load_exported`) -> the ExportedProgram."""
+    from torch_tts_tpu_torch.infer.export import export_program
+
+    voc.device = torch.device(device)
+    voc.generator.to(voc.device)
+    mel = torch.zeros(1, max_frames, voc.num_mels, dtype=torch.float32, device=voc.device)
+    return export_program(_VocoderProgram(voc), [mel], path)
 
 
 def check_compat(voc: Vocoder, *, num_mels: int, hop_length: int, sample_rate: int) -> None:

@@ -8,7 +8,8 @@ built at first use into `build/torch_kernels/<hash of sources and flags>/`
 under the repository root (listed in .gitignore), so a changed source
 rebuilds and an unchanged one loads at once. nvcc is found through
 `CUDA_HOME`, else `torch.utils.cpp_extension.CUDA_HOME`; without it the
-build raises.
+build raises. `OPS` is the `tts` operator namespace of the kernels that
+inference runs (`define_op`), each registered by its kernel module.
 """
 
 from __future__ import annotations
@@ -40,6 +41,48 @@ def count_launch(wrapper, n: int = 1, attr: str = "launches") -> None:
     names: a variant's own count), the count of its kernel's launches."""
     with _COUNT_LOCK:
         setattr(wrapper, attr, getattr(wrapper, attr) + n)
+
+
+# The kernels that an exported inference program runs are operators of the
+# `tts` namespace, so that `torch.export` records them as nodes of the graph
+# (it cannot trace a ctypes call) and a loaded program calls them again.
+# Registered through `torch.library.Library` (the dispatcher calls the
+# Python implementation directly; `torch.library.custom_op` adds a Python
+# layer around each call, several times the cost on this path of up to 156
+# calls an int8 `infer`). A native program declares the same schemas in C++.
+OP_SCHEMAS = {
+    # a ResBlock1 bank (kernels/mrf_fused.py): per block, its iteration
+    # count; per conv (block-major, two an iteration) its [k*C, C] weight,
+    # [C] bias and k tap offsets, concatenated in `offsets`
+    "mrf_fused": "mrf_fused(Tensor x, Tensor[] weights, Tensor[] biases, int[] iterations, "
+                 "int[] offsets) -> Tensor",
+    # one WN layer group without saves (kernels/wn_stack.py) -> (x_out, skip)
+    "wn_group": "wn_group(Tensor x, Tensor mask, Tensor? gl, Tensor w_in, Tensor b_in, "
+                "Tensor w_rs, Tensor b_rs) -> (Tensor, Tensor)",
+    # kernels/int8_conv.py -> (x_q, s_x)
+    "quantize_act": "quantize_act(Tensor x, float? slope, Tensor? mask) -> (Tensor, Tensor)",
+    "int8_conv1d": "int8_conv1d(Tensor x_q, Tensor s_x, Tensor w_q, Tensor s_w, Tensor? bias, "
+                   "int[2] padding, int dilation, int phases, Tensor? residual) -> Tensor",
+}
+OPS = torch.library.Library("tts", "DEF")
+
+
+def check_device(t: torch.Tensor, what: str) -> None:
+    """Raise on a tensor that lies neither on the CPU nor on a CUDA device
+    (the operators' fake functions would take it, as the meta device)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def define_op(name: str, cpu, cuda, fake) -> None:
+    """Register `tts::<name>` (schema `OP_SCHEMAS[name]`): `cpu` runs for CPU
+    tensors (the plain version), `cuda` for CUDA tensors (the kernel),
+    `fake` gives the output's shape, dtype and strides without data."""
+    OPS.define(OP_SCHEMAS[name])
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"tts::{name}", fake, lib=OPS)
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {

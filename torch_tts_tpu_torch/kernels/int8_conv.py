@@ -38,7 +38,9 @@ design are in its header.
   cancel whatever x_q holds there), as `conv_weights` writes them. The
   kernel's tile follows the grid (`conv_tile`).
 
-Dispatch: a CPU tensor takes the plain version (`quantize_act_plain`,
+Dispatch: both wrappers call their operators, `tts::quantize_act` and
+`tts::int8_conv1d` (`build.OPS`), so that `torch.export` records them; a
+CPU tensor takes the plain version (`quantize_act_plain`,
 `int8_conv1d_plain`); a CUDA tensor launches the kernel or raises. Both
 wrappers raise when a gradient is needed (a rounded activation passes
 none: the int8 decoder is for inference only) and `int8_conv1d` on a
@@ -146,12 +148,25 @@ def quantize_act(x: torch.Tensor, slope: Optional[float] = None,
                  mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The activation quantizer (module docstring): x [B, C, T] fp32, the
     leaky ReLU's slope or None, mask [B, 1, T] or None -> (x_q [B, T, C]
-    int8, s_x 0-d fp32 on x's device)."""
+    int8, s_x 0-d fp32 on x's device), through the operator
+    `tts::quantize_act`."""
+    build.check_device(x, "quantize_act")
     check_no_grad(x, mask)
-    if x.device.type == "cpu":
-        return quantize_act_plain(x, slope, mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_act: unsupported device {x.device}")
+    return torch.ops.tts.quantize_act(x, slope, mask)
+
+
+def _quantize_fake(x, slope, mask):
+    B, C, T = x.shape
+    if x.device.type == "cuda":  # a view of x_q's padded rows (module docstring)
+        x_q = torch.empty_strided((B, T, C), (T * padded_channels(C), padded_channels(C), 1),
+                                  dtype=torch.int8, device=x.device)
+    else:
+        x_q = x.new_empty((B, T, C), dtype=torch.int8)
+    return x_q, x.new_empty((), dtype=torch.float32)
+
+
+def _quantize_cuda(x, slope, mask):
+    """`tts::quantize_act` on CUDA tensors: one launch of the quantizer."""
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
         raise ValueError("quantize_act: x must be a contiguous fp32 [B, C, T] tensor")
     B, C, T = x.shape
@@ -259,15 +274,31 @@ def int8_conv1d(x_q: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: to
                 dilation: int = 1, phases: int = 1, stride: int = 1,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 conv (module docstring) -> [B, N / phases, T_out * phases]
-    fp32, plus `residual` when given."""
+    fp32, plus `residual` when given, through the operator
+    `tts::int8_conv1d`."""
     if stride != 1:
         raise ValueError(f"int8_conv1d: stride {stride}; the int8 conv takes stride 1 only")
+    build.check_device(x_q, "int8_conv1d")
     check_no_grad(s_x, s_w, bias, residual)
-    padding = (int(padding[0]), int(padding[1]))
-    if x_q.device.type == "cpu":
-        return int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, padding, dilation, phases, residual)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"int8_conv1d: unsupported device {x_q.device}")
+    return torch.ops.tts.int8_conv1d(x_q, s_x, w_q, s_w, bias,
+                                     [int(padding[0]), int(padding[1])], dilation, phases,
+                                     residual)
+
+
+def _conv_cpu(x_q, s_x, w_q, s_w, bias, padding, dilation, phases, residual):
+    return int8_conv1d_plain(x_q, s_x, w_q, s_w, bias, tuple(padding), dilation, phases,
+                             residual).contiguous()
+
+
+def _conv_fake(x_q, s_x, w_q, s_w, bias, padding, dilation, phases, residual):
+    B, T, _ = x_q.shape
+    N, k, _ = w_q.shape
+    T_out = _out_len(T, padding, dilation, k)
+    return x_q.new_empty((B, N // phases, T_out * phases), dtype=torch.float32)
+
+
+def _conv_cuda(x_q, s_x, w_q, s_w, bias, padding, dilation, phases, residual):
+    """`tts::int8_conv1d` on CUDA tensors: one launch of the conv."""
     B, T, _ = x_q.shape
     N, k, C_in = w_q.shape
     T_out = _out_len(T, padding, dilation, k)
@@ -294,3 +325,5 @@ def int8_conv1d(x_q: torch.Tensor, s_x: torch.Tensor, w_q: torch.Tensor, s_w: to
 
 quantize_act.launches = 0
 int8_conv1d.launches = 0
+build.define_op("quantize_act", quantize_act_plain, _quantize_cuda, _quantize_fake)
+build.define_op("int8_conv1d", _conv_cpu, _conv_cuda, _conv_fake)

@@ -23,11 +23,16 @@ launch's tile to fit the 227 KB of shared memory beside the ring with the
 least recompute, and plans which window rows each conv computes (see the
 header of the .cu file).
 
-Dispatch: a CPU tensor takes `mrf_plain`; a CUDA tensor launches the kernel
-or raises. `mrf_fused.launches` counts kernel launches. The kernel has no
-backward, as the TPU kernel has no VJP: under autograd, with any input that
-requires a gradient, a CUDA tensor raises instead of dropping it (the
-training decoder runs its plain convolutions, `fuse_mrf=False`).
+Dispatch: `mrf_fused` calls the operator `tts::mrf_fused` (`build.OPS`),
+with the bank flattened to lists of tensors and ints (`flatten_blocks`), so
+that `torch.export` records it; a CPU tensor takes `mrf_plain`, a CUDA
+tensor launches the kernel or raises. `mrf_fused.launches` counts kernel
+launches (in the operator's CUDA body, so an exported program's launches
+count too). The kernel has no backward, as the TPU kernel has no VJP: under
+autograd, with any input that requires a gradient, a CUDA tensor raises
+instead of dropping it (the training decoder runs its plain convolutions,
+`fuse_mrf=False`), and a CPU tensor takes `mrf_plain` under autograd
+without the operator.
 """
 
 from __future__ import annotations
@@ -231,11 +236,16 @@ def _check_cuda_args(x: torch.Tensor, blocks):
                                          f"{shape} on {x.device}")
 
 
+def needs_grad(x: torch.Tensor, blocks) -> bool:
+    """Whether autograd wants a gradient through the bank."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, *(t for block in blocks for it in block
+                                       for _, w, b in it for t in (w, b))))
+
+
 def check_no_grad(x: torch.Tensor, blocks):
     """Raise when autograd would need the kernel's missing backward."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *(t for block in blocks for it in block
-                                           for _, w, b in it for t in (w, b)))):
+    if needs_grad(x, blocks):
         raise RuntimeError("mrf_fused: the CUDA kernel has no backward; run the decoder's "
                            "plain convolutions (fuse_mrf=False) when training")
 
@@ -257,18 +267,60 @@ def _planned(offsets: Tuple[Tuple[Tuple[Tuple[int, ...], Tuple[int, ...]], ...],
     return launches, meta, tuple(any(ln.dst == i for ln in launches) for i in (2, 3))
 
 
+def flatten_blocks(blocks):
+    """`blocks` as `tts::mrf_fused` takes them: (weights, biases, the
+    iterations of each block, every conv's tap offsets concatenated), the
+    convs block-major, two an iteration."""
+    convs = [conv for block in blocks for it in block for conv in it]
+    return ([w for _, w, _ in convs], [b for _, _, b in convs],
+            [len(block) for block in blocks], [o for offs, _, _ in convs for o in offs])
+
+
+def unflatten_blocks(C: int, weights, biases, iterations, offsets):
+    """The inverse of `flatten_blocks`; each conv's tap count is its weight's
+    rows over C."""
+    convs, o = [], 0
+    for w, b in zip(weights, biases):
+        k = w.shape[0] // C
+        convs.append((tuple(offsets[o:o + k]), w, b))
+        o += k
+    blocks, c = [], 0
+    for n_it in iterations:
+        blocks.append(tuple((convs[c + 2 * i], convs[c + 2 * i + 1]) for i in range(n_it)))
+        c += 2 * n_it
+    return tuple(blocks)
+
+
 def mrf_fused(x: torch.Tensor, blocks) -> torch.Tensor:
-    """Fused resblock bank: x [B, T, C] -> [B, T, C]."""
-    if x.device.type == "cpu":
+    """Fused resblock bank: x [B, T, C] -> [B, T, C], through the operator
+    `tts::mrf_fused` (a CPU tensor that needs a gradient takes `mrf_plain`
+    under autograd directly; a CUDA one raises)."""
+    build.check_device(x, "mrf_fused")
+    if x.device.type == "cpu" and needs_grad(x, blocks):
         return mrf_plain(x, blocks)
-    if x.device.type != "cuda":
-        raise ValueError(f"mrf_fused: unsupported device {x.device}")
     check_no_grad(x, blocks)
+    return torch.ops.tts.mrf_fused(x, *flatten_blocks(blocks))
+
+
+def _mrf_cpu(x, weights, biases, iterations, offsets):
+    return mrf_plain(x, unflatten_blocks(x.shape[2], weights, biases, iterations,
+                                         offsets)).contiguous()
+
+
+def _mrf_fake(x, weights, biases, iterations, offsets):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _mrf_cuda(x, weights, biases, iterations, offsets):
+    """`tts::mrf_fused` on CUDA tensors: the kernel's launches."""
+    if x.dim() != 3:
+        raise ValueError("mrf_fused: x must be a [B, T, C] tensor")
+    blocks = unflatten_blocks(x.shape[2], weights, biases, iterations, offsets)
     _check_cuda_args(x, blocks)
     B, T, C = x.shape
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    offsets = tuple(tuple((it[0][0], it[1][0]) for it in block) for block in blocks)
-    launches, meta, scratch_used = _planned(offsets, C, T, B, n_sm)
+    offs = tuple(tuple((it[0][0], it[1][0]) for it in block) for block in blocks)
+    launches, meta, scratch_used = _planned(offs, C, T, B, n_sm)
     convs = [blocks[bi][it][j] for bi, it in (ln.convs for ln in launches) for j in (0, 1)]
     w_ptrs = (ctypes.c_longlong * len(convs))(*(w.data_ptr() for _, w, _ in convs))
     b_ptrs = (ctypes.c_longlong * len(convs))(*(b.data_ptr() for _, _, b in convs))
@@ -287,3 +339,4 @@ def mrf_fused(x: torch.Tensor, blocks) -> torch.Tensor:
 
 
 mrf_fused.launches = 0
+build.define_op("mrf_fused", _mrf_cpu, _mrf_cuda, _mrf_fake)

@@ -52,7 +52,10 @@ ms, backward 0.057 ms. The plain versions run in bf16 as the JAX
 each input's dtype, as the Pallas backward's outputs do.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. `wn_group.launches` and `wn_group_backward.launches`
+kernel or raises. Where no gradient is wanted (inference, and what
+`torch.export` records), `wn_group` is the operator `tts::wn_group`
+(`build.OPS`), the forward without saves; training keeps
+`_WNGroupFunction`. `wn_group.launches` and `wn_group_backward.launches`
 count the calls that launch their fp32 kernels, `.launches_bf16` their
 bf16 variants' (one per wrapper call; the fp32 forward launches the
 weights' split and the group kernel, the bf16 backward 2 L + 2 kernels).
@@ -357,21 +360,39 @@ class _WNGroupFunction(torch.autograd.Function):
 def wn_group(x, mask, gl, w_in, b_in, w_rs, b_rs):
     """One WN layer group -> (x_out [B, T, H], skip * mask [B, T, H]), in
     the time tiles and clusters that `plan_forward` chooses for the card;
-    differentiable."""
-    if x.device.type == "cpu":
-        return wn_group_plain(x, mask, gl, w_in, b_in, w_rs, b_rs)
-    if x.device.type != "cuda":
-        raise ValueError(f"wn_group: unsupported device {x.device}")
-    _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs)
-    if torch.is_grad_enabled():
+    differentiable. Where no gradient is wanted, the operator
+    `tts::wn_group` (the forward without saves); where one is, a CPU tensor
+    takes `wn_group_plain` under autograd and a CUDA tensor
+    `_WNGroupFunction` (the saving forward and the backward kernel)."""
+    build.check_device(x, "wn_group")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, mask, gl, w_in, b_in, w_rs, b_rs)):
+        if x.device.type == "cpu":
+            return wn_group_plain(x, mask, gl, w_in, b_in, w_rs, b_rs)
+        _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs)
         if mask.requires_grad:
             raise RuntimeError("wn_group: the backward kernel gives no gradient for the mask")
-        if any(t is not None and t.requires_grad for t in (x, gl, w_in, b_in, w_rs, b_rs)):
-            return _WNGroupFunction.apply(x, mask, gl, w_in, b_in, w_rs, b_rs)
+        return _WNGroupFunction.apply(x, mask, gl, w_in, b_in, w_rs, b_rs)
+    return torch.ops.tts.wn_group(x, mask, gl, w_in, b_in, w_rs, b_rs)
+
+
+def _wn_group_cpu(x, mask, gl, w_in, b_in, w_rs, b_rs):
+    return tuple(t.contiguous() for t in wn_group_plain(x, mask, gl, w_in, b_in, w_rs, b_rs))
+
+
+def _wn_group_fake(x, mask, gl, w_in, b_in, w_rs, b_rs):
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            torch.empty_like(x, memory_format=torch.contiguous_format))
+
+
+def _wn_group_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs):
+    """`tts::wn_group` on CUDA tensors: the forward kernel without saves."""
+    _check_cuda_args(x, mask, gl, w_in, b_in, w_rs, b_rs)
     return _forward_cuda(x, mask, gl, w_in, b_in, w_rs, b_rs, save=False)[:2]
 
 
 wn_group.launches = wn_group.launches_bf16 = 0
+build.define_op("wn_group", _wn_group_cpu, _wn_group_cuda, _wn_group_fake)
 
 
 def wn_stack(x, mask, gl: Optional[torch.Tensor], w_in, b_in, w_rs, b_rs,

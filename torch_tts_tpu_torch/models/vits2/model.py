@@ -12,7 +12,8 @@ aux, y_lengths) and the bucketed `max_frames` output with exact-length
 semantics; `forward` is the training forward and returns the JAX
 `__call__`'s 8-tuple, channels-last. Every random draw comes from an
 explicit `torch.Generator` (dropout masks included), or is passed in as a
-tensor.
+tensor; `infer`'s from the default generator when given `DEFAULT_RNG`, as
+in an exported program (`infer/export.py`, through `infer_body`).
 
 Multi-speaker models (`n_speakers > 1`) look up `emb_g(sid)` as g
 [B, gin, 1] and condition on it as the JAX model does: the text encoder
@@ -74,9 +75,17 @@ AVAILABLE_FLOW_TYPES = (
 )
 
 
+# `generator=DEFAULT_RNG` draws from torch's default generator of the
+# device (seeded by `torch.manual_seed`), as an exported program does: a
+# `torch.export` graph takes no generator, so it records plain `randn`s
+DEFAULT_RNG = object()
+
+
 def _normal(shape, like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
     if generator is None:
         raise ValueError("a torch.Generator (or the noise tensor) is required")
+    if generator is DEFAULT_RNG:
+        return torch.randn(shape, device=like.device, dtype=like.dtype)
     return torch.randn(shape, generator=generator, device=like.device, dtype=like.dtype)
 
 
@@ -541,7 +550,18 @@ class SynthesizerTrn(nn.Module):
         max_frames*hop, 1], attn [B, T_y, T_x], y_mask [B, T_y, 1], (z, z_p,
         m_p_e, logs_p_e) each [B, T_y, D], y_lengths [B]). Noise: sdp_noise
         [B, 2, T_x] and prior_noise [B, D, T_y], or drawn from `generator`
-        on the model's device."""
+        on the model's device (`DEFAULT_RNG`: the default generator). The
+        scales may be floats or 0-d tensors."""
+        return self.infer_body(x, x_lengths, sid, noise_scale, length_scale, noise_scale_w,
+                               max_frames, generator, sdp_noise, prior_noise)
+
+    def infer_body(self, x, x_lengths, sid=None, noise_scale: float = 1.0,
+                   length_scale: float = 1.0, noise_scale_w: float = 1.0,
+                   max_frames: int = 1000, generator: Optional[torch.Generator] = None,
+                   sdp_noise: Optional[torch.Tensor] = None,
+                   prior_noise: Optional[torch.Tensor] = None):
+        """`infer` outside inference mode, for `torch.export` (which refuses
+        inference tensors; `infer/export.py` traces it under no_grad)."""
         z_p, m_p_e, logs_p_e, g, y_mask, attn, y_lengths = self._prior(
             x, x_lengths, sid, noise_scale, length_scale, noise_scale_w, max_frames,
             generator, sdp_noise, prior_noise)

@@ -84,7 +84,8 @@ class _Int8Cache:
     made at first use and again when a weight parameter has changed: new
     storage or device (`.to()`), an in-place update (its version), or
     `load_state_dict` (which drops them). JAX folds them into constants
-    under jit."""
+    under jit. Under `torch.export` they are made in the traced graph, which
+    then quantizes the weights each call."""
 
     _q8 = None
 
@@ -92,6 +93,11 @@ class _Int8Cache:
         return (self.weight_g, self.weight_v) if hasattr(self, "weight_v") else (self.weight,)
 
     def int8_weights(self, make):
+        if torch.compiler.is_exporting():
+            # traced into the exported program, which runs under no_grad (the
+            # export splits a no_grad block of its own out of the graph, one
+            # pass over the whole graph a block)
+            return make()
         key = tuple((p.device, p.data_ptr(), None if p.is_inference() else p._version)
                     for p in self._weight_params())
         if self._q8 is None or self._q8[0] != key:
